@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import json
 import logging
-import math
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -39,7 +38,7 @@ from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
 from bio_diffusion_torch.models.distributions import NumNodesDistribution
 from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
 from bio_diffusion_torch.serve import MoleculeServer
-from bio_diffusion_torch.train.torch_import import load_reference_checkpoint
+from bio_diffusion_torch.train.torch_import import init_random_weights, load_reference_checkpoint
 
 log = logging.getLogger(__name__)
 
@@ -66,19 +65,6 @@ def serving_precision(cfg) -> str:
     explicit = trainer.get("precision") if isinstance(trainer, dict) else None
     value = explicit if explicit is not None else cfg.get("precision", "bf16")
     return "bf16" if str(value).lower() in ("bf16", "bfloat16") else "fp32"
-
-
-def init_random_weights(module: torch.nn.Module, seed: int) -> None:
-    """Draw every Linear's weight and bias from U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    (PyTorch's default Linear distribution) with a generator seeded by ``seed``."""
-    gen = torch.Generator().manual_seed(int(seed))
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, torch.nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features) if m.in_features > 0 else 0.0
-                m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound, generator=gen))
-                if m.bias is not None:
-                    m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound, generator=gen))
 
 
 def build_model(exp: ExperimentConfig, ckpt_path: Optional[str], device, seed: int = 0

@@ -1,0 +1,104 @@
+"""Dense molecule batches (numpy on the host, torch on the device).
+
+Copy of ``bio_diffusion_tpu/data/batch.py`` without jax: a
+``DenseMolBatch`` holds statically shaped padded arrays; collation pads every
+molecule of a batch to one node count (QM9: the dataset's 29, or a bucket).
+The compiled ``native_loader`` collation and the conditioning context of the
+JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class DenseMolBatch:
+    """Statically shaped molecule batch: ``x [B, N, 3]`` positions (padded
+    rows 0), ``one_hot [B, N, K]`` atom types, ``charges [B, N, 1]`` atomic
+    numbers, ``node_mask [B, N]`` 0/1; numpy arrays or torch tensors."""
+
+    x: object
+    one_hot: object
+    charges: object
+    node_mask: object
+
+    def to(self, device) -> "DenseMolBatch":
+        """float32 torch tensors on ``device``."""
+        return DenseMolBatch(*(torch.as_tensor(getattr(self, f.name), dtype=torch.float32).to(device)
+                               for f in dataclasses.fields(self)))
+
+
+def round_up(n: int, multiple: int) -> int:
+    if multiple <= 1:
+        return n
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def select_bucket(max_nodes: int, bucket_sizes: Optional[Sequence[int]], pad_to_multiple: int = 1) -> int:
+    """The padded node count of a batch."""
+    if bucket_sizes:
+        for b in sorted(bucket_sizes):
+            if max_nodes <= b:
+                return b
+        return max(bucket_sizes)
+    return round_up(max_nodes, pad_to_multiple)
+
+
+class DenseDataset:
+    """In-memory dense dataset: a dict of ``[M, Nmax(, .)]`` arrays
+    (positions, charges, one_hot, num_atoms, property columns)."""
+
+    def __init__(self, data: Dict[str, np.ndarray], included_species: np.ndarray):
+        self.data = data
+        self.included_species = np.asarray(included_species)
+
+    def __len__(self) -> int:
+        return len(self.data["num_atoms"])
+
+
+def iterate_dense_batches(
+    dataset: DenseDataset,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    shuffle: bool = True,
+    drop_last: bool = True,
+    pad_to: Optional[int] = None,
+    pad_to_multiple: int = 1,
+    bucket_sizes: Optional[Sequence[int]] = None,
+) -> Iterator[DenseMolBatch]:
+    """Yield numpy ``DenseMolBatch``es from a ``DenseDataset`` (shuffled by
+    ``rng`` when ``shuffle``), each padded to ``pad_to`` or to its bucket."""
+    m = len(dataset)
+    idx = np.arange(m)
+    if shuffle:
+        if rng is None:
+            raise ValueError("shuffle requires an rng")
+        rng.shuffle(idx)
+    positions = dataset.data["positions"]
+    charges = dataset.data["charges"]
+    one_hot = dataset.data["one_hot"]
+    for start in range(0, m, batch_size):
+        sel = idx[start: start + batch_size]
+        if len(sel) < batch_size and drop_last:
+            break
+        num_atoms = dataset.data["num_atoms"][sel]
+        n_pad = pad_to if pad_to is not None else select_bucket(
+            int(num_atoms.max()), bucket_sizes, pad_to_multiple)
+        b = len(sel)
+        x = np.zeros((b, n_pad, 3), dtype=np.float32)
+        oh = np.zeros((b, n_pad, one_hot.shape[-1]), dtype=np.float32)
+        ch = np.zeros((b, n_pad, 1), dtype=np.float32)
+        mask = np.zeros((b, n_pad), dtype=np.float32)
+        src_n = min(n_pad, positions.shape[1])
+        x[:, :src_n] = positions[sel][:, :src_n]
+        oh[:, :src_n] = one_hot[sel][:, :src_n]
+        ch[:, :src_n, 0] = charges[sel][:, :src_n]
+        mask[:, :src_n] = (charges[sel][:, :src_n] > 0).astype(np.float32)
+        x *= mask[..., None]  # missing nodes carry no geometry
+        oh *= mask[..., None]
+        yield DenseMolBatch(x=x, one_hot=oh, charges=ch, node_mask=mask)

@@ -1,16 +1,19 @@
-"""Equivariant variational diffusion (EVD): the sampling half.
+"""Equivariant variational diffusion (EVD): the training loss and the sampler.
 
 Port of ``bio_diffusion_tpu/models/diffusion.py``: the predefined gamma
-table, the sigma/alpha algebra, CoM-free noise, one ancestral reverse step,
-the final decode and the reverse loop.  Every function that draws noise takes
-an explicit ``torch.Generator`` and also accepts the raw standard-normal
-draws as a tensor (``noise``), so tests can pass in another framework's
-draws; raw draws are masked and CoM-projected exactly like fresh ones.
+table, the sigma/alpha algebra, CoM-free noise, the loss terms (L2 and VLB,
+KL prior, the L0 likelihoods, the two-pass L0 estimate for evaluation) and
+``assemble_nll``, one ancestral reverse step, the final decode and the
+reverse loop.  Every function that draws takes an explicit
+``torch.Generator`` and also accepts the draws as tensors (``noise``,
+``t_int``, ``eps_t``, ``eps_0``), so tests can pass in another framework's
+draws; raw normal draws are masked and CoM-projected exactly like fresh ones.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +24,22 @@ from bio_diffusion_torch.ops.geometry import centralize
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
 
 Tensor = torch.Tensor
+
+
+def cdf_standard_gaussian(x: Tensor) -> Tensor:
+    return 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def gaussian_kl(q_mu_minus_p_mu_squared: Tensor, q_sigma: Tensor, p_sigma: Tensor, d) -> Tensor:
+    """KL(N(q) || N(p)) integrated over ``d`` dimensions."""
+    return (d * torch.log(p_sigma / q_sigma)
+            + 0.5 * (d * q_sigma ** 2 + q_mu_minus_p_mu_squared) / (p_sigma ** 2)
+            - 0.5 * d)
+
+
+def sum_except_batch(values: Tensor) -> Tensor:
+    """Sum a ``[B, N, F]`` tensor over nodes and features -> ``[B]``."""
+    return values.sum(dim=(-1, -2))
 
 
 class EquivariantVariationalDiffusion(nn.Module):
@@ -88,6 +107,25 @@ class EquivariantVariationalDiffusion(nn.Module):
         alpha_t_given_s = torch.exp(0.5 * (log_alpha2_t - log_alpha2_s))
         return sigma2_t_given_s, torch.sqrt(sigma2_t_given_s), alpha_t_given_s
 
+    def subspace_dimensionality(self, num_nodes: Tensor) -> Tensor:
+        return (num_nodes - 1) * self.num_x_dims
+
+    def normalize(self, x: Tensor, h_cat: Tensor, h_int: Tensor, node_mask: Tensor):
+        nv = self.diffusion_cfg.norm_values
+        nb = self.diffusion_cfg.norm_biases
+        m = node_mask.to(x.dtype)[..., None]
+        x = x / nv[0]
+        h_cat = (h_cat - nb[1]) / nv[1] * m
+        h_int = (h_int - nb[2]) / nv[2]
+        if self.include_charges:
+            h_int = h_int * m
+        return x, h_cat, h_int
+
+    def pack_xh(self, x: Tensor, h_cat: Tensor, h_int: Tensor) -> Tensor:
+        if self.include_charges:
+            return torch.cat([x, h_cat, h_int], dim=-1)
+        return torch.cat([x, h_cat], dim=-1)
+
     def unnormalize(self, x: Tensor, node_mask: Tensor, h_cat: Tensor, h_int: Tensor):
         nv = self.diffusion_cfg.norm_values
         nb = self.diffusion_cfg.norm_biases
@@ -117,6 +155,146 @@ class EquivariantVariationalDiffusion(nn.Module):
         m = node_mask.to(noise.dtype)[..., None]
         _, zx = centralize(noise[..., :nx] * m, node_mask)
         return torch.cat([zx, noise[..., nx:] * m], dim=-1)
+
+    # -- training loss -----------------------------------------------------------
+
+    def compute_noised_representation(self, xh: Tensor, node_mask: Tensor, gamma_t: Tensor,
+                                      generator: Optional[torch.Generator] = None,
+                                      noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        alpha_t = self.alpha(gamma_t)[..., None]
+        sigma_t = self.sigma(gamma_t)[..., None]
+        eps = self.sample_noise(node_mask, generator, noise=noise)
+        return alpha_t * xh + sigma_t * eps, eps
+
+    def compute_kl_prior(self, xh: Tensor, node_mask: Tensor, num_nodes: Tensor) -> Tensor:
+        """KL(q(z_T | x) || N(0, 1))."""
+        b = xh.shape[0]
+        gamma_T = self.gamma(torch.ones((b, 1), dtype=xh.dtype, device=xh.device))
+        alpha_T = self.alpha(gamma_T)[..., None]
+        mu_T = alpha_T * xh
+        nx = self.num_x_dims
+        mu_T_x, mu_T_h = mu_T[..., :nx], mu_T[..., nx:]
+        sigma_T = self.sigma(gamma_T)[..., 0]
+        kl_x = gaussian_kl(sum_except_batch(mu_T_x ** 2), sigma_T, torch.ones_like(sigma_T),
+                           self.subspace_dimensionality(num_nodes))
+        m = node_mask.to(xh.dtype)[..., None]
+        # the reference integrates the h-KL with d=1; kept
+        kl_h = gaussian_kl(sum_except_batch((mu_T_h ** 2) * m), sigma_T, torch.ones_like(sigma_T), 1.0)
+        return kl_x + kl_h
+
+    def log_constants_p_x_given_z0(self, num_nodes: Tensor, gamma_0: Tensor) -> Tensor:
+        d = self.subspace_dimensionality(num_nodes)
+        log_sigma_x = 0.5 * gamma_0[..., 0]
+        return d * (-log_sigma_x - 0.5 * math.log(2 * math.pi))
+
+    def log_pxh_given_z0_without_constants(self, h_cat_norm: Tensor, h_int_norm: Tensor, z_0: Tensor,
+                                           eps: Tensor, net_out: Tensor, gamma_0: Tensor,
+                                           node_mask: Tensor, epsilon: float = 1e-10
+                                           ) -> Tuple[Tensor, Tensor]:
+        """L0 decoder likelihoods: Gaussian L2 for x, CDF-integral
+        likelihoods for the one-hot types and the integer charges."""
+        nv = self.diffusion_cfg.norm_values
+        nb = self.diffusion_cfg.norm_biases
+        nx = self.num_x_dims
+        m = node_mask.to(z_0.dtype)[..., None]
+        log_p_x_given_z0 = -0.5 * sum_except_batch((eps[..., :nx] - net_out[..., :nx]) ** 2)
+        if self.include_charges:
+            z_h_cat, z_h_int = z_0[..., nx:-1], z_0[..., -1:]
+        else:
+            z_h_cat = z_0[..., nx:]
+        sigma_0 = self.sigma(gamma_0)[..., None]
+        sigma_0_cat = sigma_0 * nv[1]
+        sigma_0_int = sigma_0 * nv[2]
+        onehot = h_cat_norm * nv[1] + nb[1]
+        estimated_h_cat = z_h_cat * nv[1] + nb[1]
+        if self.include_charges:
+            h_integer = torch.round(h_int_norm * nv[2] + nb[2])
+            centered = h_integer - (z_h_int * nv[2] + nb[2])
+            log_ph_integer = torch.log(
+                cdf_standard_gaussian((centered + 0.5) / sigma_0_int)
+                - cdf_standard_gaussian((centered - 0.5) / sigma_0_int)
+                + epsilon)
+            log_ph_integer = sum_except_batch(log_ph_integer * m)
+        else:
+            log_ph_integer = torch.zeros(z_0.shape[0], dtype=z_0.dtype, device=z_0.device)
+        centered_h_cat = estimated_h_cat - 1.0
+        log_ph_cat_proportional = torch.log(
+            cdf_standard_gaussian((centered_h_cat + 0.5) / sigma_0_cat)
+            - cdf_standard_gaussian((centered_h_cat - 0.5) / sigma_0_cat)
+            + epsilon)
+        log_z = torch.logsumexp(log_ph_cat_proportional, dim=-1, keepdim=True)
+        log_ph_cat = sum_except_batch((log_ph_cat_proportional - log_z) * onehot * m)
+        return log_p_x_given_z0, log_ph_integer + log_ph_cat
+
+    def loss_terms(self, x: Tensor, h_cat: Tensor, h_int: Tensor, node_mask: Tensor, training: bool,
+                   generator: Optional[torch.Generator] = None, t_int: Optional[Tensor] = None,
+                   eps_t: Optional[Tensor] = None, eps_0: Optional[Tensor] = None
+                   ) -> Dict[str, Tensor]:
+        """All per-graph loss/NLL terms; ``x`` must already be CoM-free.
+
+        Draws come from ``generator`` unless given: ``t_int [B, 1]`` (integer
+        timesteps, as floats), ``eps_t`` and (evaluation) ``eps_0``, raw normal
+        draws ``[B, N, 3+F]``.  As in the reference, the L2 error sums the h
+        residual over all node rows, padded ones included (eps is 0 there, so
+        they contribute ||net_h||^2)."""
+        dc = self.diffusion_cfg
+        if dc.self_condition:
+            raise NotImplementedError("self-conditioning is not ported yet")
+        b = node_mask.shape[0]
+        num_nodes = node_mask.to(x.dtype).sum(dim=-1)
+        x, h_cat, h_int = self.normalize(x, h_cat, h_int, node_mask)
+        xh = self.pack_xh(x, h_cat, h_int)
+        l2_train = training and dc.loss_type == "l2"
+
+        delta_log_px = -self.subspace_dimensionality(num_nodes) * math.log(dc.norm_values[0])
+        if l2_train:
+            delta_log_px = torch.zeros_like(delta_log_px)
+        if t_int is None:
+            t_int = torch.randint(0 if training else 1, self.T + 1, (b, 1), generator=generator,
+                                  device=x.device)
+        t_int = t_int.to(x.dtype)
+        t_is_zero = (t_int == 0).to(x.dtype)
+        s = (t_int - 1.0) / self.T
+        t = t_int / self.T
+        gamma_s, gamma_t = self.gamma(s), self.gamma(t)
+
+        z_t, eps_t = self.compute_noised_representation(xh, node_mask, gamma_t, generator, eps_t)
+        net_out = self.dynamics_network(z_t, t, node_mask)
+        error_t = sum_except_batch((eps_t - net_out) ** 2)
+        snr_weight = (torch.ones_like(error_t) if l2_train
+                      else (self.snr(gamma_s - gamma_t) - 1.0)[..., 0])
+        gamma_0 = self.gamma(torch.zeros((b, 1), dtype=x.dtype, device=x.device))
+        neg_log_constants = -self.log_constants_p_x_given_z0(num_nodes, gamma_0)
+        if l2_train:
+            neg_log_constants = torch.zeros_like(neg_log_constants)
+        kl_prior = self.compute_kl_prior(xh, node_mask, num_nodes)
+
+        if training:
+            log_p_x, log_p_h = self.log_pxh_given_z0_without_constants(
+                h_cat, h_int, z_t, eps_t, net_out, gamma_t, node_mask)
+            loss_0_x = -log_p_x * t_is_zero[..., 0]
+            loss_0_h = -log_p_h * t_is_zero[..., 0]
+            error_t = error_t * (1.0 - t_is_zero[..., 0])
+        else:
+            # a separate z_0 pass: a lower-variance L0 estimate
+            t_zeros = torch.zeros_like(s)
+            z_0, eps_0 = self.compute_noised_representation(xh, node_mask, gamma_0, generator, eps_0)
+            net_out_0 = self.dynamics_network(z_0, t_zeros, node_mask)
+            log_p_x, log_p_h = self.log_pxh_given_z0_without_constants(
+                h_cat, h_int, z_0, eps_0, net_out_0, gamma_0, node_mask)
+            loss_0_x, loss_0_h = -log_p_x, -log_p_h
+
+        nx = self.num_x_dims
+        m = node_mask.to(x.dtype)
+        count = torch.clamp(m.sum(dim=-1), min=1.0)
+        eps_hat_x = ((net_out[..., :nx].abs().mean(dim=-1) * m).sum(dim=-1) / count).mean()
+        eps_hat_h = ((net_out[..., nx:].abs().mean(dim=-1) * m).sum(dim=-1) / count).mean()
+        return {
+            "delta_log_px": delta_log_px, "error_t": error_t, "SNR_weight": snr_weight,
+            "loss_0_x": loss_0_x, "loss_0_h": loss_0_h, "neg_log_constants": neg_log_constants,
+            "kl_prior": kl_prior, "t_int": t_int[..., 0], "num_nodes": num_nodes,
+            "eps_hat_x": eps_hat_x, "eps_hat_h": eps_hat_h,
+        }
 
     # -- reverse process -----------------------------------------------------------
 
@@ -198,3 +376,30 @@ class EquivariantVariationalDiffusion(nn.Module):
         if self.include_charges:
             return torch.cat([x, one_hot, charges], dim=-1)
         return torch.cat([x, one_hot], dim=-1)
+
+
+def assemble_nll(terms: Dict[str, Tensor], loss_type: str, training: bool, T: int, num_x_dims: int,
+                 num_node_scalar_features: int, log_pN: Tensor,
+                 norm_training_by_max_nodes: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Combine the loss terms into the objective per graph -> ``(nll [B],
+    info dict of batch-mean scalars)``."""
+    error_t = terms["error_t"]
+    num_nodes = terms["num_nodes"]
+    if training and loss_type == "l2":
+        effective = torch.max(num_nodes) if norm_training_by_max_nodes else num_nodes
+        denom = (num_x_dims + num_node_scalar_features) * effective
+        loss_t = 0.5 * (error_t / denom)
+        loss_0 = terms["loss_0_x"] / denom + terms["loss_0_h"]
+    else:
+        loss_t = T * 0.5 * terms["SNR_weight"] * error_t
+        loss_0 = terms["loss_0_x"] + terms["loss_0_h"] + terms["neg_log_constants"]
+    nll = loss_t + loss_0 + terms["kl_prior"]
+    nll = nll - terms["delta_log_px"]
+    nll = nll - log_pN
+    info = {
+        "loss": nll.mean(), "loss_t": loss_t.mean(), "loss_0": loss_0.mean(),
+        "SNR_weight": terms["SNR_weight"].mean(), "kl_prior": terms["kl_prior"].mean(),
+        "delta_log_px": terms["delta_log_px"].mean(), "neg_log_const_0": terms["neg_log_constants"].mean(),
+        "log_pN": log_pN.mean(), "eps_hat_x": terms["eps_hat_x"], "eps_hat_h": terms["eps_hat_h"],
+    }
+    return nll, info

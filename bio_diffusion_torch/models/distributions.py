@@ -1,8 +1,8 @@
-"""Node-count and atom-type distributions used by sampling (host-side numpy).
+"""Node-count and atom-type distributions (host-side numpy).
 
-Copy of the sampling half of ``bio_diffusion_tpu/models/distributions.py``
-(which imports jax through its package).  Draws take a
-``np.random.Generator``.
+Copy of ``NumNodesDistribution`` and ``CategoricalDistribution`` from
+``bio_diffusion_tpu/models/distributions.py`` (which imports jax through its
+package).  Draws take a ``np.random.Generator``.
 """
 
 from __future__ import annotations
@@ -13,18 +13,27 @@ import numpy as np
 
 
 class NumNodesDistribution:
-    """Categorical over molecule sizes from a dataset histogram."""
+    """Categorical over molecule sizes from a dataset histogram.
 
-    def __init__(self, histogram: Dict[int, int]):
+    ``log_prob_table`` is a float32 array indexed by n (log p(N) for the
+    training objective), ``log(eps)`` at sizes the histogram lacks."""
+
+    def __init__(self, histogram: Dict[int, int], eps: float = 1e-30):
         nodes = np.array(sorted(int(k) for k in histogram), dtype=np.int64)
         counts = np.array([histogram[int(n)] for n in nodes], dtype=np.float64)
         self.num_nodes = nodes
         self.prob = counts / counts.sum()
         self.max_n = int(nodes.max())
+        table = np.full(self.max_n + 1, eps, dtype=np.float64)
+        table[nodes] = self.prob + eps
+        self.log_prob_table = np.log(table).astype(np.float32)
 
     def sample(self, n_samples: int, rng: np.random.Generator) -> np.ndarray:
         idx = rng.choice(len(self.num_nodes), size=n_samples, p=self.prob)
         return self.num_nodes[idx]
+
+    def log_prob(self, batch_n_nodes: np.ndarray) -> np.ndarray:
+        return self.log_prob_table[np.asarray(batch_n_nodes, dtype=np.int64)]
 
 
 class CategoricalDistribution:

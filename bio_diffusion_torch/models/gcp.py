@@ -67,15 +67,11 @@ class GCP2(nn.Module):
             self.vector_up = nn.Linear(self.hidden_dim, v_out, bias=False)
             self.vector_out_scale = nn.Linear(s_out, v_out)
 
-    def weights(self, dtype=None) -> Dict[str, Tensor]:
-        """Detached parameters keyed by state_dict name, cast to ``dtype``."""
-        return {k: p.detach().to(dtype) for k, p in self.named_parameters()}
-
     def forward(self, s: Tensor, v_cm: Optional[Tensor], frames: Tensor,
                 weights: Optional[Dict[str, Tensor]] = None) -> Tuple[Tensor, Optional[Tensor]]:
         """``(s [..., S_in], v_cm [..., 3, V_in], frames [..., 3, 3])`` ->
-        ``(s_out, v_out [..., 3, V_out] or None)``; ``weights`` (from
-        :meth:`weights`) overrides the parameters, e.g. with cast copies."""
+        ``(s_out, v_out [..., 3, V_out] or None)``; ``weights`` (state_dict
+        name -> tensor) overrides the parameters, e.g. with cast copies."""
         w = weights if weights is not None else dict(self.named_parameters())
         dt = s.dtype
         parts = [s]

@@ -4,10 +4,11 @@ Port of ``bio_diffusion_tpu/models/gcpnet.py`` (module tree and parameter
 names: ``GCPEmbedding``, ``GCPMessagePassing``, ``GCPInteractions``,
 ``GCPNetDynamics``) with the packed forward of
 ``bio_diffusion_tpu/models/gcpnet_fast.py`` (``_featurize``, ``_build_epack``,
-``_node_update``, ``_decode_outputs``, ``make_fast_dynamics``): geometry in
-float32, the network body in the compute dtype, and every message-passing
-layer through :func:`bio_diffusion_torch.ops.message_layer.fused_message_layer`
-(the CUDA kernel on CUDA tensors).
+``_node_update``, ``_decode_outputs``, ``make_fast_dynamics`` and the
+trainable ``fast_forward_trainable``): geometry in float32, the network body
+in the compute dtype, and every message-passing layer through
+:func:`bio_diffusion_torch.ops.message_layer.message_layer` (the CUDA kernels,
+forward and backward, on CUDA tensors).
 
 The port covers the configuration the fast path supports (GCP2 with vector
 gates, no norm/dropout/ablations, one feedforward GCP, scalar message
@@ -31,7 +32,7 @@ from bio_diffusion_torch.ops.geometry import (
     build_edge_mask, centralize, edge_features, localize, node_mean_frames, orientations,
 )
 from bio_diffusion_torch.ops.message_layer import (
-    fused_message_layer, pack_chain_weights, pack_gcp1_weights,
+    cast_parameters, detached, message_layer, pack_message_stack,
 )
 
 Tensor = torch.Tensor
@@ -108,10 +109,12 @@ class GCPNetDynamics(nn.Module):
     """eps-prediction denoiser: ``(xh [B, N, 3+F], t [B, 1], node_mask [B, N])
     -> [B, N, 3+F]`` (CoM-free velocity | eps_h), float32 out.
 
-    ``compute_dtype`` ("bfloat16" or None) is the network body's dtype.  The
-    forward reads a packed, cast copy of the weights made on first use after
-    construction, ``to()`` or ``load_state_dict``; weights changed in place
-    otherwise are not seen (this module serves, it does not train)."""
+    ``compute_dtype`` ("bfloat16" or None) is the network body's dtype.  With
+    gradients enabled (training) the forward packs the live parameters on
+    every call, so gradients reach them; without (serving, evaluation) it
+    reads a detached packed copy, rebuilt whenever a parameter changed (the
+    copy is keyed on the parameters' version counters, which every in-place
+    update bumps: optimizer steps, EMA updates, ``load_state_dict``)."""
 
     def __init__(self, model_cfg: ModelConfig, module_cfg: ModuleConfig, layer_cfg: LayerConfig,
                  diffusion_cfg: DiffusionConfig, dataloader_cfg: DataloaderConfig,
@@ -139,43 +142,48 @@ class GCPNetDynamics(nn.Module):
         ])
         self.scalar_node_projection_gcp = GCP2(node_dims, (h_in + h_cond, 0), (None, None))
         self._packed: Optional[Dict[str, Any]] = None
-        self.register_load_state_dict_post_hook(lambda module, keys: module._drop_packed())
-
-    def _drop_packed(self) -> None:
-        self._packed = None
+        self._packed_key: Optional[tuple] = None
 
     def _apply(self, fn, *args, **kwargs):
+        # moving or casting replaces the parameters' data without bumping
+        # their version counters
         self._packed = None
         return super()._apply(fn, *args, **kwargs)
 
+    def weights(self) -> Dict[str, Any]:
+        """Every weight in the compute dtype, message layers packed for the
+        kernels; built from the live parameters (differentiable)."""
+        cdt, mc = self.compute_dtype, self.model_cfg
+        layers = []
+        for layer in self.interaction_layers:
+            g1, chain = pack_message_stack(layer.interaction, mc.h_hidden_dim, mc.chi_hidden_dim,
+                                           mc.xi_hidden_dim, cdt)
+            layers.append({
+                "g1": g1,
+                "chain": chain,
+                "ff": cast_parameters(layer.feedforward_network[0], cdt),
+                "pos": cast_parameters(layer.node_position_update_gcp, cdt),
+            })
+        return {
+            "edge": cast_parameters(self.gcp_embedding.edge_embedding, cdt),
+            "node": cast_parameters(self.gcp_embedding.node_embedding, cdt),
+            "layers": layers,
+            "proj": cast_parameters(self.scalar_node_projection_gcp, cdt),
+        }
+
     def packed_weights(self) -> Dict[str, Any]:
-        """Weights in the compute dtype, message layers packed for the kernel."""
-        if self._packed is None:
-            cdt, mc = self.compute_dtype, self.model_cfg
+        """:meth:`weights` detached and contiguous, cached until a parameter changes."""
+        key = tuple(p._version for p in self.parameters())
+        if self._packed is None or self._packed_key != key:
             with torch.no_grad():
-                layers = []
-                for layer in self.interaction_layers:
-                    mp = layer.interaction
-                    layers.append({
-                        "g1": pack_gcp1_weights(mp.message_fusion[0], mc.h_hidden_dim,
-                                                mc.chi_hidden_dim, mc.xi_hidden_dim, cdt),
-                        "chain": pack_chain_weights(mp.message_fusion[1:],
-                                                    mp.scalar_message_attention[0], cdt),
-                        "ff": layer.feedforward_network[0].weights(cdt),
-                        "pos": layer.node_position_update_gcp.weights(cdt),
-                    })
-                self._packed = {
-                    "edge": self.gcp_embedding.edge_embedding.weights(cdt),
-                    "node": self.gcp_embedding.node_embedding.weights(cdt),
-                    "layers": layers,
-                    "proj": self.scalar_node_projection_gcp.weights(cdt),
-                }
+                self._packed = detached(self.weights())
+            self._packed_key = key
         return self._packed
 
     def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor) -> Tensor:
         mc, dl = self.model_cfg, self.dataloader_cfg
         cdt = self.compute_dtype
-        w = self.packed_weights()
+        w = self.weights() if torch.is_grad_enabled() else self.packed_weights()
         nx = dl.num_x_dims
         b, n = node_mask.shape
         v_dim, ve_dim = mc.chi_hidden_dim, mc.xi_hidden_dim
@@ -209,7 +217,7 @@ class GCPNetDynamics(nn.Module):
         x = x_cent
         node_m = mask_f[..., None].to(cdt)
         for layer, lw in zip(self.interaction_layers, w["layers"]):
-            s_agg, v_agg = fused_message_layer(
+            s_agg, v_agg = message_layer(
                 s_node, v_node.reshape(b, n, 3 * v_dim), epack, lw["g1"], lw["chain"], ve_dim=ve_dim)
             s_ff, v_ff = layer.feedforward_network[0](
                 torch.cat([s_agg, s_node], dim=-1),

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``bio_diffusion_torch/build/lib<name>-<digest>.so`` (the directory is
-git-ignored; the digest covers the source and the flags, so an edited source
-never loads a stale library).  Nothing is built when a module is imported.
+git-ignored; the digest covers the source, every header it includes with
+``#include "..."`` and the flags, so an edited source or header never loads a
+stale library).  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -11,9 +12,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -46,25 +49,51 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of a source, the local headers it includes (transitively) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [Path(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(str(path.name).encode() + b"\0" + text)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+            todo.append(path.parent / inc.decode())
+    return h.hexdigest()[:16]
+
+
+def _build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is built -> its path."""
+    src = SOURCE_DIR / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+        build_log[name] = (proc.stdout + proc.stderr).strip()
+    return out
+
+
+def load_libraries(*names: str) -> List[ctypes.CDLL]:
+    """Compile ``csrc/<name>.cu`` for each name that needs it, one nvcc per
+    source, all started together; return the loaded libraries.  A failed
+    build raises once every compiler has ended."""
+    with _lock:
+        todo = [n for n in names if n not in _libraries]
+        with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+            paths = list(pool.map(_build, todo))
+        for name, path in zip(todo, paths):
+            _libraries[name] = ctypes.CDLL(str(path))
+        return [_libraries[n] for n in names]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    with _lock:
-        if name in _libraries:
-            return _libraries[name]
-        src = SOURCE_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)
-            build_log[name] = (proc.stdout + proc.stderr).strip()
-        lib = ctypes.CDLL(str(out))
-        _libraries[name] = lib
-        return lib
+    return load_libraries(name)[0]

@@ -1,8 +1,9 @@
 """One GCPNet message-passing layer on packed inputs: packing, plain version, kernel.
 
 Counterpart of ``bio_diffusion_tpu/ops/pallas/gcp_kernel.py``
-(``pack_gcp1_weights``, ``pack_chain_weights``, ``fused_message_layer``) and
-of its plain math ``models/gcpnet_fast.py::message_layer_reference``.
+(``pack_gcp1_weights``, ``fused_message_layer``, ``fused_message_layer_bwd``)
+and of ``models/gcpnet_fast.py`` (``pack_gcp1_weights_jnp``,
+``pack_chain_weights_jnp``, the plain math ``message_layer_reference``).
 
 Layouts (shared with the JAX package):
 
@@ -24,7 +25,7 @@ raises for anything else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 # launches of each hand-written kernel, counted where the launch happens
-launch_counts: Dict[str, int] = {"message_layer": 0}
+launch_counts: Dict[str, int] = {"message_layer": 0, "message_layer_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -52,24 +53,24 @@ def _bd3(m: Tensor) -> Tensor:
     return torch.block_diag(m, m, m)
 
 
-def _t(w: Tensor, dtype) -> Tensor:
-    """A torch ``[out, in]`` weight as a contiguous ``[in, out]`` matrix."""
-    return w.detach().t().to(dtype).contiguous()
+def _t(w: Tensor) -> Tensor:
+    """A torch ``[out, in]`` weight as an ``[in, out]`` matrix (differentiable)."""
+    return w.t()
 
 
-def pack_gcp1_weights(gcp, s_dim: int, v_dim: int, ve_dim: int,
-                      dtype=torch.float32) -> Dict[str, Tensor]:
-    """Split and block-diagonalize the first message GCP's weights.
+def pack_gcp1(w: Dict[str, Tensor], s_dim: int, v_dim: int, ve_dim: int) -> Dict[str, Tensor]:
+    """Split and block-diagonalize the first message GCP's weights, keeping
+    the autograd graph (counterpart of ``gcpnet_fast.py::pack_gcp1_weights_jnp``).
 
-    ``gcp`` is the ``message_fusion.0`` GCP2 module (the same weights serve
-    the virtual concat [node_i | edge | node_j]).  Returns contiguous
-    ``[in, out]`` matrices keyed as in the JAX package."""
-    wd = _t(gcp.vector_down.weight, dtype)  # [2V+Ve, H]
-    wdf = _t(gcp.vector_down_frames.weight, dtype)  # [2V+Ve, 3]
-    ws = _t(gcp.scalar_out.weight, dtype)  # [2S+Se+H+9, S]
+    ``w`` maps the GCP2's state_dict names to tensors already in the compute
+    dtype (e.g. its live parameters, cast).  Returns ``[in, out]`` matrices
+    keyed as in the JAX package."""
+    wd = _t(w["vector_down.weight"])  # [2V+Ve, H]
+    wdf = _t(w["vector_down_frames.weight"])  # [2V+Ve, 3]
+    ws = _t(w["scalar_out.weight"])  # [2S+Se+H+9, S]
     h = wd.shape[1]
     se_dim = ws.shape[0] - 2 * s_dim - h - 9
-    rep = _rep3(dtype).to(wd.device)
+    rep = _rep3(wd.dtype).to(wd.device)
     parts_d = (wd[:v_dim], wd[v_dim:v_dim + ve_dim], wd[v_dim + ve_dim:])
     parts_f = (wdf[:v_dim] @ rep, wdf[v_dim:v_dim + ve_dim] @ rep, wdf[v_dim + ve_dim:] @ rep)
     wvi, wve, wvj = (torch.cat([_bd3(d), _bd3(f)], dim=1) for d, f in zip(parts_d, parts_f))
@@ -85,37 +86,59 @@ def pack_gcp1_weights(gcp, s_dim: int, v_dim: int, ve_dim: int,
             ws[2 * s_dim + se_dim: 2 * s_dim + se_dim + h],
             ws[2 * s_dim + se_dim + h:],
         ], dim=0),
-        "bs": gcp.scalar_out.bias.detach().to(dtype),
-        "wu_bd": _bd3(_t(gcp.vector_up.weight, dtype)),  # [3H, 3V]
-        "wg": _t(gcp.vector_out_scale.weight, dtype),  # [S, V]
-        "bg": gcp.vector_out_scale.bias.detach().to(dtype),
+        "bs": w["scalar_out.bias"],
+        "wu_bd": _bd3(_t(w["vector_up.weight"])),  # [3H, 3V]
+        "wg": _t(w["vector_out_scale.weight"]).contiguous(),  # [S, V]
+        "bg": w["vector_out_scale.bias"],
     }
 
 
-def pack_chain_weights(gcps, attention: torch.nn.Linear, dtype=torch.float32) -> Tuple[Tensor, ...]:
-    """Stack the residual chain GCPs (``message_fusion.1..``) and the
-    attention head into ``(w_comb, ws, bs, wu_bd, wg, bg, wattn, battn)``:
+def pack_chain(gcps: Sequence[Dict[str, Tensor]], attention: Dict[str, Tensor]) -> Tuple[Tensor, ...]:
+    """Stack the residual chain GCPs' weights (state_dict names -> tensors in
+    the compute dtype) and the attention head's (``weight``, ``bias``) into
+    ``(w_comb, ws, bs, wu_bd, wg, bg, wattn, battn)``, keeping the autograd
+    graph (counterpart of ``gcpnet_fast.py::pack_chain_weights_jnp``):
     ``w_comb [G, 3V, 3H+27]`` = [bd3(vector_down) | bd3(vector_down_frames @
     rep3)], ``wu_bd [G, 3H, 3V]`` = bd3(vector_up)."""
-    def t(w):
-        return _t(w, dtype)
-
-    rep = None
     w_comb, ws, bs, wu_bd, wg, bg = [], [], [], [], [], []
-    for gcp in gcps:
-        wd = t(gcp.vector_down.weight)
-        if rep is None:
-            rep = _rep3(dtype).to(wd.device)
-        w_comb.append(torch.cat([_bd3(wd), _bd3(t(gcp.vector_down_frames.weight) @ rep)], dim=1))
-        ws.append(t(gcp.scalar_out.weight))
-        bs.append(gcp.scalar_out.bias.detach().to(dtype))
-        wu_bd.append(_bd3(t(gcp.vector_up.weight)))
-        wg.append(t(gcp.vector_out_scale.weight))
-        bg.append(gcp.vector_out_scale.bias.detach().to(dtype))
+    for w in gcps:
+        wd = _t(w["vector_down.weight"])
+        rep = _rep3(wd.dtype).to(wd.device)
+        w_comb.append(torch.cat([_bd3(wd), _bd3(_t(w["vector_down_frames.weight"]) @ rep)], dim=1))
+        ws.append(_t(w["scalar_out.weight"]))
+        bs.append(w["scalar_out.bias"])
+        wu_bd.append(_bd3(_t(w["vector_up.weight"])))
+        wg.append(_t(w["vector_out_scale.weight"]))
+        bg.append(w["vector_out_scale.bias"])
     return (
         torch.stack(w_comb), torch.stack(ws), torch.stack(bs), torch.stack(wu_bd),
-        torch.stack(wg), torch.stack(bg), t(attention.weight), attention.bias.detach().to(dtype),
+        torch.stack(wg), torch.stack(bg), _t(attention["weight"]).contiguous(), attention["bias"],
     )
+
+
+def cast_parameters(module: torch.nn.Module, dtype) -> Dict[str, Tensor]:
+    """A module's parameters by state_dict name, cast to ``dtype`` (live: the
+    cast is part of the autograd graph)."""
+    return {k: p.to(dtype) for k, p in module.named_parameters()}
+
+
+def pack_message_stack(mp: torch.nn.Module, s_dim: int, v_dim: int, ve_dim: int,
+                       dtype=torch.float32) -> Tuple[Dict[str, Tensor], Tuple[Tensor, ...]]:
+    """A message stack's (``GCPMessagePassing``) live parameters cast to
+    ``dtype`` -> ``(g1, chain)`` for the layer, keeping the autograd graph."""
+    g1 = pack_gcp1(cast_parameters(mp.message_fusion[0], dtype), s_dim, v_dim, ve_dim)
+    chain = pack_chain([cast_parameters(g, dtype) for g in mp.message_fusion[1:]],
+                       cast_parameters(mp.scalar_message_attention[0], dtype))
+    return g1, chain
+
+
+def detached(tree):
+    """A nest of dicts, lists and tuples of tensors, detached and contiguous."""
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(detached(v) for v in tree)
+    return tree.detach().contiguous()
 
 
 def _safe_norm_last(x2_sum: Tensor, eps: float = 1e-8) -> Tensor:
@@ -179,25 +202,44 @@ def message_layer_plain(s_node: Tensor, v_node: Tensor, epack: Tensor,
     return s.sum(dim=2), v.sum(dim=2)
 
 
-_C_FUNCTIONS = {torch.float32: "message_layer_f32", torch.bfloat16: "message_layer_bf16"}
+G1_KEYS = ("wvi", "wvj", "wve", "wsi", "wsj", "wsx", "bs", "wu_bd", "wg", "bg")
+CHAIN_KEYS = ("w_comb", "wsc", "bsc", "wu_bd", "wgc", "bgc", "wattn", "battn")
 
 
-def _kernel_function(dtype):
-    from bio_diffusion_torch.ops.build import load_library
-
-    lib = load_library("message_layer")
-    fn = getattr(lib, _C_FUNCTIONS[dtype])
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def bwd_outputs(out) -> list:
+    """The backward's five outputs as one list of ``(name, tensor)``: the node
+    and edge cotangents, then the 18 weight grads."""
+    d_s, d_v, d_ep, d_g1, d_chain = out
+    return ([("d_s_node", d_s), ("d_v_node", d_v), ("d_epack", d_ep)]
+            + [(f"d_g1[{k}]", d_g1[k]) for k in G1_KEYS]
+            + [(f"d_chain[{k}]", t) for k, t in zip(CHAIN_KEYS, d_chain)])
 
 
-def _message_layer_cuda(s_node, v_node, epack, g1, chain, ve_dim):
+def message_layer_bwd_plain(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor],
+                            chain: tuple, cotangents: Tuple[Tensor, Tensor], *, ve_dim: int):
+    """Plain PyTorch backward of the layer: autograd through
+    :func:`message_layer_plain`, a recompute (as the JAX fallback VJP).
+
+    Returns ``(d_s_node, d_v_node, d_epack, d_g1 dict, d_chain tuple)`` with
+    each cotangent in its primal's dtype."""
+    prim = [s_node, v_node, epack] + [g1[k] for k in G1_KEYS] + list(chain)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in prim]
+        out = message_layer_plain(leaves[0], leaves[1], leaves[2], dict(zip(G1_KEYS, leaves[3:13])),
+                                  tuple(leaves[13:]), ve_dim=ve_dim)
+        grads = torch.autograd.grad(out, leaves, cotangents, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    return grads[0], grads[1], grads[2], dict(zip(G1_KEYS, grads[3:13])), tuple(grads[13:])
+
+
+def _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim, cotangents=None):
+    """Shapes, dtype and device of a layer call (and of its output
+    cotangents) -> its widths; raises ValueError on anything the kernels do
+    not take."""
     b, n, s_dim = s_node.shape
     dt = s_node.dtype
-    if dt not in _C_FUNCTIONS:
-        raise TypeError(f"the message-layer kernel takes float32 or bfloat16, not {dt}")
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the message-layer kernels take float32 or bfloat16, not {dt}")
     v3 = v_node.shape[-1]
     v_dim = v3 // 3
     h1 = g1["wu_bd"].shape[0] // 3
@@ -205,7 +247,6 @@ def _message_layer_cuda(s_node, v_node, epack, g1, chain, ve_dim):
     w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn = chain
     num_gcps = w_comb.shape[0]
     hc = (w_comb.shape[2] - 27) // 3
-    p = epack.shape[-1]
     expected = {
         "v_node": (v_node, (b, n, v3)),
         "epack": (epack, (b, n * n, se + 3 * ve_dim + 10)),
@@ -221,6 +262,9 @@ def _message_layer_cuda(s_node, v_node, epack, g1, chain, ve_dim):
         "wgc": (wgc, (num_gcps, s_dim, v_dim)), "bgc": (bgc, (num_gcps, v_dim)),
         "wattn": (wattn, (s_dim, 1)), "battn": (battn, (1,)),
     }
+    if cotangents is not None:
+        expected["d_s_agg"] = (cotangents[0], (b, n, s_dim))
+        expected["d_v_agg"] = (cotangents[1], (b, n, v3))
     for name, (t, shape) in expected.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
@@ -228,17 +272,45 @@ def _message_layer_cuda(s_node, v_node, epack, g1, chain, ve_dim):
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {dt} on {s_node.device}")
     if not 0 < b <= 65535:
         raise ValueError(f"batch {b} outside the kernel's grid range")
+    return b, n, s_dim, v_dim, se, h1, hc, num_gcps
 
-    # node-side projections, O(B N S^2): outside the kernel as in the TPU wrapper
+
+def _node_projections(s_node, v_node, g1):
+    """s@wsi | v@wvi and s@wsj | v@wvj, O(B N S^2): outside the kernels, as in
+    the TPU wrapper."""
     proj_i = torch.cat([s_node @ g1["wsi"], v_node @ g1["wvi"]], dim=-1).contiguous()
     proj_j = torch.cat([s_node @ g1["wsj"], v_node @ g1["wvj"]], dim=-1).contiguous()
+    return proj_i, proj_j
+
+
+_C_FUNCTIONS = {torch.float32: "message_layer_f32", torch.bfloat16: "message_layer_bf16"}
+_C_BWD_FUNCTIONS = {torch.float32: "message_layer_bwd_f32", torch.bfloat16: "message_layer_bwd_bf16"}
+
+
+def _kernel_function(dtype):
+    from bio_diffusion_torch.ops.build import load_library
+
+    lib = load_library("message_layer")
+    fn = getattr(lib, _C_FUNCTIONS[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _message_layer_cuda(s_node, v_node, epack, g1, chain, ve_dim):
+    b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim)
+    w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn = chain
+    dt = s_node.dtype
+    p = epack.shape[-1]
+    proj_i, proj_j = _node_projections(s_node, v_node, g1)
     tensors = [proj_i, proj_j, epack.contiguous(), g1["wve"], g1["wsx"], g1["bs"], g1["wu_bd"],
                g1["wg"], g1["bg"], w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn]
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel weights must be contiguous")
     s_agg = torch.empty((b, n, s_dim), dtype=dt, device=s_node.device)
-    v_agg = torch.empty((b, n, v3), dtype=dt, device=s_node.device)
+    v_agg = torch.empty((b, n, 3 * v_dim), dtype=dt, device=s_node.device)
     fn = _kernel_function(dt)
     stream = torch.cuda.current_stream(s_node.device).cuda_stream
     with torch.cuda.device(s_node.device):
@@ -262,3 +334,131 @@ def fused_message_layer(s_node: Tensor, v_node: Tensor, epack: Tensor,
     if s_node.device.type == "cpu":
         return message_layer_plain(s_node, v_node, epack, g1, chain, ve_dim=ve_dim)
     raise RuntimeError(f"no message-layer implementation for device {s_node.device}")
+
+
+def _bwd_library():
+    from bio_diffusion_torch.ops.build import load_library
+
+    lib = load_library("message_layer_bwd")
+    if lib.message_layer_bwd_workspace.argtypes is None:
+        lib.message_layer_bwd_workspace.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.message_layer_bwd_workspace.restype = ctypes.c_int
+        for name in _C_BWD_FUNCTIONS.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 6
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim):
+    ds_agg, dv_agg = cotangents
+    b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(
+        s_node, v_node, epack, g1, chain, ve_dim, cotangents)
+    w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn = chain
+    dt, dev = s_node.dtype, s_node.device
+    v3, w1 = 3 * v_dim, 3 * h1 + 27
+    p = epack.shape[-1]
+    lib = _bwd_library()
+    dims = (ctypes.c_int * 10)(b, n, p, s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
+    sizes = (ctypes.c_longlong * 3)()
+    err = lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes))
+    if err != 0:
+        raise ValueError(f"message-layer backward kernel does not take these widths (code {err})")
+    row_floats, partial_floats, smem = sizes
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"message-layer backward needs {smem} B of shared memory per block; "
+                         f"the device allows {limit}")
+
+    proj_i, proj_j = _node_projections(s_node, v_node, g1)
+    # every weight the kernel multiplies by in the backward, transposed once
+    # here (O(weights)) so that each product reads its weight row-major
+    def tr(w):
+        return w.transpose(-1, -2).contiguous()
+
+    ins = [proj_i, proj_j, epack.contiguous(), ds_agg.contiguous(), dv_agg.contiguous(),
+           g1["wve"], g1["wsx"], g1["bs"], g1["wu_bd"], g1["wg"], g1["bg"],
+           w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn,
+           tr(g1["wve"]), tr(g1["wsx"]), tr(g1["wu_bd"]), tr(g1["wg"]),
+           tr(w_comb), tr(wsc), tr(wu_bd), tr(wgc)]
+    for t in ins:
+        if not t.is_contiguous():
+            raise ValueError("kernel weights must be contiguous")
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_epack = torch.empty((b, n * n, p), dtype=dt, device=dev)
+    d_proj_i = torch.empty((b, n, s_dim + w1), **f32)
+    d_proj_j = torch.empty((b, n, s_dim + w1), **f32)
+    d_g1 = {k: torch.empty(g1[k].shape, **f32) for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")}
+    d_chain = [torch.empty(c.shape, **f32) for c in chain]
+    outs = [d_epack, d_proj_i, d_proj_j] + [d_g1[k] for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")] + d_chain
+    rows = torch.empty(row_floats, **f32)
+    partials = torch.empty(partial_floats, **f32)
+
+    ptrs_in = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+    ptrs_out = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+    fn = getattr(lib, _C_BWD_FUNCTIONS[dt])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), rows.data_ptr(),
+                 partials.data_ptr(), ctypes.addressof(dims), stream)
+    if err != 0:
+        raise RuntimeError(f"message-layer backward kernel launch failed with CUDA error {err}")
+    launch_counts["message_layer_bwd"] += 1
+
+    # node-side products, O(B N S^2), in float32 as in the TPU kernel
+    dpi_s, dpi_v = d_proj_i[..., :s_dim], d_proj_i[..., s_dim:]
+    dpj_s, dpj_v = d_proj_j[..., :s_dim], d_proj_j[..., s_dim:]
+    sn = s_node.float().reshape(b * n, s_dim)
+    vn = v_node.float().reshape(b * n, v3)
+    d_s_node = dpi_s @ g1["wsi"].float().t() + dpj_s @ g1["wsj"].float().t()
+    d_v_node = dpi_v @ g1["wvi"].float().t() + dpj_v @ g1["wvj"].float().t()
+    d_g1["wsi"] = sn.t() @ dpi_s.reshape(b * n, s_dim)
+    d_g1["wsj"] = sn.t() @ dpj_s.reshape(b * n, s_dim)
+    d_g1["wvi"] = vn.t() @ dpi_v.reshape(b * n, w1)
+    d_g1["wvj"] = vn.t() @ dpj_v.reshape(b * n, w1)
+    return (d_s_node.to(dt), d_v_node.to(dt), d_epack,
+            {k: d_g1[k].to(g1[k].dtype) for k in G1_KEYS},
+            tuple(d.to(c.dtype) for d, c in zip(d_chain, chain)))
+
+
+def fused_message_layer_bwd(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor],
+                            chain: tuple, cotangents: Tuple[Tensor, Tensor], *, ve_dim: int):
+    """Backward of :func:`fused_message_layer` given ``(d_s_agg, d_v_agg)`` ->
+    ``(d_s_node, d_v_node, d_epack, d_g1 dict, d_chain tuple)`` in the primal
+    dtypes.  CUDA tensors go through the hand-written kernel
+    (``csrc/message_layer_bwd.cu``), CPU tensors through
+    :func:`message_layer_bwd_plain`; any other device raises."""
+    if s_node.device.type == "cuda":
+        return _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim)
+    if s_node.device.type == "cpu":
+        return message_layer_bwd_plain(s_node, v_node, epack, g1, chain, cotangents, ve_dim=ve_dim)
+    raise RuntimeError(f"no message-layer implementation for device {s_node.device}")
+
+
+class MessageLayerFunction(torch.autograd.Function):
+    """The layer with its own backward (counterpart of the custom VJP in
+    ``gcpnet_fast.py::make_message_layer_fn``): forward by
+    :func:`fused_message_layer`, backward by :func:`fused_message_layer_bwd`.
+    Only the inputs are saved; the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, ve_dim, s_node, v_node, epack, *weights):
+        ctx.ve_dim = ve_dim
+        ctx.save_for_backward(s_node, v_node, epack, *weights)
+        return fused_message_layer(s_node, v_node, epack, dict(zip(G1_KEYS, weights[:10])),
+                                   tuple(weights[10:]), ve_dim=ve_dim)
+
+    @staticmethod
+    def backward(ctx, d_s_agg, d_v_agg):
+        s_node, v_node, epack, *weights = ctx.saved_tensors
+        d_s, d_v, d_ep, d_g1, d_chain = fused_message_layer_bwd(
+            s_node, v_node, epack, dict(zip(G1_KEYS, weights[:10])), tuple(weights[10:]),
+            (d_s_agg.contiguous(), d_v_agg.contiguous()), ve_dim=ctx.ve_dim)
+        return (None, d_s, d_v, d_ep, *[d_g1[k] for k in G1_KEYS], *d_chain)
+
+
+def message_layer(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor],
+                  chain: tuple, *, ve_dim: int) -> Tuple[Tensor, Tensor]:
+    """Differentiable :func:`fused_message_layer` (the kernels in both directions on CUDA)."""
+    return MessageLayerFunction.apply(ve_dim, s_node, v_node, epack,
+                                      *[g1[k] for k in G1_KEYS], *chain)

@@ -1,4 +1,5 @@
-"""Carry weights into the port: from a JAX params tree or a reference checkpoint.
+"""Carry weights into the port: from a JAX params tree, a reference
+checkpoint, or drawn from a seed (:func:`init_random_weights`).
 
 The port's modules carry the reference (PyTorch-Lightning) state_dict names,
 so a reference ``.ckpt`` loads by name after dropping its ``ddpm.`` prefix and
@@ -10,6 +11,7 @@ reference-named arrays.
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Dict, List
 
@@ -81,3 +83,16 @@ def load_reference_checkpoint(evd: nn.Module, ckpt_path: str) -> None:
     """Load a reference Lightning ``.ckpt`` (its ``state_dict``) into the EVD."""
     payload = torch.load(ckpt_path, map_location="cpu", weights_only=False)
     load_reference_state_dict(evd, payload.get("state_dict", payload))
+
+
+def init_random_weights(module: nn.Module, seed: int) -> None:
+    """Draw every Linear's weight and bias from U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (PyTorch's default Linear distribution) with a generator seeded by ``seed``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features) if m.in_features > 0 else 0.0
+                m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound, generator=gen))
+                if m.bias is not None:
+                    m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound, generator=gen))

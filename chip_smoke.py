@@ -5,22 +5,42 @@
 
 1. Requires a CUDA device (exits non-zero without one), prints the card's
    name and power limit, and turns TF32 off.
-2. Builds the CUDA kernels from ``bio_diffusion_torch/csrc`` (nvcc, sm_90a).
+2. Builds the CUDA kernels from ``bio_diffusion_torch/csrc`` (nvcc, sm_90a,
+   one compiler per source, started together) and prints each one's
+   registers and spills.
 3. Holds the message-layer kernel against its plain PyTorch version at full
    QM9 width (S=256, V=32, Se=64, Ve=16, 4 message GCPs), in float32 and
    bfloat16, at B=8 with N=19 and N=29, on a padded batch and at N=64; then
    times both at B=8 and B=250, N=19, bfloat16.
-4. Checks the full-width denoiser on the card (kernel) against the same
-   weights on the CPU (plain version), float32, on a small batch.
-5. Drives the main path: ``cli.serve.build_server`` on ``configs/serve.yaml``
-   (bf16, weights drawn from seed 0, batch 8), one warmed bucket, then
-   requests through ``MoleculeServer.generate``: 8 molecules at the model's
-   T=1000, a seeded pair at T=50 that must match exactly, and a
-   distribution-sized request at T=50.  The kernel's launch count must show
-   9 launches per denoiser call of every executed batch.
-6. Decodes a padded batch through the server's sampler and checks the
+4. Holds the message-layer backward kernel against its plain version (autograd
+   through the plain forward) at full width, float32 and bfloat16, at B=8
+   with N=19, B=8 with N=29 and padded rows, B=2 with N=64, and at the
+   training path's B=64, N=29 with padded rows: every output (the node and
+   edge cotangents and all 18 weight grads), two runs bit-identical.  At
+   B=64, N=29 the forward kernel is held against its plain version too, and
+   both pairs are timed on the same inputs.  The kernels line reports the
+   backward's errors and times at B=64, N=29 (float32, bfloat16 beside).
+5. Checks the full-width denoiser on the card (kernels) against the same
+   weights on the CPU (plain versions), float32, on a small batch: the
+   output, then the gradient of every parameter.
+6. Drives the serving path: ``cli.serve.build_server`` on
+   ``configs/serve.yaml`` (bf16, weights drawn from seed 0, batch 8), one
+   warmed bucket, then requests through ``MoleculeServer.generate``: 8
+   molecules at the model's T=1000, a seeded pair at T=50 that must match
+   exactly, and a distribution-sized request at T=50.  The kernel's launch
+   count must show 9 launches per denoiser call of every executed batch.
+   Then decodes a padded batch through the server's sampler and checks the
    molecules: finite, CoM-free, padded rows 0, one type per real atom,
    integer charges.
+7. Drives the training path: ``cli.train.main`` on ``configs/train.yaml``
+   with ``experiment=qm9_mol_gen_ddpm`` at full width on the synthetic
+   QM9-schema data (B=64, N=29, weights drawn from the seed): 10 optimizer
+   steps in float32 with validation on the EMA weights after each epoch, then
+   3 steps in bfloat16.  The loss must be finite, the parameters and the EMA
+   must have moved, and the counts must show exactly 9 forward and 9
+   backward launches per training micro-batch (and 2 x 9 forward launches
+   per validation batch).  Times 6 (float32) and 4 (bfloat16) further
+   Trainer steps with CUDA events and prints the peak device memory.
 
 Prints one JSON line of per-kernel results, then, last, the device line.
 Any failure raises and the exit code is non-zero.
@@ -39,8 +59,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # TF32 off differs only in summation order; bfloat16 rounds at other points
 # than the plain version (which rounds after every op), ~1 bf16 ulp of 2^-8
 TOL_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# backward kernel vs plain, relative to max|plain| of each output: float32
+# differs in summation order only (sums over up to ~54k rows); in bfloat16 the
+# plain version rounds every intermediate cotangent to bf16, the kernel
+# accumulates in f32
+TOL_BWD_REL = {"float32": 1e-4, "bfloat16": 5e-2}
 # full-width denoiser, card vs CPU, float32, relative to max|CPU output|
 TOL_DENOISER_REL = 1e-3
+# its parameter gradients, card vs CPU, float32: relative to max|CPU grad| of
+# each parameter, with a floor of 1e-6 of the largest gradient of all
+TOL_GRAD_REL = 1e-3
 
 
 def card_line() -> str:
@@ -62,13 +90,12 @@ def qm9_experiment(precision: str):
 def kernel_inputs(torch, evd, b, n, dtype, padded, seed):
     """Layer-0 packed weights of the full-width model and seeded random
     node/edge inputs, on the card."""
-    from bio_diffusion_torch.ops.message_layer import pack_chain_weights, pack_gcp1_weights
+    from bio_diffusion_torch.ops.message_layer import detached, pack_message_stack
 
     mc = evd.dynamics_network.model_cfg
     mp = evd.dynamics_network.interaction_layers[0].interaction
-    g1 = pack_gcp1_weights(mp.message_fusion[0], mc.h_hidden_dim, mc.chi_hidden_dim,
-                           mc.xi_hidden_dim, dtype)
-    chain = pack_chain_weights(mp.message_fusion[1:], mp.scalar_message_attention[0], dtype)
+    g1, chain = detached(pack_message_stack(mp, mc.h_hidden_dim, mc.chi_hidden_dim,
+                                            mc.xi_hidden_dim, dtype))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
 
@@ -101,6 +128,28 @@ def time_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def compare_fwd(torch, args, ve, name, label):
+    """Forward kernel against its plain version on the same inputs, both
+    outputs within TOL_REL[name] of max|plain| -> (max abs error, max relative
+    error)."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    sk, vk = ml.fused_message_layer(*args, ve_dim=ve)
+    sp, vp = ml.message_layer_plain(*args, ve_dim=ve)
+    torch.cuda.synchronize()
+    worst_abs, worst_rel = 0.0, 0.0
+    for part, k, p in (("s_agg", sk, sp), ("v_agg", vk, vp)):
+        err = (k.float() - p.float()).abs().max().item()
+        ref = p.float().abs().max().item()
+        ok = err <= TOL_REL[name] * ref and bool(torch.isfinite(k).all())
+        print(f"kernel-vs-plain {name} {label} {part}: max_abs_err={err:.6g} max|plain|={ref:.6g} "
+              f"rel={err / ref:.3g} tol={TOL_REL[name]:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"message-layer kernel disagrees with the plain version ({name}, {label})")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / ref)
+    return worst_abs, worst_rel
+
+
 def check_kernel(torch, evd):
     from bio_diffusion_torch.ops import message_layer as ml
 
@@ -109,21 +158,9 @@ def check_kernel(torch, evd):
         name = str(dtype).split(".")[-1]
         for b, n, padded in ((8, 19, False), (8, 29, False), (8, 19, True), (2, 64, False)):
             args, ve = kernel_inputs(torch, evd, b, n, dtype, padded, seed=b * 1000 + n)
-            sk, vk = ml.fused_message_layer(*args, ve_dim=ve)
-            sp, vp = ml.message_layer_plain(*args, ve_dim=ve)
-            torch.cuda.synchronize()
-            for part, k, p in (("s_agg", sk, sp), ("v_agg", vk, vp)):
-                err = (k.float() - p.float()).abs().max().item()
-                ref = p.float().abs().max().item()
-                ok = err <= TOL_REL[name] * ref and bool(torch.isfinite(k).all())
-                print(f"kernel-vs-plain {name} B={b} N={n} padded={padded} {part}: "
-                      f"max_abs_err={err:.6g} max|plain|={ref:.6g} rel={err / ref:.3g} "
-                      f"tol={TOL_REL[name]:g} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"message-layer kernel disagrees with the plain version ({name}, N={n})")
-                if name == "bfloat16" and (b, n, padded) == (8, 19, False):
-                    result["max_abs_err"] = max(result.get("max_abs_err", 0.0), err)
-                    result["max_rel_err"] = max(result.get("max_rel_err", 0.0), err / ref)
+            err, rel = compare_fwd(torch, args, ve, name, f"B={b} N={n} padded={padded}")
+            if name == "bfloat16" and (b, n, padded) == (8, 19, False):
+                result["max_abs_err"], result["max_rel_err"] = err, rel
     for b in (8, 250):
         args, ve = kernel_inputs(torch, evd, b, 19, torch.bfloat16, False, seed=7)
         times = {}
@@ -168,6 +205,196 @@ def check_denoiser(torch):
           f"tol={TOL_DENOISER_REL:g} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("full-width denoiser on the card disagrees with the CPU")
+
+
+def cotangents(torch, args, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s, v = args[0], args[1]
+    return (torch.randn(s.shape, generator=gen, device="cuda").to(s.dtype),
+            torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype))
+
+
+def compare_bwd(torch, args, ct, ve, name, label):
+    """Backward kernel, run twice, against its plain version on the same
+    inputs: the two runs bit-identical, each of the 21 outputs within
+    TOL_BWD_REL[name] of max|plain| -> (max abs error, max relative error)."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    first = ml.bwd_outputs(ml.fused_message_layer_bwd(*args, ct, ve_dim=ve))
+    second = ml.bwd_outputs(ml.fused_message_layer_bwd(*args, ct, ve_dim=ve))
+    plain = ml.bwd_outputs(ml.message_layer_bwd_plain(*args, ct, ve_dim=ve))
+    torch.cuda.synchronize()
+    worst_rel, worst_abs, worst = 0.0, 0.0, ""
+    for (part, k), (_, k2), (_, p) in zip(first, second, plain):
+        if not torch.equal(k, k2):
+            raise AssertionError(f"backward kernel: two runs differ in {part} ({name}, {label})")
+        if k.dtype != p.dtype or k.shape != p.shape or not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"backward kernel: {part} has the wrong dtype/shape or non-finite values")
+        err = (k.float() - p.float()).abs().max().item()
+        ref = p.float().abs().max().item()
+        rel = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > TOL_BWD_REL[name]:
+            raise AssertionError(f"backward kernel disagrees with the plain version: {part} "
+                                 f"{name} {label}: err {err:.3g}, max|plain| {ref:.3g}")
+        worst_abs = max(worst_abs, err)
+        if rel >= worst_rel:
+            worst_rel, worst = rel, part
+    print(f"bwd-kernel-vs-plain {name} {label}: {len(first)} outputs, worst {worst} "
+          f"rel={worst_rel:.3g}, max_abs_err={worst_abs:.6g}, tol={TOL_BWD_REL[name]:g}, "
+          f"two runs bit-identical: ok")
+    return worst_abs, worst_rel
+
+
+def check_bwd_kernel(torch, evd):
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, n, padded in ((8, 19, False), (8, 29, True), (2, 64, False)):
+            args, ve = kernel_inputs(torch, evd, b, n, dtype, padded, seed=b * 1000 + n + 1)
+            compare_bwd(torch, args, cotangents(torch, args, seed=n), ve, name,
+                        f"B={b} N={n} padded={padded}")
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        # the training path's shape: both kernels held against their plain
+        # versions (the weight-grad split and reduce at its full 16 splits),
+        # then timed on the same inputs
+        args, ve = kernel_inputs(torch, evd, 64, 29, dtype, True, seed=64)
+        ct = cotangents(torch, args, seed=65)
+        shape = "B=64 N=29 padded=True"
+        result[f"fwd_err_b64_{name}"] = compare_fwd(torch, args, ve, name, shape)
+        result[f"bwd_err_b64_{name}"] = compare_bwd(torch, args, ct, ve, name, shape)
+        pairs = {
+            "bwd": (lambda: ml.fused_message_layer_bwd(*args, ct, ve_dim=ve),
+                    lambda: ml.message_layer_bwd_plain(*args, ct, ve_dim=ve)),
+            "fwd": (lambda: ml.fused_message_layer(*args, ve_dim=ve),
+                    lambda: ml.message_layer_plain(*args, ve_dim=ve)),
+        }
+        for what, (kernel_fn, plain_fn) in pairs.items():
+            times = {}
+            # plain, kernel, kernel, plain: both measured twice, in turns
+            for label in ("plain", "kernel", "kernel", "plain"):
+                fn = plain_fn if label == "plain" else kernel_fn
+                times.setdefault(label, []).append(time_ms(torch, fn, reps=5))
+            timings[(what, name)] = (min(times["kernel"]), min(times["plain"]))
+            print(f"timing {what} {name} B=64 N=29: kernel {min(times['kernel']):.4f} ms, "
+                  f"plain {min(times['plain']):.4f} ms (runs {times})")
+    # the kernels line reports the backward at the training path's shape and
+    # default precision (float32), with the bfloat16 numbers beside them
+    result["max_abs_err"], result["max_rel_err"] = result["bwd_err_b64_float32"]
+    result["max_abs_err_bf16"], result["max_rel_err_bf16"] = result["bwd_err_b64_bfloat16"]
+    result["ms"], result["plain_ms"] = timings[("bwd", "float32")]
+    result["ms_bf16"], result["plain_ms_bf16"] = timings[("bwd", "bfloat16")]
+    result["fwd_ms_b64"] = {k[1]: v[0] for k, v in timings.items() if k[0] == "fwd"}
+    result["bwd_ms_b64"] = {k[1]: v[0] for k, v in timings.items() if k[0] == "bwd"}
+    return result
+
+
+def check_denoiser_grad(torch):
+    """Full-width denoiser, float32: parameter gradients on the card (both
+    kernels) against the CPU (plain versions)."""
+    import copy
+
+    from bio_diffusion_torch.cli.serve import build_model
+    from bio_diffusion_torch.ops.geometry import centralize
+
+    exp = qm9_experiment("fp32")
+    evd_gpu = build_model(exp, None, torch.device("cuda"), seed=2)
+    evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
+    gen = torch.Generator().manual_seed(4)
+    b, n = 2, 11
+    mask = torch.ones(b, n)
+    mask[1, 8:] = 0
+    x = torch.randn(b, n, 3, generator=gen) * mask[..., None]
+    _, x = centralize(x, mask)
+    h = torch.randn(b, n, 6, generator=gen) * mask[..., None]
+    xh = torch.cat([x, h], dim=-1)
+    t = torch.full((b, 1), 0.3)
+    w = torch.randn(b, n, 9, generator=gen)
+    grads = []
+    for evd, dev in ((evd_cpu, "cpu"), (evd_gpu, "cuda")):
+        dyn = evd.dynamics_network
+        out = dyn(xh.to(dev), t.to(dev), mask.to(dev))
+        params = [p for _, p in dyn.named_parameters()]
+        grads.append([g.cpu() for g in torch.autograd.grad((out * w.to(dev)).sum(), params)])
+    names = [k for k, _ in evd_cpu.dynamics_network.named_parameters()]
+    floor = 1e-6 * max(g.abs().max().item() for g in grads[0])
+    worst, worst_name = 0.0, ""
+    for name, g_cpu, g_gpu in zip(names, *grads):
+        err = (g_gpu - g_cpu).abs().max().item()
+        scale = max(g_cpu.abs().max().item(), floor)
+        if not bool(torch.isfinite(g_gpu).all()) or err > TOL_GRAD_REL * scale:
+            raise AssertionError(f"denoiser gradient of {name} on the card disagrees with the CPU: "
+                                 f"err {err:.3g}, max|cpu| {scale:.3g}")
+        if err / scale >= worst:
+            worst, worst_name = err / scale, name
+    print(f"denoiser grad card-vs-cpu fp32 B={b} N={n}: {len(names)} parameters, worst {worst_name} "
+          f"rel={worst:.3g} tol={TOL_GRAD_REL:g} ok")
+
+
+def drive_training(torch, precision: str, steps: int, timed_steps: int):
+    """``cli.train.main`` at full QM9 width on synthetic data; returns the
+    launch counts of that run and the timing of further Trainer steps."""
+    import copy
+
+    import numpy as np
+
+    from bio_diffusion_torch.cli.train import main
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train.torch_import import init_random_weights
+
+    workdir = os.path.join(REPO, "outputs", f"train_smoke_{precision}")
+    args = ["experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=synthetic",
+            "trainer.check_val_every_n_epoch=1", f"trainer.precision={precision}",
+            "--device=cuda", f"--max-steps={steps}", f"--workdir={workdir}"]
+    ml.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = main(args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(ml.launch_counts)
+    layers = trainer.exp.model_cfg.num_encoder_layers
+    st = trainer.stats
+    need_fwd = layers * (st["micro_batches"] + 2 * st["eval_batches"])
+    need_bwd = layers * st["micro_batches"]
+    batch = trainer.exp.dataloader_cfg.batch_size
+    print(f"train {precision}: cli.train.main {st['steps']} steps (batch {batch}, N=29), "
+          f"{st['eval_batches']} EMA validation batches, {sec:.3f} s with set-up; launches "
+          f"fwd={counts['message_layer']} (need {need_fwd}), bwd={counts['message_layer_bwd']} "
+          f"(need {need_bwd})")
+    if counts["message_layer"] != need_fwd or counts["message_layer_bwd"] != need_bwd or st["steps"] != steps:
+        raise AssertionError("training did not launch 9 forward and 9 backward kernels per step")
+    train_rows = [r for r in trainer.logger.rows if "train/loss" in r]
+    val_rows = [r for r in trainer.logger.rows if "valid/loss" in r]
+    losses = [r["train/loss"] for r in train_rows]
+    if not val_rows or not np.all(np.isfinite(losses + [r["valid/loss"] for r in val_rows])):
+        raise AssertionError(f"training or EMA validation loss is not finite: {losses}")
+    print(f"train {precision}: epoch losses {losses}, EMA val losses {[r['valid/loss'] for r in val_rows]}, "
+          f"grad norms {[r['train/grad_norm'] for r in train_rows]}")
+    # the weights the trainer started from, drawn again from the same seed
+    fresh = copy.deepcopy(trainer.evd).to("cpu")
+    init_random_weights(fresh, trainer.exp.seed)
+    start = [p.detach() for p in fresh.parameters()]
+    moved = max((p.detach().cpu() - q).abs().max().item()
+                for p, q in zip(trainer.evd.parameters(), start))
+    ema_moved = max((p.cpu() - q).abs().max().item() for p, q in zip(trainer.evd_ema.parameters(), start))
+    print(f"train {precision}: max |param - initial| {moved:.3g}, max |EMA - initial| {ema_moved:.3g}")
+    if not (moved > 0 and ema_moved > 0):
+        raise AssertionError("parameters or EMA did not move")
+
+    torch.cuda.reset_peak_memory_stats()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    trainer.train_epoch(epoch=steps, max_steps=trainer.state.count + timed_steps)
+    end_ev.record()
+    torch.cuda.synchronize()
+    ms = start_ev.elapsed_time(end_ev) / timed_steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train {precision}: {ms:.3f} ms/step over {timed_steps} Trainer steps (CUDA events, "
+          f"after {steps} warm-up steps), peak device memory {peak:.3f} GiB")
+    return counts, ms
 
 
 def check_molecules(mols, num_samples):
@@ -285,28 +512,55 @@ def main() -> int:
     from bio_diffusion_torch.ops import build
 
     t0 = time.perf_counter()
-    build.load_library("message_layer")
-    print(f"built message_layer in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_log.get("message_layer", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  nvcc: {line.strip()}")
+    build.load_libraries("message_layer", "message_layer_bwd")
+    print(f"built message_layer and message_layer_bwd in {time.perf_counter() - t0:.2f} s")
+    for name in ("message_layer", "message_layer_bwd"):
+        for line in build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  nvcc {name}: {line.strip()}")
 
     evd_kernels = build_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
     kernel = check_kernel(torch, evd_kernels)
+    kernel_bwd = check_bwd_kernel(torch, evd_kernels)
     del evd_kernels
     check_denoiser(torch)
-    launches = drive_main_path(torch)
+    check_denoiser_grad(torch)
+    serve_launches = drive_main_path(torch)
+    train_counts, step_ms = drive_training(torch, "fp32", steps=10, timed_steps=6)
+    train_counts_bf16, step_ms_bf16 = drive_training(torch, "bf16", steps=3, timed_steps=4)
+    for prec, ms, kind in (("fp32", step_ms, "float32"), ("bf16", step_ms_bf16, "bfloat16")):
+        share = 9 * (kernel_bwd["fwd_ms_b64"][kind] + kernel_bwd["bwd_ms_b64"][kind]) / ms
+        print(f"train {prec}: the two kernels at B=64, N=29 (9 x (fwd + bwd), timed alone) "
+              f"= {100 * share:.1f}% of the step")
+    train_fwd = train_counts["message_layer"] + train_counts_bf16["message_layer"]
+    train_bwd = train_counts["message_layer_bwd"] + train_counts_bf16["message_layer_bwd"]
 
     print(json.dumps({"kernels": [{
         "name": "message_layer",
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
-        "launches": launches,
+        "launches": serve_launches + train_fwd,
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+    }, {
+        "name": "message_layer_bwd",
+        "route": "cuda",
+        "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
+        "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
+        "launches": train_bwd,
+        "launches_by_path": {"train": train_bwd},
+        "max_abs_err": kernel_bwd["max_abs_err"],
+        "max_rel_err": kernel_bwd["max_rel_err"],
+        "max_abs_err_bf16": kernel_bwd["max_abs_err_bf16"],
+        "max_rel_err_bf16": kernel_bwd["max_rel_err_bf16"],
+        "ms": kernel_bwd["ms"],
+        "plain_ms": kernel_bwd["plain_ms"],
+        "ms_bf16": kernel_bwd["ms_bf16"],
+        "plain_ms_bf16": kernel_bwd["plain_ms_bf16"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

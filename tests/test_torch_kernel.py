@@ -1,23 +1,25 @@
-"""The message-layer CUDA kernel against its plain PyTorch version.
+"""The message-layer CUDA kernels (forward and backward) against their plain
+PyTorch versions.
 
 This file imports no jax, so the card tests also run where only the port is
 installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernel.py
 
-The ``cuda``-marked tests skip without a CUDA device (the kernel has no CPU
-mode).  Tolerance relative to max|plain|: float32 1e-4 (TF32 off; only the
-summation order differs), bfloat16 2e-2 (the kernel rounds to bf16 where the
-TPU kernel does, the plain version after every op).
+The ``cuda``-marked tests skip without a CUDA device (the kernels have no
+CPU mode).  Forward tolerance relative to max|plain|: float32 1e-4 (TF32 off;
+only the summation order differs), bfloat16 2e-2 (the kernel rounds to bf16
+where the TPU kernel does, the plain version after every op); the backward's
+are at ``TOL_BWD``, and two backward runs must be bit-identical.
 """
 
 import pytest
 import torch
 
 from bio_diffusion_tpu.config.schema import LayerConfig, ModuleConfig
-from bio_diffusion_torch.cli.serve import init_random_weights
 from bio_diffusion_torch.models.gcpnet import GCPMessagePassing
 from bio_diffusion_torch.ops import message_layer as ml
+from bio_diffusion_torch.train.torch_import import init_random_weights
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TINY = (16, 4, 8, 2)  # S, V, Se, Ve
@@ -30,9 +32,7 @@ def make_layer(dims, dtype, device, b, n, seed=0):
     s_dim, v_dim, se, ve = dims
     mp = GCPMessagePassing((s_dim, v_dim), (se, ve), ModuleConfig(), LayerConfig())
     init_random_weights(mp, seed)
-    g1 = {k: x.to(device) for k, x in ml.pack_gcp1_weights(mp.message_fusion[0], s_dim, v_dim, ve, dtype).items()}
-    chain = tuple(x.to(device) for x in ml.pack_chain_weights(mp.message_fusion[1:],
-                                                               mp.scalar_message_attention[0], dtype))
+    g1, chain = ml.detached(ml.pack_message_stack(mp.to(device), s_dim, v_dim, ve, dtype))
     gen = torch.Generator().manual_seed(seed + 1)
     mask = torch.ones(b, n)
     mask[-1, n - min(3, n - 1):] = 0
@@ -78,3 +78,37 @@ def test_kernel_matches_plain_on_card(dtype, dims, b, n):
         assert k.dtype == dtype and torch.isfinite(k).all()
         err = (k.float() - p.float()).abs().max().item()
         assert err <= TOL[dtype] * p.float().abs().max().item(), err
+
+
+# backward kernel vs plain version, relative to max|plain| of each output:
+# float32 differs only in summation order; in bfloat16 the plain version
+# rounds every intermediate cotangent to bf16, the kernel accumulates in f32
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,b,n", [(TINY, 3, 7), (TINY, 2, 29), (QM9, 4, 19), (QM9, 4, 29),
+                                      (QM9, 2, 64)])
+def test_bwd_kernel_matches_plain_on_card(dtype, dims, b, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (s, v, epack), g1, chain, ve = make_layer(dims, dtype, "cuda", b, n)
+    gen = torch.Generator(device="cuda").manual_seed(b * 100 + n)
+    ct = (torch.randn(s.shape, generator=gen, device="cuda").to(dtype),
+          torch.randn(v.shape, generator=gen, device="cuda").to(dtype))
+    before = ml.launch_counts["message_layer_bwd"]
+    out = ml.bwd_outputs(ml.fused_message_layer_bwd(s, v, epack, g1, chain, ct, ve_dim=ve))
+    assert ml.launch_counts["message_layer_bwd"] == before + 1
+    again = ml.bwd_outputs(ml.fused_message_layer_bwd(s, v, epack, g1, chain, ct, ve_dim=ve))
+    plain = ml.bwd_outputs(ml.message_layer_bwd_plain(s, v, epack, g1, chain, ct, ve_dim=ve))
+    torch.cuda.synchronize()
+    for (name, k), (_, k2), (_, p) in zip(out, again, plain):
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        assert torch.equal(k, k2), f"{name}: two runs differ"
+        assert torch.isfinite(k).all(), name
+        err = (k.float() - p.float()).abs().max().item()
+        ref = p.float().abs().max().item()
+        print(f"{dtype} dims={dims} B={b} N={n} {name}: err {err:.3g} max|plain| {ref:.3g}")
+        assert err <= TOL_BWD[dtype] * ref, (name, err, ref)

@@ -31,8 +31,7 @@ def packed():
             if isinstance(v, np.ndarray)}
     chain_j = pack_chain_weights_jnp(mp, cfgs[2].mp_cfg.num_message_layers, jnp.float32)
     port_mp = evd.dynamics_network.interaction_layers[0].interaction
-    g1_t = ml.pack_gcp1_weights(port_mp.message_fusion[0], S, V, VE)
-    chain_t = ml.pack_chain_weights(port_mp.message_fusion[1:], port_mp.scalar_message_attention[0])
+    g1_t, chain_t = ml.detached(ml.pack_message_stack(port_mp, S, V, VE))
     return g1_j, chain_j, g1_t, chain_t
 
 
