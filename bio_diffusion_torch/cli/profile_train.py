@@ -71,8 +71,8 @@ def main(argv=None) -> Dict[str, object]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bio_diffusion_tpu.config.build import build_experiment
-    from bio_diffusion_tpu.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
     from bio_diffusion_torch.train.loop import Trainer
 
     argv = list(sys.argv[1:] if argv is None else argv)

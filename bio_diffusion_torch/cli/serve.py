@@ -1,7 +1,7 @@
 """Serving entry point: a resident HTTP molecule-generation server (PyTorch).
 
 Port of ``bio_diffusion_tpu/cli/serve.py``.  Composes ``configs/serve.yaml``
-with the JAX package's jax-free config loader, builds the port's model on
+with the port's config loader (a copy of the JAX package's), builds its model on
 ``device``, warms the buckets and serves requests (see
 ``bio_diffusion_torch/serve.py``).
 
@@ -31,8 +31,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from bio_diffusion_tpu.config.build import ExperimentConfig, build_experiment
-from bio_diffusion_tpu.config.loader import default_config_dir, load_config
+from bio_diffusion_torch.config.build import ExperimentConfig, build_experiment
+from bio_diffusion_torch.config.loader import default_config_dir, load_config
 from bio_diffusion_torch.data.dataset_info import get_dataset_info
 from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
 from bio_diffusion_torch.models.distributions import NumNodesDistribution

@@ -1,7 +1,8 @@
 """Training entry point (PyTorch): ``bio_diffusion_torch.train.loop.Trainer``.
 
 Port of ``bio_diffusion_tpu/cli/train.py``.  Composes ``configs/train.yaml``
-with the JAX package's jax-free config loader and trains on one device.
+with the port's config loader (a copy of the JAX package's) and trains
+on one device.
 
 Usage:
   python -m bio_diffusion_torch.cli.train experiment=qm9_mol_gen_ddpm \\
@@ -18,8 +19,8 @@ from __future__ import annotations
 import logging
 import sys
 
-from bio_diffusion_tpu.config.build import build_experiment
-from bio_diffusion_tpu.config.loader import default_config_dir, load_config
+from bio_diffusion_torch.config.build import build_experiment
+from bio_diffusion_torch.config.loader import default_config_dir, load_config
 from bio_diffusion_torch.train.loop import Trainer
 
 log = logging.getLogger(__name__)

@@ -33,7 +33,9 @@
 // rows, reads the tile's inputs from shared memory as broadcast float4 loads
 // and the weight column from L1/L2, and keeps RPT accumulators in registers.
 // Tiling j makes any N work (GEOM's 181 included) with no node padding.  The
-// tensor cores are not used yet (plain FMA), which is the next lever.
+// tensor cores are not used yet (plain FMA), which is the next lever.  The
+// chain stage and the attention are device functions in
+// message_layer_common.cuh, shared with the flat-row chain (gcp2_chain.cu).
 //
 // Numerics follow the TPU kernel: products accumulate in f32; in the bf16
 // instantiation every value the TPU kernel rounds to the compute dtype (stage
@@ -86,35 +88,6 @@ struct Layout {
   __host__ __device__ int tile_floats() const { return ROWS * (lda + ldv + ldh + ldx + ldg + 12 + 2); }
 };
 
-// Vector norms and frame scalarization of a stage's projected vectors:
-// dst[r, q] = safe_norm over coords of H[r, k*hd + q] (q < hd), then the 9
-// scalarized columns c*3+a = sum_k H[r, 3hd + 9k + c*3+a] * frames_t[r, 3k+a].
-// The vh part of H is rounded in place to the compute dtype (the TPU kernel
-// feeds vh to the up-projection in that dtype).
-template <typename T>
-__device__ __forceinline__ void norms_and_frames(float* H, int ldh, const float* FT, float* dst,
-                                                 int ldd, int hd) {
-  const int w = hd + 9;
-  for (int idx = threadIdx.x; idx < ROWS * w; idx += blockDim.x) {
-    const int r = idx / w, q = idx % w;
-    float* h = H + r * ldh;
-    float out;
-    if (q < hd) {
-      const float a = h[q], b = h[hd + q], c = h[2 * hd + q];
-      out = sqrtf(a * a + b * b + c * c + 1e-8f) + 1e-8f;
-      h[q] = Num<T>::rnd(a);
-      h[hd + q] = Num<T>::rnd(b);
-      h[2 * hd + q] = Num<T>::rnd(c);
-    } else {
-      const int qq = q - hd, a = qq % 3;
-      const float* f = FT + r * 12;
-      const float* vd = h + 3 * hd + qq;
-      out = vd[0] * f[a] + vd[9] * f[3 + a] + vd[18] * f[6 + a];
-    }
-    dst[r * ldd + q] = Num<T>::rnd(out);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 message_layer_kernel(const Params<T> p) {
@@ -162,7 +135,7 @@ message_layer_kernel(const Params<T> p) {
       Hb[r * L.ldh + c] = (NT::ld(pi[S + c]) + pj) + acc;
     });
     __syncthreads();
-    norms_and_frames<T>(Hb, L.ldh, FT, A + Se, L.lda, H1);
+    norms_and_frames<ROWS, T>(Hb, L.ldh, FT, A + Se, L.lda, H1);
     __syncthreads();
     // s2 = proj_i + proj_j + [e | vnorm | schid] @ wsx + bs
     tile_mm<8>(A, L.lda, nrows, Se + H1 + 9, p.wsx, S, [&](int r, int c, float acc) {
@@ -184,46 +157,15 @@ message_layer_kernel(const Params<T> p) {
     }
     __syncthreads();
 
-    // ---- residual chain of GCP2 stages ----
+    // ---- residual chain of GCP2 stages, then attention x edge mask ----
+    const ChainTile tile{A, Vb, Hb, X, Gt, FT, L.lda, L.ldv, L.ldh, L.ldx, L.ldg};
     for (int g = 0; g < p.G; ++g) {
-      tile_mm<8>(Vb, L.ldv, nrows, V3, p.wcomb + (size_t)g * V3 * Wc, Wc,
-                 [&](int r, int c, float acc) { Hb[r * L.ldh + c] = acc; });
-      __syncthreads();
-      norms_and_frames<T>(Hb, L.ldh, FT, A + S, L.lda, Hc);
-      __syncthreads();
-      const T* bsc = p.bsc + (size_t)g * S;
-      tile_mm<8>(A, L.lda, nrows, S + Hc + 9, p.wsc + (size_t)g * (S + Hc + 9) * S, S,
-                 [&](int r, int c, float acc) {
-                   const float s2 = acc + NT::ld(bsc[c]);
-                   X[r * L.ldx + c] = NT::rnd(s2 * sigmoid_f(s2));
-                 });
-      __syncthreads();
-      const T* bgc = p.bgc + (size_t)g * V;
-      tile_mm<4>(X, L.ldx, nrows, S, p.wgc + (size_t)g * S * V, V, [&](int r, int c, float acc) {
-        Gt[r * L.ldg + c] = NT::rnd(sigmoid_f(acc + NT::ld(bgc[c])));
-      });
-      __syncthreads();
-      tile_mm<8>(Hb, L.ldh, nrows, 3 * Hc, p.wubd + (size_t)g * 3 * Hc * V3, V3,
-                 [&](int r, int c, float acc) {
-                   float* v = Vb + r * L.ldv + c;
-                   *v = NT::rnd(*v + NT::rnd(NT::rnd(acc) * Gt[r * L.ldg + c % V]));
-                 });
-      for (int idx = threadIdx.x; idx < ROWS * S; idx += blockDim.x) {
-        const int r = idx / S, c = idx % S;
-        A[r * L.lda + c] = NT::rnd(A[r * L.lda + c] + X[r * L.ldx + c]);
-      }
-      __syncthreads();
+      chain_stage<ROWS, T>(tile, nrows, S, V, Hc, p.wcomb + (size_t)g * V3 * Wc,
+                           p.wsc + (size_t)g * (S + Hc + 9) * S, p.bsc + (size_t)g * S,
+                           p.wubd + (size_t)g * 3 * Hc * V3, p.wgc + (size_t)g * S * V,
+                           p.bgc + (size_t)g * V);
     }
-
-    // ---- attention x edge mask: one warp per row ----
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < nrows; r += blockDim.x / 32) {
-      float acc = 0.f;
-      for (int k = lane; k < S; k += 32) acc = fmaf(A[r * L.lda + k], NT::ld(p.wattn[k]), acc);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) SC[r] = NT::rnd(sigmoid_f(acc + NT::ld(p.battn[0])) * EM[r]);
-    }
+    attention_scale<T>(A, L.lda, nrows, S, p.wattn, p.battn, EM, SC);
     __syncthreads();
 
     // ---- masked aggregation over this tile's targets ----

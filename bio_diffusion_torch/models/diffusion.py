@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bio_diffusion_tpu.config.schema import DataloaderConfig, DiffusionConfig, compute_num_atom_types
+from bio_diffusion_torch.config.schema import DataloaderConfig, DiffusionConfig, compute_num_atom_types
 from bio_diffusion_torch.ops.geometry import centralize
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
 

@@ -10,6 +10,12 @@ in the compute dtype, and every message-passing layer through
 :func:`bio_diffusion_torch.ops.message_layer.message_layer` (the CUDA kernels,
 forward and backward, on CUDA tensors).
 
+:func:`message_passing_unfused` is the counterpart of
+``gcpnet_fast.py::_message_passing_fast``: the same layer with its first GCP
+on materialized ``[B, N, N, .]`` tensors and its chain through the flat-edge
+kernel (``ops/gcp2_chain.py``).  As in the JAX package, the denoiser's
+forward does not take it.
+
 The port covers the configuration the fast path supports (GCP2 with vector
 gates, no norm/dropout/ablations, one feedforward GCP, scalar message
 attention, residual message stack); ``GCPNetDynamics`` raises
@@ -18,21 +24,23 @@ attention, residual message stack); ``GCPNetDynamics`` raises
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from bio_diffusion_tpu.config.schema import (
+from bio_diffusion_torch.config.schema import (
     DataloaderConfig, DiffusionConfig, LayerConfig, ModelConfig, ModuleConfig,
     compute_num_atom_types,
 )
 from bio_diffusion_torch.models.gcp import GCP2
+from bio_diffusion_torch.ops.gcp2_chain import fused_gcp2_chain, gcp2_chain_plain
 from bio_diffusion_torch.ops.geometry import (
     build_edge_mask, centralize, edge_features, localize, node_mean_frames, orientations,
 )
 from bio_diffusion_torch.ops.message_layer import (
-    cast_parameters, detached, message_layer, pack_message_stack,
+    cast_parameters, detached, message_layer, pack_message_stack, stack_chain,
 )
 
 Tensor = torch.Tensor
@@ -239,3 +247,72 @@ class GCPNetDynamics(nn.Module):
         vel = torch.where(torch.isfinite(vel).all(), vel, torch.zeros_like(vel))
         _, vel = centralize(vel, node_mask)
         return torch.cat([vel, h_out], dim=-1)
+
+
+def stack_chain_weights(mp: GCPMessagePassing, dtype) -> Tuple[Tensor, ...]:
+    """A message stack's residual chain and attention weights cast to
+    ``dtype``, stacked as ``fused_gcp2_chain`` takes them: ``(wd, wdf, ws, bs,
+    wu, wg, bg, wattn, battn)`` (counterpart of
+    ``gcpnet_fast.py::_stack_chain_weights``)."""
+    return stack_chain([cast_parameters(g, dtype) for g in mp.message_fusion[1:]],
+                       cast_parameters(mp.scalar_message_attention[0], dtype))
+
+
+def message_passing_unfused(mp: GCPMessagePassing, s_node: Tensor, v_node_cm: Tensor, e: Tensor,
+                            xi_cm: Tensor, frames_flat: Tensor, edge_mask: Tensor,
+                            use_kernel: bool = True) -> Tuple[Tensor, Tensor]:
+    """One message stack over materialized edge tensors -> aggregated
+    ``(s [B, N, S], v_cm [B, N, 3, V])``, the unfused route to what
+    :func:`bio_diffusion_torch.ops.message_layer.message_layer` computes in one
+    kernel (counterpart of ``gcpnet_fast.py::_message_passing_fast``).
+
+    ``s_node [B, N, S]``, ``v_node_cm [B, N, 3, V]``, ``e [B, N, N, Se]``,
+    ``xi_cm [B, N, N, 3, Ve]``, ``frames_flat [B*N*N, 9]`` (transposed,
+    k*3+a), ``edge_mask [B, N, N]``; the compute dtype is ``s_node``'s.  The
+    first GCP is a split-weight evaluation on ``[B, N, N, .]`` tensors
+    (``torch.matmul``); the residual chain and the attention run over flat
+    edge rows through :func:`fused_gcp2_chain` (the CUDA kernel on CUDA
+    tensors), or through its plain version without ``use_kernel``; the last
+    step is the masked sum over targets."""
+    dt = s_node.dtype
+    b, n, s_dim = s_node.shape
+    v_dim, ve_dim, se_dim = v_node_cm.shape[-1], xi_cm.shape[-1], e.shape[-1]
+    w1 = cast_parameters(mp.message_fusion[0], dt)
+
+    # ---- first GCP: split-weight evaluation ----
+    wd = w1["vector_down.weight"].t()  # [2V+Ve, H]
+    wdf = w1["vector_down_frames.weight"].t()  # [2V+Ve, 3]
+
+    def split_v(w):  # (v_i, xi_ij, v_j) parts of a vector projection -> [B, N, N, 3, .]
+        return ((v_node_cm @ w[:v_dim])[:, :, None] + xi_cm @ w[v_dim:v_dim + ve_dim]
+                + (v_node_cm @ w[v_dim + ve_dim:])[:, None, :])
+
+    vh = split_v(wd)
+    vnorm = torch.sqrt((vh * vh).sum(dim=-2) + 1e-8) + 1e-8
+    frames4_t = frames_flat.reshape(b, n, n, 3, 3).to(dt)  # [..., k, a]
+    sc = torch.einsum("...ka,...kc->...ca", frames4_t, split_v(wdf)).reshape(b, n, n, 9)
+    ws = w1["scalar_out.weight"].t()
+    h_dim = vh.shape[-1]
+    s2 = (
+        (s_node @ ws[:s_dim])[:, :, None]
+        + e @ ws[s_dim:s_dim + se_dim]
+        + (s_node @ ws[s_dim + se_dim:2 * s_dim + se_dim])[:, None, :]
+        + vnorm.to(dt) @ ws[2 * s_dim + se_dim:2 * s_dim + se_dim + h_dim]
+        + sc @ ws[2 * s_dim + se_dim + h_dim:]
+        + w1["scalar_out.bias"]
+    )
+    s1 = F.silu(s2)
+    gate = torch.sigmoid(s1 @ w1["vector_out_scale.weight"].t() + w1["vector_out_scale.bias"])
+    v1 = (vh @ w1["vector_up.weight"].t()) * gate[..., None, :]  # [B, N, N, 3, V]
+
+    # ---- residual chain + attention over flat edge rows ----
+    e_count = b * n * n
+    chain = (s1.reshape(e_count, s_dim), v1.reshape(e_count, 3 * v_dim), frames_flat.to(dt),
+             *stack_chain_weights(mp, dt))
+    s_out, v_out = fused_gcp2_chain(*chain) if use_kernel else gcp2_chain_plain(*chain)
+
+    # ---- masked aggregation over targets j ----
+    em = edge_mask.to(dt)
+    s_agg = (s_out.reshape(b, n, n, s_dim) * em[..., None]).sum(dim=2)
+    v_agg = (v_out.reshape(b, n, n, 3, v_dim) * em[..., None, None]).sum(dim=2)
+    return s_agg, v_agg

@@ -32,13 +32,30 @@ import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
-# launches of each hand-written kernel, counted where the launch happens
-launch_counts: Dict[str, int] = {"message_layer": 0, "message_layer_bwd": 0}
+# launches of each hand-written kernel of the port (this module's two,
+# ops/gcp2_chain.py's and ops/passes.py's), counted where the launch happens
+launch_counts: Dict[str, int] = {
+    "message_layer": 0, "message_layer_bwd": 0, "gcp2_chain": 0, "elementwise_passes": 0,
+}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def chain_stage_macs(s_dim: int, v_dim: int, hc: int) -> int:
+    """Multiply-adds of one residual GCP2 stage per edge row (block-diagonal
+    zeros included): v @ w_comb, merged @ ws, silu @ wg, vh @ wu_bd."""
+    return 3 * v_dim * (3 * hc + 27) + (s_dim + hc + 9) * s_dim + s_dim * v_dim + 3 * hc * 3 * v_dim
+
+
+def layer_macs_per_row(s_dim: int, v_dim: int, se: int, ve: int, h1: int, hc: int, num_gcps: int) -> int:
+    """Multiply-adds of the message layer's forward per edge row: the first
+    GCP's edge-side products, ``num_gcps`` chain stages and the attention
+    (the node-side projections are O(B N) and outside)."""
+    gcp1 = 3 * ve * (3 * h1 + 27) + (se + h1 + 9) * s_dim + s_dim * v_dim + 3 * h1 * 3 * v_dim
+    return gcp1 + num_gcps * chain_stage_macs(s_dim, v_dim, hc) + s_dim
 
 
 def _rep3(dtype) -> Tensor:
@@ -93,27 +110,39 @@ def pack_gcp1(w: Dict[str, Tensor], s_dim: int, v_dim: int, ve_dim: int) -> Dict
     }
 
 
+def stack_chain(gcps: Sequence[Dict[str, Tensor]], attention: Dict[str, Tensor]) -> Tuple[Tensor, ...]:
+    """The residual chain GCPs' weights (state_dict names -> tensors) and the
+    attention head's (``weight``, ``bias``) as ``[in, out]`` matrices stacked
+    over the chain: ``(wd [G, V, H], wdf [G, V, 3], ws [G, S+H+9, S], bs [G, S],
+    wu [G, H, V], wg [G, S, V], bg [G, V], wattn [S, 1], battn [1])``, the
+    layout of ``gcpnet_fast.py::_stack_chain_weights`` (differentiable)."""
+    def stack(name, transpose=True):
+        return torch.stack([_t(w[name]) if transpose else w[name] for w in gcps])
+
+    return (stack("vector_down.weight"), stack("vector_down_frames.weight"),
+            stack("scalar_out.weight"), stack("scalar_out.bias", False), stack("vector_up.weight"),
+            stack("vector_out_scale.weight"), stack("vector_out_scale.bias", False),
+            _t(attention["weight"]), attention["bias"])
+
+
+def chain_blocks(wd: Tensor, wdf: Tensor, wu: Tensor) -> Tuple[Tensor, Tensor]:
+    """Stacked ``wd [G, V, H]``, ``wdf [G, V, 3]``, ``wu [G, H, V]`` ->
+    ``(w_comb [G, 3V, 3H+27], wu_bd [G, 3H, 3V])``: w_comb = [bd3(wd) |
+    bd3(wdf @ rep3)], wu_bd = bd3(wu) (counterpart of
+    ``gcp_kernel.py::pack_chain_weights``, differentiable)."""
+    rep = _rep3(wd.dtype).to(wd.device)
+    w_comb = torch.stack([torch.cat([_bd3(d), _bd3(f @ rep)], dim=1) for d, f in zip(wd, wdf)])
+    return w_comb, torch.stack([_bd3(u) for u in wu])
+
+
 def pack_chain(gcps: Sequence[Dict[str, Tensor]], attention: Dict[str, Tensor]) -> Tuple[Tensor, ...]:
     """Stack the residual chain GCPs' weights (state_dict names -> tensors in
     the compute dtype) and the attention head's (``weight``, ``bias``) into
     ``(w_comb, ws, bs, wu_bd, wg, bg, wattn, battn)``, keeping the autograd
-    graph (counterpart of ``gcpnet_fast.py::pack_chain_weights_jnp``):
-    ``w_comb [G, 3V, 3H+27]`` = [bd3(vector_down) | bd3(vector_down_frames @
-    rep3)], ``wu_bd [G, 3H, 3V]`` = bd3(vector_up)."""
-    w_comb, ws, bs, wu_bd, wg, bg = [], [], [], [], [], []
-    for w in gcps:
-        wd = _t(w["vector_down.weight"])
-        rep = _rep3(wd.dtype).to(wd.device)
-        w_comb.append(torch.cat([_bd3(wd), _bd3(_t(w["vector_down_frames.weight"]) @ rep)], dim=1))
-        ws.append(_t(w["scalar_out.weight"]))
-        bs.append(w["scalar_out.bias"])
-        wu_bd.append(_bd3(_t(w["vector_up.weight"])))
-        wg.append(_t(w["vector_out_scale.weight"]))
-        bg.append(w["vector_out_scale.bias"])
-    return (
-        torch.stack(w_comb), torch.stack(ws), torch.stack(bs), torch.stack(wu_bd),
-        torch.stack(wg), torch.stack(bg), _t(attention["weight"]).contiguous(), attention["bias"],
-    )
+    graph (counterpart of ``gcpnet_fast.py::pack_chain_weights_jnp``)."""
+    wd, wdf, ws, bs, wu, wg, bg, wattn, battn = stack_chain(gcps, attention)
+    w_comb, wu_bd = chain_blocks(wd, wdf, wu)
+    return (w_comb, ws, bs, wu_bd, wg, bg, wattn.contiguous(), battn)
 
 
 def cast_parameters(module: torch.nn.Module, dtype) -> Dict[str, Tensor]:
@@ -145,6 +174,33 @@ def _safe_norm_last(x2_sum: Tensor, eps: float = 1e-8) -> Tensor:
     return torch.sqrt(x2_sum + eps) + eps
 
 
+def frame_tiles(ft: Tensor):
+    """Lane-tiled frame factors of transposed frames ``[..., 9]``:
+    ``tiles[k][..., c*3+a] = frames_t[..., 3k+a]``."""
+    return [torch.cat([ft[..., 3 * k: 3 * (k + 1)]] * 3, dim=-1) for k in range(3)]
+
+
+def _scalarize(vdfrep: Tensor, ftiles) -> Tensor:  # [..., 27] -> [..., 9]
+    return sum(vdfrep[..., 9 * k: 9 * (k + 1)] * ftiles[k] for k in range(3))
+
+
+def chain_plain(s: Tensor, v: Tensor, ftiles, w_comb: Tensor, wsc: Tensor, bsc: Tensor,
+                wu_bd: Tensor, wgc: Tensor, bgc: Tensor) -> Tuple[Tensor, Tensor]:
+    """The residual GCP2 stages in plain PyTorch over rows of ``s [..., S]``,
+    ``v [..., 3V]`` (the chain of ``message_layer_reference``)."""
+    dt = s.dtype
+    hc = (w_comb.shape[2] - 27) // 3
+    for g in range(w_comb.shape[0]):
+        vhd_g = v @ w_comb[g]
+        vnorm_g = _safe_norm_last(sum(vhd_g[..., k * hc:(k + 1) * hc] ** 2 for k in range(3)))
+        merged = torch.cat([s, vnorm_g.to(dt), _scalarize(vhd_g[..., 3 * hc:], ftiles).to(dt)], dim=-1)
+        silu_g = F.silu(merged @ wsc[g] + bsc[g])
+        gate_g = torch.sigmoid(silu_g @ wgc[g] + bgc[g])
+        s = s + silu_g
+        v = v + (vhd_g[..., :3 * hc] @ wu_bd[g]) * torch.cat([gate_g] * 3, dim=-1)
+    return s, v
+
+
 def message_layer_plain(s_node: Tensor, v_node: Tensor, epack: Tensor,
                         g1: Dict[str, Tensor], chain: tuple, *, ve_dim: int
                         ) -> Tuple[Tensor, Tensor]:
@@ -161,18 +217,13 @@ def message_layer_plain(s_node: Tensor, v_node: Tensor, epack: Tensor,
     ep = epack.reshape(b, n, n, epack.shape[-1])
     e_feat = ep[..., :se]
     xi = ep[..., se: se + ve3]
-    ft = ep[..., se + ve3: se + ve3 + 9]
+    ftiles = frame_tiles(ep[..., se + ve3: se + ve3 + 9])
     emask = ep[..., se + ve3 + 9: se + ve3 + 10]
-    # lane-tiled frame factors: ftiles[k][..., c*3+a] = frames_t[..., 3k+a]
-    ftiles = [torch.cat([ft[..., 3 * k: 3 * (k + 1)]] * 3, dim=-1) for k in range(3)]
-
-    def scalarize(vdfrep):  # [..., 27] -> [..., 9]
-        return sum(vdfrep[..., 9 * k: 9 * (k + 1)] * ftiles[k] for k in range(3))
 
     # ---- first GCP over the virtual concat (node_i | edge | node_j) ----
     vhd = (v_node @ g1["wvi"])[:, :, None] + (v_node @ g1["wvj"])[:, None, :] + xi @ g1["wve"]
     vnorm = _safe_norm_last(sum(vhd[..., k * h1:(k + 1) * h1] ** 2 for k in range(3)))
-    schid = scalarize(vhd[..., h3:])
+    schid = _scalarize(vhd[..., h3:], ftiles)
     cat1 = torch.cat([e_feat, vnorm.to(dt), schid.to(dt)], dim=-1)
     s2 = (
         (s_node @ g1["wsi"])[:, :, None]
@@ -185,16 +236,8 @@ def message_layer_plain(s_node: Tensor, v_node: Tensor, epack: Tensor,
     v = (vhd[..., :h3] @ g1["wu_bd"]) * torch.cat([gate] * 3, dim=-1)
 
     # ---- residual chain of GCP2 stages ----
-    w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn = chain
-    hc = (w_comb.shape[2] - 27) // 3
-    for g in range(w_comb.shape[0]):
-        vhd_g = v @ w_comb[g]
-        vnorm_g = _safe_norm_last(sum(vhd_g[..., k * hc:(k + 1) * hc] ** 2 for k in range(3)))
-        merged = torch.cat([s, vnorm_g.to(dt), scalarize(vhd_g[..., 3 * hc:]).to(dt)], dim=-1)
-        silu_g = F.silu(merged @ wsc[g] + bsc[g])
-        gate_g = torch.sigmoid(silu_g @ wgc[g] + bgc[g])
-        s = s + silu_g
-        v = v + (vhd_g[..., :3 * hc] @ wu_bd[g]) * torch.cat([gate_g] * 3, dim=-1)
+    wattn, battn = chain[6], chain[7]
+    s, v = chain_plain(s, v, ftiles, *chain[:6])
 
     attn = torch.sigmoid(s @ wattn + battn)
     s = s * attn * emask.to(dt)

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from bio_diffusion_tpu.chem.stability import batch_molecular_stability, ensure_bond_tables
+from bio_diffusion_torch.chem.stability import batch_molecular_stability, ensure_bond_tables
 from bio_diffusion_torch.train.sampling import SegmentedSampler, make_node_mask
 
 _SHUTDOWN = object()  # executor shutdown sentinel

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from bio_diffusion_tpu.config.build import ExperimentConfig
+from bio_diffusion_torch.config.build import ExperimentConfig
 from bio_diffusion_torch.data.batch import iterate_dense_batches
 from bio_diffusion_torch.data.dataset_info import get_dataset_info
 from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion

@@ -13,7 +13,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bio_diffusion_tpu.chem.stability import batch_molecular_stability, ensure_bond_tables
+from bio_diffusion_torch.chem.stability import batch_molecular_stability, ensure_bond_tables
 from bio_diffusion_torch.models.distributions import CategoricalDistribution, NumNodesDistribution
 
 

@@ -23,7 +23,7 @@ from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 
-from bio_diffusion_tpu.config.schema import OptimizerConfig
+from bio_diffusion_torch.config.schema import OptimizerConfig
 
 Tensor = torch.Tensor
 

@@ -14,7 +14,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bio_diffusion_tpu.config.schema import DataloaderConfig, DiffusionConfig, compute_num_atom_types
+from bio_diffusion_torch.config.schema import DataloaderConfig, DiffusionConfig, compute_num_atom_types
 from bio_diffusion_torch.data.batch import DenseMolBatch
 from bio_diffusion_torch.models.diffusion import assemble_nll
 from bio_diffusion_torch.ops.geometry import centralize

@@ -11,7 +11,7 @@
 3. Holds the message-layer kernel against its plain PyTorch version at full
    QM9 width (S=256, V=32, Se=64, Ve=16, 4 message GCPs), in float32 and
    bfloat16, at B=8 with N=19 and N=29, on a padded batch and at N=64; then
-   times both at B=8 and B=250, N=19, bfloat16.
+   times both at B=8 and B=250 with N=19 and at B=16 with N=64, bfloat16.
 4. Holds the message-layer backward kernel against its plain version (autograd
    through the plain forward) at full width, float32 and bfloat16, at B=8
    with N=19, B=8 with N=29 and padded rows, B=2 with N=64, and at the
@@ -41,9 +41,23 @@
    backward launches per training micro-batch (and 2 x 9 forward launches
    per validation batch).  Times 6 (float32) and 4 (bfloat16) further
    Trainer steps with CUDA events and prints the peak device memory.
+8. Holds the flat-edge GCP2 chain kernel against its plain version at full
+   QM9 width (G=3, S=256, V=32, H=8, the weights of layer 0 of the bf16
+   model), float32 and bfloat16, at E=53,824 (B=64, N=29), E=90,250 (B=250,
+   N=19) and a ragged E, then times both at the first two sizes.
+9. Drives the unfused message-passing path
+   (``models.gcpnet.message_passing_unfused``, which runs that kernel)
+   against the fused message-layer kernel on the same layer inputs and
+   weights at B=64, N=29 (float32 and bfloat16, both timed); the chain
+   kernel must have been launched in this phase.
+10. Holds the pass-probe kernel against its plain version for each of its
+   nine ops at k=8, then runs the probe (``cli.bench_passes``) at its
+   default shape.
 
-Prints one JSON line of per-kernel results, then, last, the device line.
-Any failure raises and the exit code is non-zero.
+Prints one JSON line of per-kernel results (each with its bound: the larger
+of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
+67 TFLOP/s in float32), then, last, the device line.  Any failure raises and
+the exit code is non-zero.
 """
 
 from __future__ import annotations
@@ -64,6 +78,20 @@ TOL_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 # plain version rounds every intermediate cotangent to bf16, the kernel
 # accumulates in f32
 TOL_BWD_REL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the unfused path against the fused kernel, relative to max|fused|: float32
+# differs in summation order only; in bfloat16 the unfused path rounds after
+# every PyTorch op (its first GCP adds six rounded terms where the kernel sums
+# in f32), as the plain version does, so it gets the plain version's tolerance
+TOL_UNFUSED_REL = dict(TOL_REL)
+# the pass probe against its plain version, relative to max(1, max|plain|)
+# over the finite values (float32; only the sigmoid and silu forms and the
+# rsqrt approximation differ)
+TOL_PASSES_REL = 1e-5
+# the card's peaks (NVIDIA H100 SXM data sheet): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the rate
+# of their type (bf16 tensor cores; float32 FMA, an FMA counted as 2)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}
 # full-width denoiser, card vs CPU, float32, relative to max|CPU output|
 TOL_DENOISER_REL = 1e-3
 # its parameter gradients, card vs CPU, float32: relative to max|CPU grad| of
@@ -79,9 +107,29 @@ def card_line() -> str:
     return out[0]
 
 
+def bound(flops: float, moved: float, dtype_name: str):
+    """(bound_ms, bound_by): the least time for ``flops`` operations of the
+    given type and ``moved`` bytes, each moved once."""
+    t_ops, t_bytes = flops / PEAK_FLOP_S[dtype_name], moved / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of a nest of tensors (dicts, lists, tuples), each counted once."""
+    out = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            out += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            out += nbytes(*t)
+        else:
+            out += t.numel() * t.element_size()
+    return out
+
+
 def qm9_experiment(precision: str):
-    from bio_diffusion_tpu.config.build import build_experiment
-    from bio_diffusion_tpu.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
 
     cfg = load_config(default_config_dir(), "serve", [f"trainer.precision={precision}"])
     return build_experiment(cfg)
@@ -115,6 +163,22 @@ def kernel_inputs(torch, evd, b, n, dtype, padded, seed):
     return (s_node.to(dtype), v_node.to(dtype), epack.to(dtype).contiguous(), g1, chain), ve
 
 
+def layer_flops(args, ve) -> float:
+    """FLOPs of one forward message-layer call: the per-edge-row products
+    (``layer_macs_per_row``) and the node-side projections, 2 per multiply-add."""
+    from bio_diffusion_torch.ops.message_layer import layer_macs_per_row
+
+    s_node, v_node, _, g1, chain = args
+    b, n, s_dim = s_node.shape
+    v_dim = v_node.shape[-1] // 3
+    h1 = g1["wu_bd"].shape[0] // 3
+    se = g1["wsx"].shape[0] - h1 - 9
+    hc = (chain[0].shape[2] - 27) // 3
+    rows = layer_macs_per_row(s_dim, v_dim, se, ve, h1, hc, chain[0].shape[0])
+    node = 2 * (s_dim * s_dim + 3 * v_dim * (3 * h1 + 27))
+    return 2.0 * (b * n * n * rows + b * n * node)
+
+
 def time_ms(torch, fn, reps=20):
     for _ in range(3):
         fn()
@@ -126,6 +190,14 @@ def time_ms(torch, fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+def in_turns(torch, kernel_fn, plain_fn, reps):
+    """plain, kernel, kernel, plain: both timed twice, in turns -> (best kernel
+    ms, best plain ms, all runs)."""
+    times = {}
+    for label in ("plain", "kernel", "kernel", "plain"):
+        times.setdefault(label, []).append(time_ms(torch, kernel_fn if label == "kernel" else plain_fn, reps))
+    return min(times["kernel"]), min(times["plain"]), times
 
 
 def compare_fwd(torch, args, ve, name, label):
@@ -161,18 +233,20 @@ def check_kernel(torch, evd):
             err, rel = compare_fwd(torch, args, ve, name, f"B={b} N={n} padded={padded}")
             if name == "bfloat16" and (b, n, padded) == (8, 19, False):
                 result["max_abs_err"], result["max_rel_err"] = err, rel
-    for b in (8, 250):
-        args, ve = kernel_inputs(torch, evd, b, 19, torch.bfloat16, False, seed=7)
-        times = {}
-        # plain, kernel, kernel, plain: both measured twice, in turns
-        for label in ("plain", "kernel", "kernel", "plain"):
-            fn = ml.message_layer_plain if label == "plain" else ml.fused_message_layer
-            times.setdefault(label, []).append(time_ms(torch, lambda: fn(*args, ve_dim=ve)))
-        kernel_ms, plain_ms = min(times["kernel"]), min(times["plain"])
-        print(f"timing bf16 B={b} N=19: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(runs {times})")
-        if b == 8:
-            result["ms"], result["plain_ms"] = kernel_ms, plain_ms
+    # the serving shapes, and N=64: target rows in two tiles, the case of the
+    # TPU kernel's sub-molecule body (n * n > 2600 there)
+    result["by_shape"] = {}
+    for b, n in ((8, 19), (250, 19), (16, 64)):
+        args, ve = kernel_inputs(torch, evd, b, n, torch.bfloat16, False, seed=7)
+        kernel_ms, plain_ms, runs = in_turns(torch, lambda: ml.fused_message_layer(*args, ve_dim=ve),
+                                             lambda: ml.message_layer_plain(*args, ve_dim=ve), reps=20)
+        out = ml.fused_message_layer(*args, ve_dim=ve)
+        bound_ms, bound_by = bound(layer_flops(args, ve), nbytes(args, out), "bfloat16")
+        print(f"timing bf16 B={b} N={n}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) (runs {runs})")
+        result["by_shape"][f"bf16, B={b}, N={n}"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                          bound_by=bound_by)
+    result.update(result["by_shape"]["bf16, B=8, N=19"])
     return result
 
 
@@ -272,22 +346,25 @@ def check_bwd_kernel(torch, evd):
             "fwd": (lambda: ml.fused_message_layer(*args, ve_dim=ve),
                     lambda: ml.message_layer_plain(*args, ve_dim=ve)),
         }
+        # bounds: the forward's products; the backward's recompute, input
+        # cotangents and weight grads, ~3x the forward's products
+        bounds = {
+            "bwd": bound(3 * layer_flops(args, ve), nbytes(args, ct, pairs["bwd"][0]()), name),
+            "fwd": bound(layer_flops(args, ve), nbytes(args, pairs["fwd"][0]()), name),
+        }
         for what, (kernel_fn, plain_fn) in pairs.items():
-            times = {}
-            # plain, kernel, kernel, plain: both measured twice, in turns
-            for label in ("plain", "kernel", "kernel", "plain"):
-                fn = plain_fn if label == "plain" else kernel_fn
-                times.setdefault(label, []).append(time_ms(torch, fn, reps=5))
-            timings[(what, name)] = (min(times["kernel"]), min(times["plain"]))
-            print(f"timing {what} {name} B=64 N=29: kernel {min(times['kernel']):.4f} ms, "
-                  f"plain {min(times['plain']):.4f} ms (runs {times})")
+            kernel_ms, plain_ms, runs = in_turns(torch, kernel_fn, plain_fn, reps=5)
+            timings[(what, name)] = (kernel_ms, plain_ms) + bounds[what]
+            print(f"timing {what} {name} B=64 N=29: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bounds[what][0]:.4f} ms ({bounds[what][1]}) (runs {runs})")
     # the kernels line reports the backward at the training path's shape and
     # default precision (float32), with the bfloat16 numbers beside them
     result["max_abs_err"], result["max_rel_err"] = result["bwd_err_b64_float32"]
     result["max_abs_err_bf16"], result["max_rel_err_bf16"] = result["bwd_err_b64_bfloat16"]
-    result["ms"], result["plain_ms"] = timings[("bwd", "float32")]
-    result["ms_bf16"], result["plain_ms_bf16"] = timings[("bwd", "bfloat16")]
+    result["ms"], result["plain_ms"], result["bound_ms"], result["bound_by"] = timings[("bwd", "float32")]
+    result["ms_bf16"], result["plain_ms_bf16"], result["bound_ms_bf16"], _ = timings[("bwd", "bfloat16")]
     result["fwd_ms_b64"] = {k[1]: v[0] for k, v in timings.items() if k[0] == "fwd"}
+    result["fwd_bound_ms_b64"] = {k[1]: v[2] for k, v in timings.items() if k[0] == "fwd"}
     result["bwd_ms_b64"] = {k[1]: v[0] for k, v in timings.items() if k[0] == "bwd"}
     return result
 
@@ -415,7 +492,7 @@ def check_molecules(mols, num_samples):
 
 
 def drive_main_path(torch):
-    from bio_diffusion_tpu.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
     from bio_diffusion_torch.cli.serve import build_server
     from bio_diffusion_torch.ops import message_layer as ml
 
@@ -495,6 +572,142 @@ def check_decoded_batch(torch, server):
     print("decoded padded batch: finite, CoM-free, padded rows 0, one-hot, integer charges: ok")
 
 
+def chain_inputs(torch, evd, e, dtype, seed):
+    """Flat edge rows s [E, S], v [E, 3V], frames_t [E, 9] drawn from ``seed``
+    and the chain weights of layer 0 of the full-width model, on the card."""
+    from bio_diffusion_torch.models.gcpnet import stack_chain_weights
+
+    mc = evd.dynamics_network.model_cfg
+    mp = evd.dynamics_network.interaction_layers[0].interaction
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = [torch.randn(e, mc.h_hidden_dim, generator=gen, device="cuda"),
+            torch.randn(e, 3 * mc.chi_hidden_dim, generator=gen, device="cuda"),
+            torch.rand(e, 9, generator=gen, device="cuda") * 2 - 1]
+    with torch.no_grad():
+        weights = [w.contiguous() for w in stack_chain_weights(mp, dtype)]
+    return [r.to(dtype) for r in rows] + weights
+
+
+def check_chain(torch, evd):
+    """The flat-edge chain kernel against its plain version, then both timed."""
+    from bio_diffusion_torch.ops.gcp2_chain import fused_gcp2_chain, gcp2_chain_plain
+    from bio_diffusion_torch.ops.message_layer import chain_stage_macs
+
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for e in (53824, 90250, 4001):
+            args = chain_inputs(torch, evd, e, dtype, seed=e)
+            out = fused_gcp2_chain(*args)
+            plain = gcp2_chain_plain(*args)
+            torch.cuda.synchronize()
+            worst_abs, worst_rel = 0.0, 0.0
+            for part, k, p in zip(("s", "v"), out, plain):
+                err = (k.float() - p.float()).abs().max().item()
+                ref = p.float().abs().max().item()
+                ok = k.dtype == dtype and bool(torch.isfinite(k).all()) and err <= TOL_REL[name] * ref
+                print(f"chain-kernel-vs-plain {name} E={e} {part}: max_abs_err={err:.6g} max|plain|={ref:.6g} "
+                      f"rel={err / ref:.3g} tol={TOL_REL[name]:g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"GCP2 chain kernel disagrees with the plain version ({name}, E={e})")
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / ref)
+            if e == 4001:
+                continue
+            kernel_ms, plain_ms, runs = in_turns(torch, lambda: fused_gcp2_chain(*args),
+                                                 lambda: gcp2_chain_plain(*args), reps=10)
+            s_dim, v3, g = args[0].shape[1], args[1].shape[1], args[3].shape[0]
+            flops = 2.0 * e * (g * chain_stage_macs(s_dim, v3 // 3, args[3].shape[2]) + s_dim)
+            bound_ms, bound_by = bound(flops, nbytes(args, out), name)
+            print(f"timing chain {name} E={e}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) (runs {runs})")
+            result[(name, e)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     max_abs_err=worst_abs, max_rel_err=worst_rel)
+    return result
+
+
+def unfused_inputs(torch, args, ve):
+    """The fused layer's (s_node, v_node, epack) as the unfused path's
+    (s_node, v_node_cm, e, xi_cm, frames_flat, edge_mask)."""
+    s_node, v_node, epack = args[:3]
+    b, n, _ = s_node.shape
+    se = epack.shape[-1] - 3 * ve - 10
+    ep = epack.reshape(b, n, n, -1)
+    return (s_node, v_node.reshape(b, n, 3, -1), ep[..., :se], ep[..., se:se + 3 * ve].reshape(b, n, n, 3, ve),
+            ep[..., se + 3 * ve:se + 3 * ve + 9].reshape(b * n * n, 9), ep[..., -1])
+
+
+def drive_unfused(torch, evd):
+    """The unfused message-passing path (first GCP by torch.matmul, the chain
+    kernel, masked sum) against the fused kernel on the same layer inputs and
+    weights at B=64, N=29; both timed.  Returns the chain kernel's launches in
+    this phase and the timings."""
+    from bio_diffusion_torch.models.gcpnet import message_passing_unfused
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    mp = evd.dynamics_network.interaction_layers[0].interaction
+    result = {}
+    ml.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        args, ve = kernel_inputs(torch, evd, 64, 29, dtype, True, seed=640)
+        ins = unfused_inputs(torch, args, ve)
+
+        def unfused():
+            with torch.no_grad():
+                return message_passing_unfused(mp, *ins, use_kernel=True)
+
+        s_u, v_u = unfused()
+        s_f, v_f = ml.fused_message_layer(*args, ve_dim=ve)
+        torch.cuda.synchronize()
+        for part, u, f in (("s_agg", s_u, s_f), ("v_agg", v_u.reshape(v_f.shape), v_f)):
+            err = (u.float() - f.float()).abs().max().item()
+            ref = f.float().abs().max().item()
+            ok = u.dtype == dtype and bool(torch.isfinite(u).all()) and err <= TOL_UNFUSED_REL[name] * ref
+            print(f"unfused-vs-fused {name} B=64 N=29 {part}: max_abs_err={err:.6g} max|fused|={ref:.6g} "
+                  f"rel={err / ref:.3g} tol={TOL_UNFUSED_REL[name]:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the unfused path disagrees with the fused kernel ({name})")
+        unfused_ms, fused_ms, runs = in_turns(torch, unfused, lambda: ml.fused_message_layer(*args, ve_dim=ve),
+                                              reps=5)
+        print(f"timing layer {name} B=64 N=29: unfused path (chain kernel) {unfused_ms:.4f} ms, "
+              f"fused kernel {fused_ms:.4f} ms (runs {runs})")
+        result[name] = dict(unfused_ms=unfused_ms, fused_ms=fused_ms)
+    launches = ml.launch_counts["gcp2_chain"]
+    print(f"unfused path: {launches} chain kernel launches")
+    if launches < 1:
+        raise AssertionError("the unfused path did not launch the chain kernel")
+    return launches, result
+
+
+def check_passes(torch):
+    """Each op of the pass probe, kernel against plain version at k=8 over the
+    default shape; then the probe itself, whose launches are counted."""
+    from bio_diffusion_torch.cli import bench_passes
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.ops.passes import OPS, repeat_op, repeat_op_plain
+
+    x = torch.randn(90250, 256, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
+    worst = 0.0
+    for op in OPS:
+        out, plain = repeat_op(x, op, 8), repeat_op_plain(x, op, 8)
+        torch.cuda.synchronize()
+        finite = torch.isfinite(plain)
+        err = (out - plain)[finite].abs().max().item() if bool(finite.any()) else 0.0
+        scale = max(1.0, plain[finite].abs().max().item() if bool(finite.any()) else 0.0)
+        ok = torch.equal(torch.isfinite(out), finite) and err <= TOL_PASSES_REL * scale
+        print(f"passes-kernel-vs-plain {op} k=8: max_abs_err={err:.6g} scale={scale:.6g} "
+              f"{int(finite.sum())} finite, tol={TOL_PASSES_REL:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"pass-probe kernel disagrees with the plain version ({op})")
+        worst = max(worst, err)
+    ml.reset_launch_counts()
+    probe = bench_passes.main([])
+    launches = ml.launch_counts["elementwise_passes"]
+    if launches < 1:
+        raise AssertionError("the probe did not launch its kernel")
+    return worst, launches, probe
+
+
 def main() -> int:
     import torch
 
@@ -511,10 +724,11 @@ def main() -> int:
     from bio_diffusion_torch.cli.serve import build_model
     from bio_diffusion_torch.ops import build
 
+    sources = ("message_layer", "message_layer_bwd", "gcp2_chain", "elementwise_passes")
     t0 = time.perf_counter()
-    build.load_libraries("message_layer", "message_layer_bwd")
-    print(f"built message_layer and message_layer_bwd in {time.perf_counter() - t0:.2f} s")
-    for name in ("message_layer", "message_layer_bwd"):
+    build.load_libraries(*sources)
+    print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
         for line in build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  nvcc {name}: {line.strip()}")
@@ -522,6 +736,8 @@ def main() -> int:
     evd_kernels = build_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
     kernel = check_kernel(torch, evd_kernels)
     kernel_bwd = check_bwd_kernel(torch, evd_kernels)
+    chain = check_chain(torch, evd_kernels)
+    chain_launches, unfused = drive_unfused(torch, evd_kernels)
     del evd_kernels
     check_denoiser(torch)
     check_denoiser_grad(torch)
@@ -534,7 +750,16 @@ def main() -> int:
               f"= {100 * share:.1f}% of the step")
     train_fwd = train_counts["message_layer"] + train_counts_bf16["message_layer"]
     train_bwd = train_counts["message_layer_bwd"] + train_counts_bf16["message_layer_bwd"]
+    passes_err, passes_launches, probe = check_passes(torch)
 
+    # the chain row: bf16 at the training shape's E, float32 and the serving
+    # shape's E beside it
+    chain_row = chain[("bfloat16", 53824)]
+    # the probe's row: one launch of 104 mul passes over its [90250, 256]
+    # array; each pass is one float32 lane operation (half an FMA's 2 FLOPs)
+    mul = probe["per_pass"]["mul"]
+    elems = probe["rows"] * probe["cols"]
+    probe_bound = bound(2.0 * 104 * elems, 2 * 4 * elems, "float32")
     print(json.dumps({"kernels": [{
         "name": "message_layer",
         "route": "cuda",
@@ -546,6 +771,13 @@ def main() -> int:
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"],
+        "library_ms": None,
+        "shape": "bf16, B=8, N=19",
+        "by_shape": kernel["by_shape"],
+        "ms_b64": kernel_bwd["fwd_ms_b64"],
+        "bound_ms_b64": kernel_bwd["fwd_bound_ms_b64"],
     }, {
         "name": "message_layer_bwd",
         "route": "cuda",
@@ -559,8 +791,48 @@ def main() -> int:
         "max_rel_err_bf16": kernel_bwd["max_rel_err_bf16"],
         "ms": kernel_bwd["ms"],
         "plain_ms": kernel_bwd["plain_ms"],
+        "bound_ms": kernel_bwd["bound_ms"],
+        "bound_by": kernel_bwd["bound_by"],
+        "library_ms": None,
+        "shape": "fp32, B=64, N=29",
         "ms_bf16": kernel_bwd["ms_bf16"],
         "plain_ms_bf16": kernel_bwd["plain_ms_bf16"],
+        "bound_ms_bf16": kernel_bwd["bound_ms_bf16"],
+    }, {
+        "name": "gcp2_chain",
+        "route": "cuda",
+        "source": "bio_diffusion_torch/csrc/gcp2_chain.cu",
+        "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:204",
+        "launches": chain_launches,
+        "launches_by_path": {"unfused_message_passing": chain_launches},
+        "max_abs_err": chain_row["max_abs_err"],
+        "max_rel_err": chain_row["max_rel_err"],
+        "ms": chain_row["ms"],
+        "plain_ms": chain_row["plain_ms"],
+        "bound_ms": chain_row["bound_ms"],
+        "bound_by": chain_row["bound_by"],
+        "library_ms": None,
+        "shape": "bf16, E=53824",
+        "by_shape": {f"{dt}, E={e}": r for (dt, e), r in chain.items()},
+        "unfused_layer_ms": unfused,
+    }, {
+        "name": "elementwise_passes",
+        "route": "cuda",
+        "source": "bio_diffusion_torch/csrc/elementwise_passes.cu",
+        "replaces": "scripts/bench_vpu_passes.py:67",
+        "launches": passes_launches,
+        "launches_by_path": {"bench_passes": passes_launches},
+        "max_abs_err": passes_err,
+        "ms": mul["kernel_k104_ms"],
+        "plain_ms": mul["plain_k104_ms"],
+        "bound_ms": probe_bound[0],
+        "bound_by": probe_bound[1],
+        "library_ms": mul["plain_pass_ms"],
+        "shape": f"mul, k=104, [{probe['rows']}, {probe['cols']}] float32",
+        "ns_per_pass": {op: {"kernel": 1e6 * r["kernel_pass_ms"], "plain": 1e6 * r["plain_pass_ms"]}
+                        for op, r in probe["per_pass"].items()},
+        "accounted_ms": probe["accounted_ms"],
+        "message_layer_ms": probe["message_layer_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

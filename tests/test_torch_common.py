@@ -10,9 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from bio_diffusion_tpu.config.schema import (
-    DataloaderConfig, DiffusionConfig, LayerConfig, ModelConfig, ModuleConfig,
-)
+from bio_diffusion_torch.config import schema as port_schema
+from bio_diffusion_tpu.config import schema as jax_schema
 
 # S=16, V=4, Se=8, Ve=2, two layers, T=10
 TINY_OVERRIDES = [
@@ -26,10 +25,21 @@ TINY_OVERRIDES = [
 ]
 
 
+def _tiny(schema):
+    mc = schema.ModelConfig(h_hidden_dim=16, chi_hidden_dim=4, e_hidden_dim=8, xi_hidden_dim=2,
+                            num_encoder_layers=2)
+    return (mc, schema.ModuleConfig(), schema.LayerConfig(), schema.DiffusionConfig(num_timesteps=10),
+            schema.DataloaderConfig())
+
+
 def tiny_configs():
-    mc = ModelConfig(h_hidden_dim=16, chi_hidden_dim=4, e_hidden_dim=8, xi_hidden_dim=2,
-                     num_encoder_layers=2)
-    return mc, ModuleConfig(), LayerConfig(), DiffusionConfig(num_timesteps=10), DataloaderConfig()
+    """The tiny (model, module, layer, diffusion, dataloader) configs of the port."""
+    return _tiny(port_schema)
+
+
+def jax_tiny_configs():
+    """The same configs as the JAX package's dataclasses, for its models."""
+    return _tiny(jax_schema)
 
 
 def tiny_batch(b=2, n=7, seed=0):
@@ -47,7 +57,7 @@ def tiny_batch(b=2, n=7, seed=0):
 
 def build_jax_and_port(seed=0):
     """JAX GCPNetDynamics + EVD with initialized params, and the port's EVD
-    carrying the same weights (float32, CPU)."""
+    carrying the same weights (float32, CPU); ``cfgs`` are the port's."""
     from bio_diffusion_tpu.models.diffusion import EquivariantVariationalDiffusion as JaxEVD
     from bio_diffusion_tpu.models.gcpnet import GCPNetDynamics as JaxDynamics
     from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
@@ -57,14 +67,14 @@ def build_jax_and_port(seed=0):
     )
 
     cfgs = tiny_configs()
-    mc, mod, lc, dc, dl = cfgs
+    mc, mod, lc, dc, dl = jax_tiny_configs()
     net = JaxDynamics(mc, mod, lc, dc, dl, remat_interactions=False)
     xh, t, mask = tiny_batch()
     dyn_params = net.init(jax.random.PRNGKey(seed), jnp.asarray(xh), jnp.asarray(t), jnp.asarray(mask))
     evd_params = {"params": {"dynamics": dyn_params["params"]}}
     jax_evd = JaxEVD(dynamics=net, diffusion_cfg=dc, dataloader_cfg=dl)
 
-    evd = EquivariantVariationalDiffusion(GCPNetDynamics(*cfgs), dc, dl)
+    evd = EquivariantVariationalDiffusion(GCPNetDynamics(*cfgs), cfgs[3], cfgs[4])
     load_reference_state_dict(evd, state_dict_from_jax_params(evd_params))
     return cfgs, net, dyn_params, jax_evd, evd_params, evd.eval()
 

@@ -20,7 +20,7 @@ from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
 from bio_diffusion_torch.train.torch_import import (
     load_reference_checkpoint, load_reference_state_dict, state_dict_from_jax_params,
 )
-from test_torch_common import build_jax_and_port, tiny_batch
+from test_torch_common import build_jax_and_port, jax_tiny_configs, tiny_batch
 
 ATOL = 1e-4
 
@@ -59,8 +59,8 @@ def test_reference_checkpoint_loads(models, tmp_path):
 
 
 def test_denoiser_matches_jax(models):
-    cfgs, net, dyn_params, _, _, evd = models
-    mc, mod, lc, dc, dl = cfgs
+    _, net, dyn_params, _, _, evd = models
+    mc, mod, lc, dc, dl = jax_tiny_configs()
     xh, t, mask = tiny_batch(seed=1)
     expected_module = np.asarray(net.apply(dyn_params, jnp.asarray(xh), jnp.asarray(t), jnp.asarray(mask)))
     fast = make_fast_dynamics(mc, mod, lc, dc, dl, {"params": {"dynamics": dyn_params["params"]}},

@@ -1,5 +1,5 @@
-"""The message-layer CUDA kernels (forward and backward) against their plain
-PyTorch versions.
+"""The CUDA kernels (the message layer's forward and backward, the flat-edge
+GCP2 chain, the pass probe) against their plain PyTorch versions.
 
 This file imports no jax, so the card tests also run where only the port is
 installed:
@@ -10,15 +10,20 @@ The ``cuda``-marked tests skip without a CUDA device (the kernels have no
 CPU mode).  Forward tolerance relative to max|plain|: float32 1e-4 (TF32 off;
 only the summation order differs), bfloat16 2e-2 (the kernel rounds to bf16
 where the TPU kernel does, the plain version after every op); the backward's
-are at ``TOL_BWD``, and two backward runs must be bit-identical.
+are at ``TOL_BWD``, and two backward runs must be bit-identical.  The chain
+kernel is held at the forward's tolerances, the pass probe at rtol 1e-5 of
+max|plain| (float32; only the sigmoid and silu forms and the rsqrt
+approximation differ).
 """
 
 import pytest
 import torch
 
-from bio_diffusion_tpu.config.schema import LayerConfig, ModuleConfig
-from bio_diffusion_torch.models.gcpnet import GCPMessagePassing
+from bio_diffusion_torch.config.schema import LayerConfig, ModuleConfig
+from bio_diffusion_torch.models.gcpnet import GCPMessagePassing, stack_chain_weights
 from bio_diffusion_torch.ops import message_layer as ml
+from bio_diffusion_torch.ops.gcp2_chain import fused_gcp2_chain, gcp2_chain_plain
+from bio_diffusion_torch.ops.passes import OPS, repeat_op, repeat_op_plain
 from bio_diffusion_torch.train.torch_import import init_random_weights
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -112,3 +117,46 @@ def test_bwd_kernel_matches_plain_on_card(dtype, dims, b, n):
         ref = p.float().abs().max().item()
         print(f"{dtype} dims={dims} B={b} N={n} {name}: err {err:.3g} max|plain| {ref:.3g}")
         assert err <= TOL_BWD[dtype] * ref, (name, err, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,e", [(TINY, 70), (QM9, 1000), (QM9, 4001)])
+def test_chain_kernel_matches_plain_on_card(dtype, dims, e):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s_dim, v_dim, se, ve = dims
+    mp = GCPMessagePassing((s_dim, v_dim), (se, ve), ModuleConfig(), LayerConfig())
+    init_random_weights(mp, e)
+    gen = torch.Generator().manual_seed(e)
+    rows = [torch.randn(e, s_dim, generator=gen), torch.randn(e, 3 * v_dim, generator=gen),
+            torch.rand(e, 9, generator=gen) * 2 - 1]
+    args = [t.to("cuda", dtype) for t in rows] + [w.detach() for w in stack_chain_weights(mp.to("cuda"), dtype)]
+    before = ml.launch_counts["gcp2_chain"]
+    out = fused_gcp2_chain(*args)
+    assert ml.launch_counts["gcp2_chain"] == before + 1
+    plain = gcp2_chain_plain(*args)
+    torch.cuda.synchronize()
+    for k, p in zip(out, plain):
+        assert k.dtype == dtype and k.shape == p.shape and torch.isfinite(k).all()
+        err = (k.float() - p.float()).abs().max().item()
+        assert err <= TOL[dtype] * p.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("op", OPS)
+def test_passes_kernel_matches_plain_on_card(op, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x = torch.randn(1000, 77, generator=torch.Generator(device="cuda").manual_seed(k), device="cuda")
+    before = ml.launch_counts["elementwise_passes"]
+    out = repeat_op(x, op, k)
+    assert ml.launch_counts["elementwise_passes"] == before + 1
+    plain = repeat_op_plain(x, op, k)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(out), finite)
+    err = (out - plain)[finite].abs().max().item() if finite.any() else 0.0
+    assert err <= 1e-5 * max(1.0, plain[finite].abs().max().item() if finite.any() else 0.0), err

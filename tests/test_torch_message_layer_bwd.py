@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from bio_diffusion_tpu.config.schema import LayerConfig, ModuleConfig
+from bio_diffusion_torch.config.schema import LayerConfig, ModuleConfig
 from bio_diffusion_tpu.models.gcpnet_fast import message_layer_reference
 from bio_diffusion_tpu.ops.pallas.gcp_kernel import fused_message_layer_bwd as jax_bwd
 from bio_diffusion_torch.models.gcpnet import GCPMessagePassing

@@ -5,7 +5,8 @@
   repeats exactly; the HTTP front end round-trips.
 * Bucketed sampling runs through the port's sampler, and the port's numpy
   copies (size distribution, stability analysis) match the JAX package's.
-* Importing the port (serving modules included) loads neither jax nor flax.
+* Importing the port (serving modules and `chip_smoke.py` included) loads
+  neither jax, flax or optax nor anything of the JAX package.
 """
 
 import json
@@ -26,7 +27,7 @@ SERVE = TINY_OVERRIDES + ["serving_batch_size=2", "buckets=[6]", "device=cpu", "
 
 @pytest.fixture(scope="module")
 def server():
-    from bio_diffusion_tpu.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
     from bio_diffusion_torch.cli.serve import build_server
 
     srv = build_server(load_config(default_config_dir(), "serve", SERVE))
@@ -121,7 +122,12 @@ def test_port_imports_no_jax():
         "import bio_diffusion_torch.models.gcpnet, bio_diffusion_torch.models.diffusion\n"
         "import bio_diffusion_torch.train.sampling, bio_diffusion_torch.train.torch_import\n"
         "import bio_diffusion_torch.data.dataset_info, bio_diffusion_torch.ops.schedules\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "import bio_diffusion_torch.config.build, bio_diffusion_torch.config.loader\n"
+        "import bio_diffusion_torch.chem.stability, bio_diffusion_torch.ops.gcp2_chain\n"
+        "import bio_diffusion_torch.ops.passes, bio_diffusion_torch.cli.bench_passes\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bio_diffusion_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

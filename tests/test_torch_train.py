@@ -5,7 +5,8 @@
 * ``bio_diffusion_torch.cli.train.main`` trains two steps on the CPU, logs a
   finite loss and validates on the EMA weights; ``--device=cuda`` without a
   card raises (no fallback).
-* Importing the port's training modules loads neither jax nor flax.
+* Importing the port's training modules loads neither jax, flax or optax
+  nor anything of the JAX package.
 * The serving forward's packed weights follow in-place parameter updates
   (an optimizer step, an EMA update).
 * The kernel build's digest covers the headers a source includes.
@@ -107,7 +108,9 @@ def test_port_training_imports_no_jax():
         "import bio_diffusion_torch.train.loop\n"
         "import bio_diffusion_torch.train.step, bio_diffusion_torch.train.state\n"
         "import bio_diffusion_torch.data.batch, bio_diffusion_torch.data.synthetic\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "import bio_diffusion_torch.config, bio_diffusion_torch.chem\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bio_diffusion_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -117,7 +120,7 @@ def test_port_training_imports_no_jax():
 
 
 def test_serving_forward_sees_weights_after_an_optimizer_step():
-    from bio_diffusion_tpu.config.schema import OptimizerConfig
+    from bio_diffusion_torch.config.schema import OptimizerConfig
     from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
     from bio_diffusion_torch.train.state import TrainState
     from bio_diffusion_torch.train.torch_import import init_random_weights

@@ -16,7 +16,8 @@ import optax
 import pytest
 import torch
 
-from bio_diffusion_tpu.config.schema import OptimizerConfig
+from bio_diffusion_torch.config.schema import OptimizerConfig
+from bio_diffusion_tpu.config.schema import OptimizerConfig as JaxOptimizerConfig
 from bio_diffusion_tpu.data.batch import DenseMolBatch as JaxBatch
 from bio_diffusion_tpu.models.diffusion import EquivariantVariationalDiffusion as JaxEVD
 from bio_diffusion_tpu.models.diffusion import assemble_nll as jax_assemble_nll
@@ -34,7 +35,7 @@ from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
 from bio_diffusion_torch.train.state import TrainState, make_lr_schedule
 from bio_diffusion_torch.train.step import make_loss_fn, make_train_step
 from bio_diffusion_torch.train.torch_import import load_reference_state_dict, state_dict_from_jax_params
-from test_torch_common import tiny_configs
+from test_torch_common import jax_tiny_configs, tiny_configs
 
 # loss terms and NLL: the denoiser agrees to ~1e-5 (test_torch_denoiser.py);
 # the terms are sums of ~70 squared residuals
@@ -46,7 +47,7 @@ TOL_GRAD = dict(rtol=2e-3, atol=2e-5)
 @pytest.fixture(scope="module")
 def setup():
     cfgs = tiny_configs()
-    mc, mod, lc, dc, dl = cfgs
+    mc, mod, lc, dc, dl = jax_tiny_configs()
     ds = synthetic_qm9_like(num_molecules=6, max_nodes=7, seed=0)
     batch = next(iterate_dense_batches(ds, batch_size=6, shuffle=False, pad_to=7))
     batch_j = JaxBatch(*(jnp.asarray(a) for a in (batch.x, batch.one_hot, batch.charges, batch.node_mask)))
@@ -61,8 +62,7 @@ def setup():
 
 
 def port_evd(cfgs, params):
-    mc, mod, lc, dc, dl = cfgs
-    evd = EquivariantVariationalDiffusion(GCPNetDynamics(*cfgs), dc, dl)
+    evd = EquivariantVariationalDiffusion(GCPNetDynamics(*cfgs), cfgs[3], cfgs[4])
     load_reference_state_dict(evd, state_dict_from_jax_params(params))
     return evd
 
@@ -116,13 +116,13 @@ def test_full_loss_gradients_match_jax_pallas_interpret(setup):
     autograd Function) against jax.value_and_grad through
     FastGCPNetDynamics with the Pallas kernels in interpret mode."""
     cfgs, batch, batch_j, evd_j, params, table = setup
-    mc, mod, lc, dc, dl = cfgs
+    mc, mod, lc, dc, dl = jax_tiny_configs()
     fast = FastGCPNetDynamics(mc, mod, lc, dc, dl, use_pallas=True, interpret=True)
     loss_j = jax_make_loss_fn(evd_j.clone(dynamics=fast), dc, dl, table, training=True)
     rng = jax.random.PRNGKey(3)
     (lj, _), g_j = jax.value_and_grad(loss_j, has_aux=True)(params, batch_j, rng)
     evd = port_evd(cfgs, params)
-    loss_fn = make_loss_fn(evd, dc, dl, table, training=True)
+    loss_fn = make_loss_fn(evd, cfgs[3], cfgs[4], table, training=True)
     loss, _ = loss_fn(torch_batch(batch), None, jax_draws(evd_j, params, rng, batch_j.node_mask, True))
     names = [n for n, _ in evd.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in evd.named_parameters()])
@@ -139,17 +139,17 @@ def test_three_train_steps_match_jax(setup):
     and the grad-norm history after three steps of the JAX train step
     (make_train_step over the packed forward) and the port's."""
     cfgs, batch, batch_j, evd_j, params, table = setup
-    mc, mod, lc, dc, dl = cfgs
+    mc, mod, lc, dc, dl = jax_tiny_configs()
     opt_cfg = OptimizerConfig()
     fast = FastGCPNetDynamics(mc, mod, lc, dc, dl, use_pallas=False)
-    optimizer = jax_state.make_optimizer(opt_cfg)
+    optimizer = jax_state.make_optimizer(JaxOptimizerConfig())
     step_j = jax_make_train_step(evd_j.clone(dynamics=fast), optimizer, dc, dl, table, donate=False)
     state_j = jax_state.create_train_state(params, optimizer)
 
     evd = port_evd(cfgs, params)
     ema = port_evd(cfgs, params).requires_grad_(False)
     state = TrainState(list(evd.parameters()), list(ema.parameters()), opt_cfg)
-    step = make_train_step(evd, dc, dl, table)
+    step = make_train_step(evd, cfgs[3], cfgs[4], table)
     key = jax.random.PRNGKey(11)
     b = torch_batch(batch)
     for s in range(3):
@@ -179,11 +179,12 @@ def test_amsgrad_takes_the_max_over_bias_corrected_moments():
     """Two steps whose gradients shrink: optax's AMSGrad keeps the first
     step's bias-corrected second moment, torch.optim.AdamW(amsgrad=True)
     does not; the port matches optax."""
-    cfg = OptimizerConfig(lr=1e-2, weight_decay=1e-3)
+    kw = dict(lr=1e-2, weight_decay=1e-3)
+    cfg = OptimizerConfig(**kw)
     p0 = np.array([0.5, -1.0, 2.0], np.float32)
     grads = [np.array([1.0, -2.0, 0.5], np.float32), np.array([0.1, -0.05, 0.4], np.float32)]
 
-    optimizer = jax_state.make_optimizer(cfg)
+    optimizer = jax_state.make_optimizer(JaxOptimizerConfig(**kw))
     p_j = jnp.asarray(p0)
     opt_state = optimizer.init(p_j)
     for g in grads:
@@ -213,8 +214,8 @@ def test_amsgrad_takes_the_max_over_bias_corrected_moments():
     {"scheduler": "step", "step_size": 2, "gamma": 0.7, "warmup_steps": 3},
 ])
 def test_lr_schedule_matches_jax(kw):
-    cfg = OptimizerConfig(lr=3e-4, **kw)
-    ref, ours = jax_state.make_lr_schedule(cfg), make_lr_schedule(cfg)
+    ref = jax_state.make_lr_schedule(JaxOptimizerConfig(lr=3e-4, **kw))
+    ours = make_lr_schedule(OptimizerConfig(lr=3e-4, **kw))
     for count in range(13):
         want = ref(count) if callable(ref) else ref
         got = ours(count) if callable(ours) else ours
