@@ -20,9 +20,14 @@
 // last tile is masked; rows need no padding to a block multiple).  The
 // tile's s and v stay in shared memory in f32 through every stage, so no
 // intermediate reaches device memory; the stage and the attention are the
-// message layer's own device functions (message_layer_common.cuh: register-
-// tiled FMA products, bf16 rounding where the TPU kernel casts).  The tensor
-// cores are not used yet.
+// message layer's own device functions (message_layer_common.cuh, bf16
+// rounding where the TPU kernel casts).  In bf16 each stage's merged and gate
+// products (91% of a row's multiply-adds) run on the tensor cores by mma.sync
+// m16n8k16 (f32 accumulators, the tile as two m16 tiles); not wgmma, whose
+// 64-row tiles would need a different block shape than the one the message
+// layer shares.  The small vector products and every float32 product stay on
+// the FMA pipes.  What bounds it then: each block reads the stages' ~0.47 MB
+// of wide weights from L2 (~0.8 GB at E=53,824), and the FMA remainder.
 
 #include "message_layer_common.cuh"
 
@@ -49,12 +54,13 @@ struct ChainParams {
   int E, S, V, Hc, G;
 };
 
-// Shared-memory strides (floats) of the per-tile buffers.
+// Shared-memory strides (floats) of the per-tile buffers; A and X, which
+// tile_mma reads, are padded to 8 (mod 16) floats.
 struct ChainLayout {
   int lda, ldv, ldh, ldx, ldg;
   ChainLayout(int S, int V, int Hc)
-      : lda(round4(S + Hc + 9)), ldv(round4(3 * V)), ldh(round4(3 * Hc + 27)), ldx(round4(S)),
-        ldg(round4(V)) {}
+      : lda(mma_stride(S + Hc + 9)), ldv(round4(3 * V)), ldh(round4(3 * Hc + 27)),
+        ldx(mma_stride(S)), ldg(round4(V)) {}
   size_t bytes() const { return sizeof(float) * ROWS * (size_t)(lda + ldv + ldh + ldx + ldg + 12 + 1); }
 };
 
@@ -147,6 +153,17 @@ int gcp2_chain_f32(const void* const* in, void* s_out, void* v_out, int E, int S
 int gcp2_chain_bf16(const void* const* in, void* s_out, void* v_out, int E, int S, int V, int Hc,
                     int G, void* stream) {
   return launch<__nv_bfloat16>(in, s_out, v_out, E, S, V, Hc, G, stream);
+}
+
+// Bytes of dynamic shared memory one block needs at these widths.
+int gcp2_chain_smem_bytes(int S, int V, int Hc) { return (int)ChainLayout(S, V, Hc).bytes(); }
+
+// Blocks of the float32 (bf16 == 0) or bf16 kernel that one SM holds at
+// `smem` bytes of dynamic shared memory each; a negative CUDA error code on
+// failure.
+int gcp2_chain_blocks_per_sm(int bf16, int smem) {
+  return bf16 ? blocks_per_sm(gcp2_chain_kernel<__nv_bfloat16>, THREADS, smem)
+              : blocks_per_sm(gcp2_chain_kernel<float>, THREADS, smem);
 }
 
 }  // extern "C"

@@ -28,14 +28,26 @@
 // walks the targets j in tiles of ROWS rows.  A tile's per-edge state (s, v,
 // the stage inputs and outputs) stays in shared memory in f32 for the whole
 // layer, so no per-edge intermediate ever reaches device memory; the sum over
-// j is a block-local f32 accumulation (deterministic, no atomics).  Each
-// product is a register-tiled loop: a thread owns one output column and RPT
-// rows, reads the tile's inputs from shared memory as broadcast float4 loads
-// and the weight column from L1/L2, and keeps RPT accumulators in registers.
-// Tiling j makes any N work (GEOM's 181 included) with no node padding.  The
-// tensor cores are not used yet (plain FMA), which is the next lever.  The
-// chain stage and the attention are device functions in
-// message_layer_common.cuh, shared with the flat-row chain (gcp2_chain.cu).
+// j is a block-local f32 accumulation (deterministic, no atomics).  Tiling j
+// makes any N work (GEOM's 181 included) with no node padding.  The chain
+// stage and the attention are device functions in message_layer_common.cuh,
+// shared with the flat-row chain (gcp2_chain.cu).
+//
+// The products.  In the bf16 instantiation the four wide kinds (the first
+// GCP's [e | vnorm | schid] @ wsx and silu @ wg, each stage's merged @ wsc
+// and silu @ wg: 89% of a row's multiply-adds) run on the tensor cores:
+// warp-level mma.sync m16n8k16, bf16 operands (the values the TPU kernel
+// feeds its matrix unit are already bf16, so packing them is exact), f32
+// accumulators, the 32-row tile as two m16 tiles (one when it holds <= 16
+// real rows).  Not wgmma: it takes 64-row tiles, and a block holds 19 or 29
+// real rows (one source node's targets), so most of its work would be
+// padding.  The small vector products (xi @ wve, vh @ wu, v @ wcomb,
+// vh @ wu_bd) and every float32 product stay on the FMA pipes as register-
+// tiled loops (a thread owns one column and RPT rows, reads the tile as
+// broadcast float4 loads): float32 is the parity mode and keeps full f32
+// products (no TF32).  What bounds the bf16 kernel now: each block reads the
+// ~0.55 MB of wide weights from L2 as B fragments (~2.6 GB per layer at
+// B=250, N=19), and the FMA remainder (~31.5k multiply-adds per row).
 //
 // Numerics follow the TPU kernel: products accumulate in f32; in the bf16
 // instantiation every value the TPU kernel rounds to the compute dtype (stage
@@ -73,16 +85,17 @@ struct Params {
   int B, N, P, S, V, Se, Ve, H1, Hc, G;
 };
 
-// Shared-memory strides (floats) of the per-tile buffers.
+// Shared-memory strides (floats) of the per-tile buffers; A and X, which
+// tile_mma reads, are padded to 8 (mod 16) floats.
 struct Layout {
   int lda, ldv, ldh, ldx, ldg;
   __host__ __device__ Layout(int S, int V, int Se, int Ve, int H1, int Hc) {
     const int a = S + Hc + 9, a1 = Se + H1 + 9;
-    lda = round4(a > a1 ? a : a1);
+    lda = mma_stride(a > a1 ? a : a1);
     ldv = round4(3 * V);
     const int h = 3 * H1 + 27, hc = 3 * Hc + 27;
     ldh = round4(h > hc ? h : hc);
-    ldx = round4(S > 3 * Ve ? S : 3 * Ve);
+    ldx = mma_stride(S > 3 * Ve ? S : 3 * Ve);
     ldg = round4(V);
   }
   __host__ __device__ int tile_floats() const { return ROWS * (lda + ldv + ldh + ldx + ldg + 12 + 2); }
@@ -138,13 +151,13 @@ message_layer_kernel(const Params<T> p) {
     norms_and_frames<ROWS, T>(Hb, L.ldh, FT, A + Se, L.lda, H1);
     __syncthreads();
     // s2 = proj_i + proj_j + [e | vnorm | schid] @ wsx + bs
-    tile_mm<8>(A, L.lda, nrows, Se + H1 + 9, p.wsx, S, [&](int r, int c, float acc) {
+    wide_mm<4, 8>(A, L.lda, nrows, Se + H1 + 9, p.wsx, S, [&](int r, int c, float acc) {
       const float pj = r < nrows ? NT::ld(pj0[(size_t)(j0 + r) * PW + c]) : 0.f;
       const float s2 = (NT::ld(pi[c]) + pj) + (acc + NT::ld(p.bs1[c]));
       X[r * L.ldx + c] = NT::rnd(s2 * sigmoid_f(s2));
     });
     __syncthreads();
-    tile_mm<4>(X, L.ldx, nrows, S, p.wg1, V, [&](int r, int c, float acc) {
+    wide_mm<1, 4>(X, L.ldx, nrows, S, p.wg1, V, [&](int r, int c, float acc) {
       Gt[r * L.ldg + c] = NT::rnd(sigmoid_f(acc + NT::ld(p.bg1[c])));
     });
     __syncthreads();
@@ -235,6 +248,14 @@ extern "C" {
 int message_layer_smem_bytes(int S, int V, int Se, int Ve, int H1, int Hc) {
   const Layout L(S, V, Se, Ve, H1, Hc);
   return (int)(sizeof(float) * ((size_t)L.tile_floats() + S + 3 * V));
+}
+
+// Blocks of the float32 (bf16 == 0) or bf16 kernel that one SM holds at
+// `smem` bytes of dynamic shared memory each; a negative CUDA error code on
+// failure.
+int message_layer_blocks_per_sm(int bf16, int smem) {
+  return bf16 ? blocks_per_sm(message_layer_kernel<__nv_bfloat16>, THREADS, smem)
+              : blocks_per_sm(message_layer_kernel<float>, THREADS, smem);
 }
 
 #define MESSAGE_LAYER_ENTRY(NAME, T)                                                        \

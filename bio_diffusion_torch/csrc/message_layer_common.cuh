@@ -1,12 +1,16 @@
 // Device helpers shared by the message-layer kernels (message_layer.cu,
 // message_layer_bwd.cu, gcp2_chain.cu): the compute-dtype rounding points,
 // the sigmoid, the register-tiled product of a shared-memory tile with a
-// weight matrix, and the residual GCP2 chain stage and attention over a tile.
+// weight matrix (FMA pipes, and tensor cores for bf16), and the residual GCP2
+// chain stage and attention over a tile.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -28,7 +32,23 @@ template <> struct Num<__nv_bfloat16> {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Blocks of `kernel` that one SM holds at `threads` threads and `smem` bytes
+// of dynamic shared memory each, as a launch configures it; a negative CUDA
+// error code on failure.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// The least stride >= x that is 8 (mod 16) floats: the A-fragment loads of
+// tile_mma (row lane/4, float2 at column 2*(lane%4)) then hit 32 distinct
+// banks in each half-warp; a multiple of 4, as tile_mm's float4 loads need.
+__host__ __device__ inline int mma_stride(int x) { return (x + 7) / 16 * 16 + 8; }
 
 // out[r, c] = sum_k in[r, k] * W[k, c] for the tile's first ceil(nrows/RPT)*RPT
 // rows; epi(r, c, acc) consumes each result.  A thread owns one column and RPT
@@ -69,6 +89,130 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ in, int ldi, i
     }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) epi(r0 + r, c, acc[r]);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a * b over one m16n8k16 tile: bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// tile_mm's product on the tensor cores, for a bf16 W: warp-level mma.sync
+// m16n8k16, bf16 operands, f32 accumulation.  The tile holds 32 rows; its
+// first ceil(nrows/16) m16 tiles are computed (nrows <= 32), rows past nrows
+// and k past K read as zero.  A warp owns NPW n8 tiles of columns across
+// those m16 tiles, so each B fragment it loads serves both.  A fragments come
+// from the f32 tile as float2 pairs packed to bf16 (exact: every call site's
+// tile holds bf16-rounded values); B fragments from W in device memory, two
+// consecutive k of one column per register.  Fragment coordinates: row
+// lane/4 (+8), k or column 2*(lane%4) (+1, +8, +9).  epi(r, c, acc) consumes
+// each result with c < ncols, for every row of the computed m16 tiles.
+template <int NPW, typename Epi>
+__device__ __forceinline__ void tile_mma(const float* __restrict__ in, int ldi, int nrows, int K,
+                                         const __nv_bfloat16* __restrict__ W, int ncols, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int mtiles = nrows > 16 ? 2 : 1, ntiles = (ncols + 7) / 8;
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(W);
+  const float* row[2][2];  // [m16 tile][row g, row g + 8]
+  bool row_ok[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = mt * 16 + rh * 8 + g;
+      row[mt][rh] = in + r * ldi;
+      row_ok[mt][rh] = r < nrows;
+    }
+  for (int nt0 = warp * NPW; nt0 < ntiles; nt0 += (blockDim.x / 32) * NPW) {
+    float acc[2][NPW][4];
+    const unsigned short* col[NPW];  // column (nt0 + j) * 8 + g of W
+    bool col_ok[NPW];
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) {
+      const int n = (nt0 + j) * 8 + g;
+      col_ok[j] = n < ncols;
+      col[j] = w + (col_ok[j] ? n : 0);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+    }
+    // one k16 step; `ragged` (the last step when 16 does not divide K) masks k >= K
+    auto step = [&](int k0, auto ragged) {
+      constexpr bool R = decltype(ragged)::value;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + 2 * q + 8 * h;
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            uint32_t v = 0u;
+            if (row_ok[mt][rh] && (!R || k < K)) {
+              const float2 x = *reinterpret_cast<const float2*>(row[mt][rh] + k);
+              v = pack_bf16x2(x.x, (!R || k + 1 < K) ? x.y : 0.f);
+            }
+            a[mt][2 * h + rh] = v;
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < NPW; ++j) {
+        if (nt0 + j >= ntiles) continue;  // warp-uniform
+        uint32_t b[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + 2 * q + 8 * h;
+          uint32_t lo = 0u, hi = 0u;
+          if (col_ok[j] && (!R || k < K)) lo = __ldg(col[j] + k * ncols);
+          if (col_ok[j] && (!R || k + 1 < K)) hi = __ldg(col[j] + (k + 1) * ncols);
+          b[h] = lo | (hi << 16);
+        }
+        mma_16816(acc[0][j], a[0], b[0], b[1]);
+        if (mtiles > 1) mma_16816(acc[1][j], a[1], b[0], b[1]);
+      }
+    };
+    int k0 = 0;
+    for (; k0 + 16 <= K; k0 += 16) step(k0, std::false_type{});
+    if (k0 < K) step(k0, std::true_type{});
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt >= mtiles) continue;
+#pragma unroll
+      for (int j = 0; j < NPW; ++j) {
+        const int c = (nt0 + j) * 8 + 2 * q;
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int r = mt * 16 + rh * 8 + g;
+          if (c < ncols) epi(r, c, acc[mt][j][2 * rh]);
+          if (c + 1 < ncols) epi(r, c + 1, acc[mt][j][2 * rh + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The products with many columns (a stage's merged and gate products, the
+// first GCP's scalar and gate products): on the tensor cores (tile_mma, NPW
+// n8 tiles per warp) in the bf16 instantiation; on the FMA pipes (tile_mm,
+// RPT rows per thread) in float32, whose products stay full f32 (no TF32).
+template <int NPW, int RPT, typename T, typename Epi>
+__device__ __forceinline__ void wide_mm(const float* in, int ldi, int nrows, int K, const T* W,
+                                        int ncols, Epi epi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    tile_mma<NPW>(in, ldi, nrows, K, W, ncols, epi);
+  } else {
+    tile_mm<RPT>(in, ldi, nrows, K, W, ncols, epi);
   }
 }
 
@@ -117,12 +261,14 @@ struct ChainTile {
 // vhd = v @ wcomb, vnorm and scalarized frames, s2 = [s | vnorm | schid] @ wsc
 // + bsc, gate = sigmoid(silu(s2) @ wgc + bgc), s += silu(s2), v += (vh @ wubd)
 // * gate.  In the bf16 instantiation every value the TPU kernel rounds to the
-// compute dtype is rounded at the same point.  Starts and ends at a block
+// compute dtype is rounded at the same point, and the merged and gate
+// products run on the tensor cores (wide_mm).  Starts and ends at a block
 // barrier.  Shared by the message layer and the flat-row chain kernel.
 template <int TR, typename T>
 __device__ __forceinline__ void chain_stage(const ChainTile& t, int nrows, int S, int V, int Hc,
                                             const T* wcomb, const T* wsc, const T* bsc,
                                             const T* wubd, const T* wgc, const T* bgc) {
+  static_assert(TR == 32, "tile_mma computes tiles of 32 rows");
   using NT = Num<T>;
   const int V3 = 3 * V, Wc = 3 * Hc + 27;
   tile_mm<8>(t.Vb, t.ldv, nrows, V3, wcomb, Wc,
@@ -130,12 +276,12 @@ __device__ __forceinline__ void chain_stage(const ChainTile& t, int nrows, int S
   __syncthreads();
   norms_and_frames<TR, T>(t.Hb, t.ldh, t.FT, t.A + S, t.lda, Hc);
   __syncthreads();
-  tile_mm<8>(t.A, t.lda, nrows, S + Hc + 9, wsc, S, [&](int r, int c, float acc) {
+  wide_mm<4, 8>(t.A, t.lda, nrows, S + Hc + 9, wsc, S, [&](int r, int c, float acc) {
     const float s2 = acc + NT::ld(bsc[c]);
     t.X[r * t.ldx + c] = NT::rnd(s2 * sigmoid_f(s2));
   });
   __syncthreads();
-  tile_mm<4>(t.X, t.ldx, nrows, S, wgc, V, [&](int r, int c, float acc) {
+  wide_mm<1, 4>(t.X, t.ldx, nrows, S, wgc, V, [&](int r, int c, float acc) {
     t.Gt[r * t.ldg + c] = NT::rnd(sigmoid_f(acc + NT::ld(bgc[c])));
   });
   __syncthreads();

@@ -7,7 +7,8 @@
    name and power limit, and turns TF32 off.
 2. Builds the CUDA kernels from ``bio_diffusion_torch/csrc`` (nvcc, sm_90a,
    one compiler per source, started together) and prints each one's
-   registers and spills.
+   registers and spills, and the forward's and the chain kernel's shared
+   memory per block and blocks per SM.
 3. Holds the message-layer kernel against its plain PyTorch version at full
    QM9 width (S=256, V=32, Se=64, Ve=16, 4 message GCPs), in float32 and
    bfloat16, at B=8 with N=19 and N=29, on a padded batch and at N=64; then
@@ -31,7 +32,9 @@
    count must show 9 launches per denoiser call of every executed batch.
    Then decodes a padded batch through the server's sampler and checks the
    molecules: finite, CoM-free, padded rows 0, one type per real atom,
-   integer charges.
+   integer charges.  Last, times 20 reverse steps of the server's model at
+   the reference workload's B=250, N=19 (CUDA events) and prints the share
+   of the step that the kernel's 9 launches take.
 7. Drives the training path: ``cli.train.main`` on ``configs/train.yaml``
    with ``experiment=qm9_mol_gen_ddpm`` at full width on the synthetic
    QM9-schema data (B=64, N=29, weights drawn from the seed): 10 optimizer
@@ -248,6 +251,33 @@ def check_kernel(torch, evd):
                                                           bound_by=bound_by)
     result.update(result["by_shape"]["bf16, B=8, N=19"])
     return result
+
+
+def kernel_occupancy(torch, evd):
+    """Dynamic shared memory per block and blocks per SM of the forward kernel
+    (B1) and the chain kernel (B3) at full width, as their launches set them
+    up -> {name: {dtype: (bytes, blocks)}}."""
+    from bio_diffusion_torch.ops import build
+
+    mc = evd.dynamics_network.model_cfg
+    (_, _, _, g1, chain), ve = kernel_inputs(torch, evd, 1, 2, torch.bfloat16, False, seed=0)
+    s_dim, v_dim, se = mc.h_hidden_dim, mc.chi_hidden_dim, mc.e_hidden_dim
+    h1, hc = g1["wu_bd"].shape[0] // 3, (chain[0].shape[2] - 27) // 3
+    ml_lib, chain_lib = build.load_libraries("message_layer", "gcp2_chain")
+    smem = {"message_layer": ml_lib.message_layer_smem_bytes(s_dim, v_dim, se, ve, h1, hc),
+            "gcp2_chain": chain_lib.gcp2_chain_smem_bytes(s_dim, v_dim, hc)}
+    per_sm = {"message_layer": ml_lib.message_layer_blocks_per_sm,
+              "gcp2_chain": chain_lib.gcp2_chain_blocks_per_sm}
+    out = {}
+    for name, fn in per_sm.items():
+        for bf16, dt in ((0, "float32"), (1, "bfloat16")):
+            blocks = fn(bf16, smem[name])
+            print(f"  occupancy {name} {dt}: {smem[name]} B of dynamic shared memory per block, "
+                  f"{blocks} blocks per SM")
+            if blocks < 1:
+                raise AssertionError(f"{name} ({dt}) fits no block on an SM (code {blocks})")
+            out.setdefault(name, {})[dt] = (smem[name], blocks)
+    return out
 
 
 def check_denoiser(torch):
@@ -491,7 +521,7 @@ def check_molecules(mols, num_samples):
             raise AssertionError("charges missing")
 
 
-def drive_main_path(torch):
+def drive_main_path(torch, b1_ms_b250):
     from bio_diffusion_torch.config.loader import default_config_dir, load_config
     from bio_diffusion_torch.cli.serve import build_server
     from bio_diffusion_torch.ops import message_layer as ml
@@ -535,12 +565,51 @@ def drive_main_path(torch):
         if outs["seeded-a"]["molecules"] != outs["seeded-b"]["molecules"]:
             raise AssertionError("two requests with the same seed returned different molecules")
         print("seeded pair identical: ok")
-        launches = ml.launch_counts["message_layer"]
         print(f"server: {json.dumps(server.describe())}")
         check_decoded_batch(torch, server)
-        return launches
+        step_ms = time_reverse_steps(torch, server, layers, b1_ms_b250)
+        return ml.launch_counts["message_layer"], step_ms
     finally:
         server.close()
+
+
+def time_reverse_steps(torch, server, layers, b1_ms, b=250, n=19, steps=20):
+    """Ancestral reverse steps of the server's model (bf16) at the reference
+    workload's shape, B=250 molecules of N=19 atoms, through
+    ``EquivariantVariationalDiffusion.reverse_segment`` (the sampler's loop):
+    CUDA events over ``steps`` steps after 2 warm-up steps; the step's share
+    taken by the message-layer kernel's ``layers`` launches, at ``b1_ms``
+    each (timed alone at this shape) -> ms per step."""
+    import numpy as np
+
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train.sampling import make_node_mask
+
+    evd = server.sampler.evd
+    mask = torch.as_tensor(make_node_mask([n] * b, n), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T = int(evd.T)
+    s_values = np.arange(T - 1, T - 3 - steps, -1, dtype=np.float32)
+    with torch.inference_mode():
+        z = evd.init_sample_noise(mask, gen)
+        z = evd.reverse_segment(z, s_values[:2] / T, (s_values[:2] + 1) / T, mask, gen)
+        launches0 = ml.launch_counts["message_layer"]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        z = evd.reverse_segment(z, s_values[2:] / T, (s_values[2:] + 1) / T, mask, gen)
+        end.record()
+        torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    launches = ml.launch_counts["message_layer"] - launches0
+    if z.shape != (b, n, evd.num_x_dims + evd.num_node_scalar_features) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"reverse steps at B={b} gave shape {tuple(z.shape)} or non-finite values")
+    if launches != layers * steps:
+        raise AssertionError(f"{launches} kernel launches in {steps} reverse steps, need {layers * steps}")
+    print(f"reverse step bf16 B={b} N={n}: {ms:.4f} ms/step over {steps} steps (CUDA events), "
+          f"{b * 1e3 / ms:.1f} denoiser evals/s; the message-layer kernel's "
+          f"{layers} launches ({layers} x {b1_ms:.4f} ms, timed alone) = {100 * layers * b1_ms / ms:.1f}% "
+          f"of the step")
+    return ms
 
 
 def check_decoded_batch(torch, server):
@@ -734,6 +803,7 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
 
     evd_kernels = build_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
+    occupancy = kernel_occupancy(torch, evd_kernels)
     kernel = check_kernel(torch, evd_kernels)
     kernel_bwd = check_bwd_kernel(torch, evd_kernels)
     chain = check_chain(torch, evd_kernels)
@@ -741,7 +811,7 @@ def main() -> int:
     del evd_kernels
     check_denoiser(torch)
     check_denoiser_grad(torch)
-    serve_launches = drive_main_path(torch)
+    serve_launches, step_ms_b250 = drive_main_path(torch, kernel["by_shape"]["bf16, B=250, N=19"]["ms"])
     train_counts, step_ms = drive_training(torch, "fp32", steps=10, timed_steps=6)
     train_counts_bf16, step_ms_bf16 = drive_training(torch, "bf16", steps=3, timed_steps=4)
     for prec, ms, kind in (("fp32", step_ms, "float32"), ("bf16", step_ms_bf16, "bfloat16")):
@@ -778,6 +848,8 @@ def main() -> int:
         "by_shape": kernel["by_shape"],
         "ms_b64": kernel_bwd["fwd_ms_b64"],
         "bound_ms_b64": kernel_bwd["fwd_bound_ms_b64"],
+        "reverse_step_ms_b250": step_ms_b250,
+        "smem_bytes_blocks_per_sm": occupancy["message_layer"],
     }, {
         "name": "message_layer_bwd",
         "route": "cuda",
@@ -815,6 +887,7 @@ def main() -> int:
         "shape": "bf16, E=53824",
         "by_shape": {f"{dt}, E={e}": r for (dt, e), r in chain.items()},
         "unfused_layer_ms": unfused,
+        "smem_bytes_blocks_per_sm": occupancy["gcp2_chain"],
     }, {
         "name": "elementwise_passes",
         "route": "cuda",

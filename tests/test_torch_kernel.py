@@ -14,6 +14,15 @@ are at ``TOL_BWD``, and two backward runs must be bit-identical.  The chain
 kernel is held at the forward's tolerances, the pass probe at rtol 1e-5 of
 max|plain| (float32; only the sigmoid and silu forms and the rsqrt
 approximation differ).
+
+In bfloat16 the forward and the chain kernel run their wide products on the
+tensor cores (mma.sync over m16 row tiles, ragged K and columns masked).  The
+forward's shapes cover its routes: (TINY, 3, 7) one m16 tile, every K and
+some columns ragged (K not a multiple of 16, V=4 gate columns); (TINY, 2,
+40) a second target tile of 8 rows; (QM9, 8, 19) and the training shape
+(QM9, 64, 29) two m16 tiles with the second partly real; (QM9, 2, 64) two
+full 32-row tiles.  The chain's E=70 and 4,001 end in ragged tiles of 6 and
+1 rows.
 """
 
 import pytest
@@ -68,7 +77,8 @@ def test_kernel_wrapper_validates_inputs(what, expected):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dims,b,n", [(TINY, 3, 7), (TINY, 2, 40), (QM9, 8, 19), (QM9, 2, 64)])
+@pytest.mark.parametrize("dims,b,n", [(TINY, 3, 7), (TINY, 2, 40), (QM9, 8, 19), (QM9, 64, 29),
+                                      (QM9, 2, 64)])
 def test_kernel_matches_plain_on_card(dtype, dims, b, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
