@@ -107,22 +107,45 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// NPW consecutive bf16 of one weight row, 8 * NPW-bit aligned, as 32-bit
+// words (column e in half e % 2 of word e / 2): one vector load.
+template <int NPW>
+__device__ __forceinline__ void load_cols(const unsigned short* p, uint32_t (&wd)[(NPW + 1) / 2]) {
+  if constexpr (NPW == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    wd[0] = v.x;
+    wd[1] = v.y;
+  } else if constexpr (NPW == 2) {
+    wd[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    wd[0] = __ldg(p);
+  }
+}
+
 // tile_mm's product on the tensor cores, for a bf16 W: warp-level mma.sync
 // m16n8k16, bf16 operands, f32 accumulation.  The tile holds 32 rows; its
 // first ceil(nrows/16) m16 tiles are computed (nrows <= 32), rows past nrows
-// and k past K read as zero.  A warp owns NPW n8 tiles of columns across
-// those m16 tiles, so each B fragment it loads serves both.  A fragments come
-// from the f32 tile as float2 pairs packed to bf16 (exact: every call site's
-// tile holds bf16-rounded values); B fragments from W in device memory, two
-// consecutive k of one column per register.  Fragment coordinates: row
-// lane/4 (+8), k or column 2*(lane%4) (+1, +8, +9).  epi(r, c, acc) consumes
-// each result with c < ncols, for every row of the computed m16 tiles.
+// and k past K read as zero.  A warp owns a group of 8 * NPW consecutive
+// columns as NPW n8 tiles, interleaved: column nn of tile j is group column
+// NPW * nn + j, so the B fragment of lane (g, q) (column nn = g; k = 2q, 2q+1,
+// 2q+8, 2q+9) is NPW consecutive bf16 of each of its four weight rows: one
+// vector load per row, full 32-byte sectors across the warp (a group that
+// runs past ncols, or a W not aligned for it, loads column by column).  Each
+// B fragment serves both m16 tiles.  A fragments come from the f32 tile as
+// float2 pairs packed to bf16 (exact: every call site's tile holds
+// bf16-rounded values).  The loads of a k16 step carry no branches, so they
+// are all in flight at once.  Fragment coordinates: row lane/4 (+8), k or
+// column 2*(lane%4) (+1, +8, +9).  epi(r, c, acc) consumes each result with
+// c < ncols, for every row of the computed m16 tiles.
 template <int NPW, typename Epi>
 __device__ __forceinline__ void tile_mma(const float* __restrict__ in, int ldi, int nrows, int K,
                                          const __nv_bfloat16* __restrict__ W, int ncols, Epi epi) {
+  static_assert(NPW == 1 || NPW == 2 || NPW == 4, "a lane loads 1, 2 or 4 columns");
+  constexpr int NW = (NPW + 1) / 2;  // 32-bit words per lane and weight row
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const int mtiles = nrows > 16 ? 2 : 1, ntiles = (ncols + 7) / 8;
+  const int mtiles = nrows > 16 ? 2 : 1;
   const unsigned short* w = reinterpret_cast<const unsigned short*>(W);
+  const bool aligned = ncols % NPW == 0 && reinterpret_cast<uintptr_t>(W) % (2 * NPW) == 0;
   const float* row[2][2];  // [m16 tile][row g, row g + 8]
   bool row_ok[2][2];
 #pragma unroll
@@ -133,23 +156,41 @@ __device__ __forceinline__ void tile_mma(const float* __restrict__ in, int ldi, 
       row[mt][rh] = in + r * ldi;
       row_ok[mt][rh] = r < nrows;
     }
-  for (int nt0 = warp * NPW; nt0 < ntiles; nt0 += (blockDim.x / 32) * NPW) {
+  for (int base = warp * 8 * NPW; base < ncols; base += (blockDim.x / 32) * 8 * NPW) {
+    const int col0 = base + NPW * g;  // this lane's B columns col0 .. col0 + NPW - 1
+    const unsigned short* wcol = w + col0;
     float acc[2][NPW][4];
-    const unsigned short* col[NPW];  // column (nt0 + j) * 8 + g of W
-    bool col_ok[NPW];
 #pragma unroll
-    for (int j = 0; j < NPW; ++j) {
-      const int n = (nt0 + j) * 8 + g;
-      col_ok[j] = n < ncols;
-      col[j] = w + (col_ok[j] ? n : 0);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int j = 0; j < NPW; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-    }
-    // one k16 step; `ragged` (the last step when 16 does not divide K) masks k >= K
-    auto step = [&](int k0, auto ragged) {
-      constexpr bool R = decltype(ragged)::value;
+    // one k16 step at k0; FULL: the group lies inside ncols and W is aligned
+    // (vector loads); RAGGED: the last step when 16 does not divide K
+    auto step = [&](int k0, auto full_tag, auto ragged_tag) {
+      constexpr bool FULL = decltype(full_tag)::value, RAGGED = decltype(ragged_tag)::value;
+      uint32_t b[NPW][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + 2 * q + 8 * h;
+        uint32_t wd[2][NW] = {};  // weight rows k and k + 1
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const unsigned short* p = wcol + (k + kk) * ncols;
+          if constexpr (FULL) {
+            if (!RAGGED || k + kk < K) load_cols<NPW>(p, wd[kk]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < NPW; ++e)
+              if (col0 + e < ncols && (!RAGGED || k + kk < K))
+                wd[kk][e / 2] |= (uint32_t)__ldg(p + e) << (16 * (e % 2));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+          b[j][h] = __byte_perm(wd[0][j / 2], wd[1][j / 2], j % 2 ? 0x7632 : 0x5410);
+      }
       uint32_t a[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -159,45 +200,41 @@ __device__ __forceinline__ void tile_mma(const float* __restrict__ in, int ldi, 
 #pragma unroll
           for (int rh = 0; rh < 2; ++rh) {
             uint32_t v = 0u;
-            if (row_ok[mt][rh] && (!R || k < K)) {
+            if (row_ok[mt][rh] && (!RAGGED || k < K)) {
               const float2 x = *reinterpret_cast<const float2*>(row[mt][rh] + k);
-              v = pack_bf16x2(x.x, (!R || k + 1 < K) ? x.y : 0.f);
+              v = pack_bf16x2(x.x, (!RAGGED || k + 1 < K) ? x.y : 0.f);
             }
             a[mt][2 * h + rh] = v;
           }
         }
 #pragma unroll
       for (int j = 0; j < NPW; ++j) {
-        if (nt0 + j >= ntiles) continue;  // warp-uniform
-        uint32_t b[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = k0 + 2 * q + 8 * h;
-          uint32_t lo = 0u, hi = 0u;
-          if (col_ok[j] && (!R || k < K)) lo = __ldg(col[j] + k * ncols);
-          if (col_ok[j] && (!R || k + 1 < K)) hi = __ldg(col[j] + (k + 1) * ncols);
-          b[h] = lo | (hi << 16);
-        }
-        mma_16816(acc[0][j], a[0], b[0], b[1]);
-        if (mtiles > 1) mma_16816(acc[1][j], a[1], b[0], b[1]);
+        mma_16816(acc[0][j], a[0], b[j][0], b[j][1]);
+        if (mtiles > 1) mma_16816(acc[1][j], a[1], b[j][0], b[j][1]);  // warp-uniform
       }
     };
-    int k0 = 0;
-    for (; k0 + 16 <= K; k0 += 16) step(k0, std::false_type{});
-    if (k0 < K) step(k0, std::true_type{});
+    auto run = [&](auto full_tag) {
+      int k0 = 0;
+      for (; k0 + 16 <= K; k0 += 16) step(k0, full_tag, std::false_type{});
+      if (k0 < K) step(k0, full_tag, std::true_type{});
+    };
+    if (aligned && base + 8 * NPW <= ncols) {  // warp-uniform
+      run(std::true_type{});
+    } else {
+      run(std::false_type{});
+    }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       if (mt >= mtiles) continue;
 #pragma unroll
-      for (int j = 0; j < NPW; ++j) {
-        const int c = (nt0 + j) * 8 + 2 * q;
+      for (int j = 0; j < NPW; ++j)
 #pragma unroll
-        for (int rh = 0; rh < 2; ++rh) {
-          const int r = mt * 16 + rh * 8 + g;
-          if (c < ncols) epi(r, c, acc[mt][j][2 * rh]);
-          if (c + 1 < ncols) epi(r, c + 1, acc[mt][j][2 * rh + 1]);
-        }
-      }
+        for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = mt * 16 + rh * 8 + g, c = base + NPW * (2 * q + e) + j;
+            if (c < ncols) epi(r, c, acc[mt][j][2 * rh + e]);
+          }
     }
   }
 }

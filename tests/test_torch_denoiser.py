@@ -6,6 +6,13 @@
 * The port's ``GCPNetDynamics`` (float32, CPU: plain message layers) against
   JAX ``make_fast_dynamics(..., compute_dtype=None, use_pallas=True,
   interpret=True)`` and the JAX module path on the same params: atol 1e-4.
+* The port's bf16 body (serving's default; the card's kernel computes it)
+  against JAX ``make_fast_dynamics(..., compute_dtype="bfloat16",
+  use_pallas=True, interpret=True)`` on the same params: within 1e-2 of
+  max|f32 output|.  The two round to bf16 at different points (the port's
+  plain version after every op, the Pallas kernel where it casts), about
+  3e-3 to 6e-3 of max|f32| on these inputs, as JAX's own Pallas and XLA bf16
+  routes differ.
 """
 
 import jax.numpy as jnp
@@ -87,6 +94,30 @@ def test_denoiser_bf16_body_runs_on_cpu(models):
         out = bf(xh, t, mask)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 5e-2 * ref.abs().max()
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_fast(models):
+    _, _, dyn_params, _, _, _ = models
+    mc, mod, lc, dc, dl = jax_tiny_configs()
+    return make_fast_dynamics(mc, mod, lc, dc, dl, {"params": {"dynamics": dyn_params["params"]}},
+                              compute_dtype="bfloat16", use_pallas=True, interpret=True)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_denoiser_bf16_body_matches_jax(models, jax_bf16_fast, seed):
+    cfgs, _, _, _, _, evd = models
+    bf = GCPNetDynamics(*cfgs, compute_dtype="bfloat16")
+    bf.load_state_dict(evd.dynamics_network.state_dict())
+    xh, t, mask = tiny_batch(seed=seed)
+    expected = np.asarray(jax_bf16_fast(jnp.asarray(xh), jnp.asarray(t), jnp.asarray(mask)), np.float32)
+    with torch.inference_mode():
+        args = [torch.from_numpy(a) for a in (xh, t, mask)]
+        ref = evd.dynamics_network(*args).numpy()
+        out = bf(*args)
+    assert out.dtype == torch.float32 and out.shape == xh.shape and torch.isfinite(out).all()
+    gap = np.abs(out.numpy() - expected).max()
+    assert gap <= 1e-2 * np.abs(ref).max(), (gap, np.abs(ref).max())
 
 
 def test_unsupported_configuration_raises(models):
