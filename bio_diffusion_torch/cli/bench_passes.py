@@ -14,11 +14,13 @@ the library yardstick).
 
 Then it accounts for the forward kernel (``csrc/message_layer.cu``) at QM9
 width, bf16, B=250, N=19 (90,250 edge rows): the passes one layer makes (the
-products as one FMA-pipe op per multiply-add, the exp-form silu and sigmoids
-of its 4 stages, the gates over V, the attention, the adds, the bf16
-rounding), each times its op's measured cost, against the kernel's own time
-on the same card in the same process.  The last line is one JSON object with
-the numbers.  Without a CUDA device it exits with an error.
+products left on the FMA pipes as one op per multiply-add, the exp-form silu
+and sigmoids of its 4 stages, the gates over V, the attention, the adds, the
+bf16 rounding), each times its op's measured cost, and the wide products the
+kernel runs on the tensor cores at the card's bf16 peak over the rows its
+m16 tiles compute (a bound, not a measurement), against the kernel's own
+time on the same card in the same process.  The last line is one JSON object
+with the numbers.  Without a CUDA device it exits with an error.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Dict, List, Tuple
 
 K_LO, K_HI = 8, 104
 QM9 = dict(s_dim=256, v_dim=32, se=64, ve=16, h1=20, hc=8, num_gcps=3)
+# the card's dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet), FLOP/s
+PEAK_BF16_FLOP_S = 989e12
 
 
 def slope(t_lo: float, t_hi: float, k_lo: int = K_LO, k_hi: int = K_HI) -> float:
@@ -36,19 +40,30 @@ def slope(t_lo: float, t_hi: float, k_lo: int = K_LO, k_hi: int = K_HI) -> float
     return (t_hi - t_lo) / (k_hi - k_lo)
 
 
+def wide_macs_per_row(s_dim: int, v_dim: int, se: int, h1: int, hc: int, num_gcps: int) -> int:
+    """Multiply-adds per edge row of the products the bf16 kernel runs on the
+    tensor cores: the first GCP's [e | vnorm | schid] @ wsx and silu @ wg, and
+    each chain stage's merged @ wsc and silu @ wg."""
+    return (se + h1 + 9) * s_dim + s_dim * v_dim + num_gcps * ((s_dim + hc + 9) * s_dim + s_dim * v_dim)
+
+
 def forward_passes(s_dim: int, v_dim: int, se: int, ve: int, h1: int, hc: int, num_gcps: int,
-                   bf16: bool = True) -> List[Tuple[str, str, float]]:
+                   bf16: bool = True, mma_rows_per_row: float = 1.0) -> List[Tuple[str, str, float]]:
     """The passes one forward message layer makes per edge row, as ``(what,
     op, count)`` with ``count`` in passes over ``[rows, S]``.  A product's
-    multiply-add counts as one ``mul`` (one FMA-pipe op per element); the
+    multiply-add on the FMA pipes counts as one ``mul``; in bf16 the wide
+    products run on the tensor cores and count as ``mma`` passes, times
+    ``mma_rows_per_row`` (the rows the m16 tiles compute per real row).  The
     kernel's silu is ``x * sigmoid(x)`` with the exp-form sigmoid."""
     from bio_diffusion_torch.ops.message_layer import layer_macs_per_row
 
     stages = 1 + num_gcps
     s = float(s_dim)
     v3 = 3 * v_dim / s
+    macs = layer_macs_per_row(s_dim, v_dim, se, ve, h1, hc, num_gcps)
+    wide = wide_macs_per_row(s_dim, v_dim, se, h1, hc, num_gcps) if bf16 else 0
     items = [
-        ("products (FMA)", "mul", layer_macs_per_row(s_dim, v_dim, se, ve, h1, hc, num_gcps) / s),
+        ("products (FMA)", "mul", (macs - wide) / s),
         ("silu(s2): sigmoid [rows, S] x stages", "sigmoid_exp", stages),
         ("silu(s2): x * sigmoid [rows, S] x stages", "mul", stages),
         ("gate sigmoid [rows, V] x stages", "sigmoid_exp", stages * v_dim / s),
@@ -61,6 +76,7 @@ def forward_passes(s_dim: int, v_dim: int, se: int, ve: int, h1: int, hc: int, n
         ("sum over targets [rows, S + 3V]", "add", 1 + v3),
     ]
     if bf16:
+        items.insert(1, ("products (tensor cores, at the bf16 peak)", "mma", wide / s * mma_rows_per_row))
         # every value rounded to the compute dtype: silu, gate, vh, norms and
         # frames, vu and vu * gate per stage; v and s residual sums per chain
         # stage; the attention scale and the summed terms
@@ -94,9 +110,9 @@ def _time_ms(torch, fn, reps: int) -> float:
     return best
 
 
-def message_layer_ms(torch, b: int, n: int, dtype, reps: int, seed: int = 0) -> float:
-    """The forward kernel's time on one full-width layer with weights and inputs
-    drawn from ``seed``."""
+def layer_inputs(torch, b: int, n: int, dtype, seed: int = 0):
+    """``(s, v, epack, g1, chain)`` of one full-width layer on the card:
+    weights and inputs drawn from ``seed``."""
     from bio_diffusion_torch.config.schema import LayerConfig, ModuleConfig
     from bio_diffusion_torch.models.gcpnet import GCPMessagePassing
     from bio_diffusion_torch.ops import message_layer as ml
@@ -113,8 +129,16 @@ def message_layer_ms(torch, b: int, n: int, dtype, reps: int, seed: int = 0) -> 
 
     ones = torch.ones(b, n * n, 1, device="cuda", dtype=dtype)
     epack = torch.cat([randn(b, n * n, se), randn(b, n * n, 3 * ve), randn(b, n * n, 9), ones], dim=-1)
-    s, v = randn(b, n, s_dim), randn(b, n, 3 * v_dim)
-    return _time_ms(torch, lambda: ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=ve), reps)
+    return randn(b, n, s_dim), randn(b, n, 3 * v_dim), epack, g1, chain
+
+
+def message_layer_ms(torch, b: int, n: int, dtype, reps: int, seed: int = 0) -> float:
+    """The forward kernel's time on one full-width layer with weights and inputs
+    drawn from ``seed``."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    s, v, epack, g1, chain = layer_inputs(torch, b, n, dtype, seed)
+    return _time_ms(torch, lambda: ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"]), reps)
 
 
 def probe(torch, rows: int, cols: int, reps: int) -> Dict[str, Dict[str, float]]:
@@ -160,9 +184,13 @@ def main(argv=None) -> Dict[str, object]:
 
     b, n = 250, 19
     layer_rows = b * n * n
-    items = forward_passes(**QM9, bf16=True)
-    acct = account(items, {op: r["kernel_pass_ms"] for op, r in results.items()}, elems, layer_rows,
-                   QM9["s_dim"])
+    # the target rows of a (molecule, source node) in tiles of 32, each
+    # computed as m16 tiles
+    computed = sum(-(-min(32, n - j0) // 16) * 16 for j0 in range(0, n, 32))
+    items = forward_passes(**QM9, bf16=True, mma_rows_per_row=computed / n)
+    per_pass = {op: r["kernel_pass_ms"] for op, r in results.items()}
+    per_pass["mma"] = 2e3 * elems / PEAK_BF16_FLOP_S  # one multiply-add per element at the peak
+    acct = account(items, per_pass, elems, layer_rows, QM9["s_dim"])
     layer_ms = message_layer_ms(torch, b, n, torch.bfloat16, reps)
     total = sum(acct.values())
     print(f"\n# forward message layer, QM9 width, bf16, B={b} N={n} ({layer_rows} edge rows): "

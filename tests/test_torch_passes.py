@@ -80,19 +80,24 @@ def test_slope_fit():
 
 
 def test_forward_pass_accounting():
-    items = bench_passes.forward_passes(**bench_passes.QM9, bf16=True)
+    items = bench_passes.forward_passes(**bench_passes.QM9, bf16=True, mma_rows_per_row=32 / 19)
     counts = {what: count for what, _, count in items}
-    # 298,032 multiply-adds per edge row at QM9 width (message_layer.cu header)
-    assert counts["products (FMA)"] == pytest.approx(298032 / 256)
+    # 298,032 multiply-adds per edge row at QM9 width (message_layer.cu
+    # header); in bf16 266,240 of them (wsx 93x256, wg 256x32, three wsc
+    # 273x256 and wg) run on the tensor cores, over 32 computed rows per 19
+    assert counts["products (FMA)"] == pytest.approx((298032 - 266240) / 256)
+    assert counts["products (tensor cores, at the bf16 peak)"] == pytest.approx(266240 / 256 * 32 / 19)
+    f32 = {what: count for what, _, count in bench_passes.forward_passes(**bench_passes.QM9, bf16=False)}
+    assert f32["products (FMA)"] == pytest.approx(298032 / 256)
     # rounded values per row: 4 stages of silu, gate, vh, norms, vu, vu * gate;
     # the chain's residual sums; the attention scale and the summed terms
     assert counts["bf16 rounding"] == pytest.approx(3541 / 256)
-    assert "bf16 rounding" not in {w for w, _, _ in bench_passes.forward_passes(**bench_passes.QM9, bf16=False)}
+    assert "bf16 rounding" not in f32 and "products (tensor cores, at the bf16 peak)" not in f32
     # one pass over the probe's array costs 1 ms per op: the layer's items
     # scale by its elements over the probe's
     rows = 250 * 19 * 19
-    acct = bench_passes.account(items, {op: 1.0 for op in OPS}, probe_elems=rows * 128, layer_rows=rows,
-                                s_dim=256)
+    acct = bench_passes.account(items, {op: 1.0 for op in OPS + ("mma",)}, probe_elems=rows * 128,
+                                layer_rows=rows, s_dim=256)
     assert set(acct) == set(counts)
     for what, ms in acct.items():
         assert ms == pytest.approx(2.0 * counts[what])
