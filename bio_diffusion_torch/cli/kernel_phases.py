@@ -85,36 +85,33 @@ def build_instrumented() -> ctypes.CDLL:
                                 (build.SOURCE_DIR / "message_layer.cu").read_text())
     (out_dir / "message_layer_common.cuh").write_text(common)
     (out_dir / "message_layer.cu").write_text(source)
-    lib = out_dir / "libmessage_layer_phases.so"
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(out_dir / "message_layer.cu")],
+    path = out_dir / "libmessage_layer_phases.so"
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(path), str(out_dir / "message_layer.cu")],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the instrumented kernel:\n{proc.stdout}\n{proc.stderr}")
-    return ctypes.CDLL(str(lib))
+    lib = ctypes.CDLL(str(path))
+    lib.phases_read.argtypes, lib.phases_read.restype = [ctypes.POINTER(ctypes.c_ulonglong)], ctypes.c_int
+    lib.phases_reset.argtypes, lib.phases_reset.restype = [], ctypes.c_int
+    return lib
 
 
 def measure(torch, b: int, n: int, dtype, seed: int = 0) -> Dict[str, float]:
     """Phase name -> SM cycles per block of one instrumented launch."""
+    from bio_diffusion_torch.cli.ab_kernels import other_kernels
     from bio_diffusion_torch.cli.bench_passes import layer_inputs
     from bio_diffusion_torch.ops import message_layer as ml
 
     lib = build_instrumented()
-    fn = getattr(lib, ml._C_FUNCTIONS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     s, v, epack, g1, chain = layer_inputs(torch, b, n, dtype, seed)
     counters = (ctypes.c_ulonglong * 64)()
-    kernel_function = ml._kernel_function
-    ml._kernel_function = lambda _dtype: fn
-    try:
+    with other_kernels(ml, lib, "message_layer"):
         ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"])  # warm-up
         torch.cuda.synchronize()
         if lib.phases_reset() != 0:
             raise RuntimeError("could not reset the phase counters")
         ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"])
         torch.cuda.synchronize()
-    finally:
-        ml._kernel_function = kernel_function
     if lib.phases_read(counters) != 0:
         raise RuntimeError("could not read the phase counters")
     names = phase_names(QM9["num_gcps"])
@@ -133,12 +130,14 @@ def main(argv=None) -> Dict[str, object]:
             raise SystemExit(0 if flag == "--help" else f"unknown argument {flag!r}")
         opts[flag] = argv.pop(0)
     b, n = int(opts["--b"]), int(opts["--n"])
-    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[opts["--precision"]]
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    if opts["--precision"] not in dtypes:
+        raise SystemExit(f"--precision is bf16 or fp32, not {opts['--precision']!r}")
     if not 1 <= n <= 32:
         raise SystemExit("kernel_phases takes N <= 32 (one tile of target rows per block)")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases needs a CUDA device")
-    phases = measure(torch, b, n, dtype)
+    phases = measure(torch, b, n, dtypes[opts["--precision"]])
     total = sum(phases.values())
     print(f"# {torch.cuda.get_device_name(0)}; forward message layer, QM9 width, {opts['--precision']}, "
           f"B={b} N={n}: SM cycles per block between block barriers (thread 0's clock64)")

@@ -1,11 +1,16 @@
-"""The phase probe of the forward kernel (``cli/kernel_phases.py``): its
-instrumented copy of the CUDA source marks one phase per block barrier, as
-many as it names, and the CLI refuses without a card.  Imports no jax."""
+"""The kernel measurement tools on the CPU.  The phase probe of the forward
+kernel (``cli/kernel_phases.py``): its instrumented copy of the CUDA source
+marks one phase per block barrier, as many as it names.  The A/B timer
+(``cli/ab_kernels.py``): it routes a module's launches to the other library
+only inside its block.  Both refuse without a card.  Imports no jax."""
+
+import types
 
 import pytest
 import torch
 
-from bio_diffusion_torch.cli import kernel_phases
+from bio_diffusion_torch.cli import ab_kernels, kernel_phases
+from bio_diffusion_torch.ops import gcp2_chain, message_layer
 from bio_diffusion_torch.ops.build import SOURCE_DIR
 
 
@@ -36,3 +41,23 @@ def test_kernel_phases_refuses_without_a_card():
         kernel_phases.main(["--n", "40"])
     with pytest.raises(SystemExit, match="unknown argument"):
         kernel_phases.main(["--rows", "8"])
+
+
+@pytest.mark.parametrize("module,name", [(message_layer, "message_layer"), (gcp2_chain, "gcp2_chain")])
+def test_ab_kernels_routes_launches_only_inside_its_block(module, name):
+    own = module._kernel_function
+    other = types.SimpleNamespace(**{fn: object() for fn in module._C_FUNCTIONS.values()})
+    with pytest.raises(AttributeError):  # object() takes no argtypes: the other library's function is used
+        with ab_kernels.other_kernels(module, other, name):
+            assert module._kernel_function is not own
+            module._kernel_function(torch.bfloat16)
+    assert module._kernel_function is own
+
+
+def test_ab_kernels_refuses_without_a_card_or_a_source():
+    with pytest.raises(SystemExit, match="needs --other"):
+        ab_kernels.main([])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        ab_kernels.main(["--other", "build/parent"])
