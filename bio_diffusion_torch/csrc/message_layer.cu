@@ -39,15 +39,18 @@
 // warp-level mma.sync m16n8k16, bf16 operands (the values the TPU kernel
 // feeds its matrix unit are already bf16, so packing them is exact), f32
 // accumulators, the 32-row tile as two m16 tiles (one when it holds <= 16
-// real rows).  Not wgmma: it takes 64-row tiles, and a block holds 19 or 29
-// real rows (one source node's targets), so most of its work would be
-// padding.  The small vector products (xi @ wve, vh @ wu, v @ wcomb,
-// vh @ wu_bd) and every float32 product stay on the FMA pipes as register-
-// tiled loops (a thread owns one column and RPT rows, reads the tile as
-// broadcast float4 loads): float32 is the parity mode and keeps full f32
-// products (no TF32).  What bounds the bf16 kernel now: each block reads the
-// ~0.55 MB of wide weights from L2 as B fragments (~2.6 GB per layer at
-// B=250, N=19), and the FMA remainder (~31.5k multiply-adds per row).
+// real rows), B fragments read from the packed weights in device memory with
+// one vector load per weight row and lane.  Not wgmma: it takes 64-row
+// tiles, and a block holds 19 or 29 real rows (one source node's targets),
+// so most of its work would be padding.  The small vector products
+// (xi @ wve, vh @ wu, v @ wcomb, vh @ wu_bd) and every float32 product stay
+// on the FMA pipes as register-tiled loops (a thread owns one column and RPT
+// rows, reads the tile as broadcast float4 loads): float32 is the parity
+// mode and keeps full f32 products (no TF32).  What bounds the bf16 kernel
+// now (cli/kernel_phases.py): the wide products wait on their weights, which
+// every block reads from L2 (~0.53 MB a block, ~2.5 GB per layer at B=250,
+// N=19), and the small products on latency-bound FMA loops (~31.5k
+// multiply-adds per row), each near half of a block's time.
 //
 // Numerics follow the TPU kernel: products accumulate in f32; in the bf16
 // instantiation every value the TPU kernel rounds to the compute dtype (stage

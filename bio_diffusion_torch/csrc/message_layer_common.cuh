@@ -107,7 +107,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// NPW consecutive bf16 of one weight row, 8 * NPW-bit aligned, as 32-bit
+// NPW consecutive bf16 of one weight row, 2 * NPW-byte aligned, as 32-bit
 // words (column e in half e % 2 of word e / 2): one vector load.
 template <int NPW>
 __device__ __forceinline__ void load_cols(const unsigned short* p, uint32_t (&wd)[(NPW + 1) / 2]) {
@@ -115,8 +115,6 @@ __device__ __forceinline__ void load_cols(const unsigned short* p, uint32_t (&wd
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
     wd[0] = v.x;
     wd[1] = v.y;
-  } else if constexpr (NPW == 2) {
-    wd[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
   } else {
     wd[0] = __ldg(p);
   }
@@ -140,7 +138,7 @@ __device__ __forceinline__ void load_cols(const unsigned short* p, uint32_t (&wd
 template <int NPW, typename Epi>
 __device__ __forceinline__ void tile_mma(const float* __restrict__ in, int ldi, int nrows, int K,
                                          const __nv_bfloat16* __restrict__ W, int ncols, Epi epi) {
-  static_assert(NPW == 1 || NPW == 2 || NPW == 4, "a lane loads 1, 2 or 4 columns");
+  static_assert(NPW == 1 || NPW == 4, "a lane loads 1 or 4 columns");
   constexpr int NW = (NPW + 1) / 2;  // 32-bit words per lane and weight row
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
   const int mtiles = nrows > 16 ? 2 : 1;
