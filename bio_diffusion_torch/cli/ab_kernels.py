@@ -9,7 +9,8 @@ DIR holds the other ``message_layer.cu``, ``gcp2_chain.cu`` and their header,
 for instance a parent commit's, unpacked with
 ``git archive <commit> bio_diffusion_torch/csrc | tar -x -C build/parent``
 (DIR is then ``build/parent/bio_diffusion_torch/csrc``).  Both versions are
-built with the same nvcc flags.  On the same inputs (full QM9 width, weights
+built with the same nvcc flags, and the other is launched through the ops
+modules' own wrappers (``build.library_override``).  On the same inputs (full QM9 width, weights
 and inputs drawn from a seed) each pair's outputs are compared (max
 difference over max|this|) and timed in turns, other, this, this, other (CUDA
 events, best of two each): B1 in bf16 at B=8/N=19, B=250/N=19, B=64/N=29 and
@@ -23,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -34,48 +34,16 @@ from bio_diffusion_torch.cli.bench_passes import QM9, layer_inputs
 B1_SHAPES = (("bfloat16", 8, 19), ("bfloat16", 250, 19), ("bfloat16", 64, 29), ("bfloat16", 16, 64),
              ("float32", 64, 29))
 B3_SHAPES = (("bfloat16", 53824), ("bfloat16", 90250), ("float32", 53824), ("float32", 90250))
-ARGTYPES = {
-    "message_layer": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
-    "gcp2_chain": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-}
+NAMES = ("message_layer", "gcp2_chain")
 
 
 def build_other(src_dir: Path) -> Dict[str, ctypes.CDLL]:
     """Compile DIR's two sources (one nvcc each, started together)."""
     from bio_diffusion_torch.ops import build
 
-    out_dir = build.BUILD_DIR / "ab_other"
-    out_dir.mkdir(parents=True, exist_ok=True)
-
-    def compile_one(name: str) -> Path:
-        lib = out_dir / f"lib{name}-{build.source_digest(src_dir / f'{name}.cu')}.so"
-        if not lib.exists():
-            proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src_dir / f"{name}.cu")],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src_dir / name}.cu:\n{proc.stdout}\n{proc.stderr}")
-        return lib
-
-    names = tuple(ARGTYPES)
-    with ThreadPoolExecutor(len(names)) as pool:
-        return {name: ctypes.CDLL(str(path)) for name, path in zip(names, pool.map(compile_one, names))}
-
-
-@contextlib.contextmanager
-def other_kernels(module, lib: ctypes.CDLL, name: str):
-    """``module``'s launches go to ``lib``'s kernels inside the block."""
-    saved = module._kernel_function
-
-    def kernel_function(dtype):
-        fn = getattr(lib, module._C_FUNCTIONS[dtype])
-        fn.argtypes, fn.restype = ARGTYPES[name], ctypes.c_int
-        return fn
-
-    module._kernel_function = kernel_function
-    try:
-        yield
-    finally:
-        module._kernel_function = saved
+    with ThreadPoolExecutor(len(NAMES)) as pool:
+        built = pool.map(lambda name: build.compile_source(src_dir / f"{name}.cu")[0], NAMES)
+        return {name: ctypes.CDLL(str(path)) for name, path in zip(NAMES, built)}
 
 
 def chain_inputs(torch, e: int, dtype, seed: int = 0) -> list:
@@ -109,9 +77,11 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, module, lib, name: str, run, reps: int) -> Dict[str, float]:
+def compare(torch, lib, name: str, run, reps: int) -> Dict[str, float]:
     """Outputs of both versions and their times in turns (other, this, this, other)."""
-    with other_kernels(module, lib, name):
+    from bio_diffusion_torch.ops import build
+
+    with build.library_override(name, lib):
         theirs = run()
     ours = run()
     torch.cuda.synchronize()
@@ -119,7 +89,7 @@ def compare(torch, module, lib, name: str, run, reps: int) -> Dict[str, float]:
                for a, b in zip(theirs, ours))
     times = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
-        with other_kernels(module, lib, name) if who == "other" else contextlib.nullcontext():
+        with build.library_override(name, lib) if who == "other" else contextlib.nullcontext():
             times[who].append(time_ms(torch, run, reps))
     return {"this_ms": min(times["this"]), "other_ms": min(times["other"]), "max_rel_diff": diff,
             "runs": times}
@@ -152,12 +122,12 @@ def main(argv=None) -> Dict[str, object]:
     results = {}
     for dt, b, n in B1_SHAPES:
         s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt])
-        r = compare(torch, ml, other["message_layer"], "message_layer",
+        r = compare(torch, other["message_layer"], "message_layer",
                     lambda: ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"]), reps)
         results[f"message_layer {dt} B={b} N={n}"] = r
     for dt, e in B3_SHAPES:
         args = chain_inputs(torch, e, dtypes[dt])
-        results[f"gcp2_chain {dt} E={e}"] = compare(torch, gc, other["gcp2_chain"], "gcp2_chain",
+        results[f"gcp2_chain {dt} E={e}"] = compare(torch, other["gcp2_chain"], "gcp2_chain",
                                                    lambda: gc.fused_gcp2_chain(*args), reps)
     for what, r in results.items():
         print(f"{what:>36}: this {r['this_ms']:.4f} ms, other {r['other_ms']:.4f} ms "

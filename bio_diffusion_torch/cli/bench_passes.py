@@ -47,14 +47,20 @@ def wide_macs_per_row(s_dim: int, v_dim: int, se: int, h1: int, hc: int, num_gcp
     return (se + h1 + 9) * s_dim + s_dim * v_dim + num_gcps * ((s_dim + hc + 9) * s_dim + s_dim * v_dim)
 
 
+def mma_rows(n: int) -> int:
+    """Rows the tensor-core products compute for the ``n`` target rows of a
+    (molecule, source node): tiles of 32 rows, each as m16 tiles."""
+    return sum(-(-min(32, n - j0) // 16) * 16 for j0 in range(0, n, 32))
+
+
 def forward_passes(s_dim: int, v_dim: int, se: int, ve: int, h1: int, hc: int, num_gcps: int,
-                   bf16: bool = True, mma_rows_per_row: float = 1.0) -> List[Tuple[str, str, float]]:
-    """The passes one forward message layer makes per edge row, as ``(what,
-    op, count)`` with ``count`` in passes over ``[rows, S]``.  A product's
-    multiply-add on the FMA pipes counts as one ``mul``; in bf16 the wide
-    products run on the tensor cores and count as ``mma`` passes, times
-    ``mma_rows_per_row`` (the rows the m16 tiles compute per real row).  The
-    kernel's silu is ``x * sigmoid(x)`` with the exp-form sigmoid."""
+                   n: int, bf16: bool = True) -> List[Tuple[str, str, float]]:
+    """The passes one forward message layer over molecules of ``n`` nodes
+    makes per edge row, as ``(what, op, count)`` with ``count`` in passes over
+    ``[rows, S]``.  A product's multiply-add on the FMA pipes counts as one
+    ``mul``; in bf16 the wide products run on the tensor cores and count as
+    ``mma`` passes over the rows their m16 tiles compute.  The kernel's silu
+    is ``x * sigmoid(x)`` with the exp-form sigmoid."""
     from bio_diffusion_torch.ops.message_layer import layer_macs_per_row
 
     stages = 1 + num_gcps
@@ -76,7 +82,7 @@ def forward_passes(s_dim: int, v_dim: int, se: int, ve: int, h1: int, hc: int, n
         ("sum over targets [rows, S + 3V]", "add", 1 + v3),
     ]
     if bf16:
-        items.insert(1, ("products (tensor cores, at the bf16 peak)", "mma", wide / s * mma_rows_per_row))
+        items.insert(1, ("products (tensor cores, at the bf16 peak)", "mma", wide / s * mma_rows(n) / n))
         # every value rounded to the compute dtype: silu, gate, vh, norms and
         # frames, vu and vu * gate per stage; v and s residual sums per chain
         # stage; the attention scale and the summed terms
@@ -184,10 +190,7 @@ def main(argv=None) -> Dict[str, object]:
 
     b, n = 250, 19
     layer_rows = b * n * n
-    # the target rows of a (molecule, source node) in tiles of 32, each
-    # computed as m16 tiles
-    computed = sum(-(-min(32, n - j0) // 16) * 16 for j0 in range(0, n, 32))
-    items = forward_passes(**QM9, bf16=True, mma_rows_per_row=computed / n)
+    items = forward_passes(**QM9, n=n, bf16=True)
     per_pass = {op: r["kernel_pass_ms"] for op, r in results.items()}
     per_pass["mma"] = 2e3 * elems / PEAK_BF16_FLOP_S  # one multiply-add per element at the peak
     acct = account(items, per_pass, elems, layer_rows, QM9["s_dim"])

@@ -4,54 +4,35 @@ CUDA card.
 Usage:
   python -m bio_diffusion_torch.cli.kernel_phases [--b 250] [--n 19] [--precision bf16|fp32]
 
-Builds an instrumented copy of ``csrc/message_layer.cu`` and its header into
-the build directory (the sources themselves are untouched): thread 0 of
-every block reads ``clock64()`` after each block barrier and adds the cycles
-since the previous one to that phase's device counter.  A barrier ends each
-phase, so a phase's cycles are those of its slowest warp.  Runs one layer at
-full QM9 width (weights and inputs drawn from a seed; N <= 32, one tile of
-target rows per block) and prints each phase's SM cycles per block and its
-share; the last line is one JSON object.  Without a CUDA device it exits with
-an error.
+Builds ``csrc/message_layer.cu`` with ``-DPHASE_PROBE`` (a library of its
+own beside the normal one): thread 0 of every block reads ``clock64()`` at
+each of the kernel's phase marks, one after each block barrier and one at the
+kernel's end (``csrc/message_layer_common.cuh``), and adds the cycles since
+the previous mark to that phase's device counter.  A barrier ends each phase,
+so a phase's cycles are those of its slowest warp.  Runs one layer at full
+QM9 width (weights and inputs drawn from a seed; N <= 32, one tile of target
+rows per block) and prints each phase's SM cycles per block and its share;
+the last line is one JSON object.  Without a CUDA device it exits with an
+error.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 from bio_diffusion_torch.cli.bench_passes import QM9
 
-PROBE_DECL = """
-__shared__ long long phase_t;
-__shared__ int phase_i;
-__device__ unsigned long long phase_cycles[64];
-#define PHASE() do { if (threadIdx.x == 0) { const long long t_ = clock64(); \\
-    if (phase_i < 64) atomicAdd(&phase_cycles[phase_i], (unsigned long long)(t_ - phase_t)); \\
-    ++phase_i; phase_t = t_; } } while (0)
-"""
-PROBE_API = """
-extern "C" int phases_read(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
-}
-extern "C" int phases_reset() {
-  static const unsigned long long zero[64] = {};
-  return (int)cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
-}
-"""
-KERNEL_START = "message_layer_kernel(const Params<T> p)"
-KERNEL_END = "template <typename T>\nint launch("
-BLOCK_IDS = "  const int i = blockIdx.x, b = blockIdx.y;\n"
-LAST_STORE = "    else vo[c - S] = NT::st(AGG[c]);\n  }\n"
+SLOTS = 64  # PHASE_SLOTS of csrc/message_layer_common.cuh
 
 
 def phase_names(num_gcps: int) -> List[str]:
-    """The phases of one block with one tile of target rows, in order: each
-    ends at a block barrier (the last at the kernel's end).  (FMA) products
-    run on the FMA pipes, (mma) ones on the tensor cores in bf16."""
+    """The phases of one block with one tile of target rows, in the order of
+    its phase marks: each ends at a block barrier (the last at the kernel's
+    end).  (FMA) products run on the FMA pipes, (mma) ones on the tensor
+    cores in bf16."""
     names = ["zero the sums", "load the edge tile", "xi @ wve (FMA)", "norms, frames",
              "[e|vnorm|schid] @ wsx (mma)", "silu @ wg (mma)", "vh @ wu (FMA), copy"]
     for g in range(num_gcps):
@@ -61,35 +42,11 @@ def phase_names(num_gcps: int) -> List[str]:
     return names + ["attention", "sum over targets", "store"]
 
 
-def instrument(common: str, source: str) -> Tuple[str, str]:
-    """(header, source) with a PHASE() after every block barrier of the chain
-    stage and the kernel, and at the kernel's end."""
-    common = common.replace("namespace {\n", "namespace {\n" + PROBE_DECL, 1)
-    at = common.index("__device__ __forceinline__ void chain_stage")
-    common = common[:at] + common[at:].replace("__syncthreads();", "__syncthreads(); PHASE();")
-    k0, k1 = source.index(KERNEL_START), source.index(KERNEL_END)
-    body = source[k0:k1].replace("__syncthreads();", "__syncthreads(); PHASE();")
-    if BLOCK_IDS not in body or LAST_STORE not in body:
-        raise RuntimeError("message_layer.cu changed shape; update kernel_phases.instrument")
-    body = body.replace(BLOCK_IDS, BLOCK_IDS + "  if (threadIdx.x == 0) { phase_t = clock64(); phase_i = 0; }\n")
-    body = body.replace(LAST_STORE, LAST_STORE + "  PHASE();\n")
-    return common, source[:k0] + body + source[k1:] + PROBE_API
-
-
-def build_instrumented() -> ctypes.CDLL:
+def build_probe() -> ctypes.CDLL:
+    """The forward kernel built with its phase marks."""
     from bio_diffusion_torch.ops import build
 
-    out_dir = build.BUILD_DIR / "phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    common, source = instrument((build.SOURCE_DIR / "message_layer_common.cuh").read_text(),
-                                (build.SOURCE_DIR / "message_layer.cu").read_text())
-    (out_dir / "message_layer_common.cuh").write_text(common)
-    (out_dir / "message_layer.cu").write_text(source)
-    path = out_dir / "libmessage_layer_phases.so"
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(path), str(out_dir / "message_layer.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the instrumented kernel:\n{proc.stdout}\n{proc.stderr}")
+    path, _ = build.compile_source(build.SOURCE_DIR / "message_layer.cu", defines=("PHASE_PROBE",))
     lib = ctypes.CDLL(str(path))
     lib.phases_read.argtypes, lib.phases_read.restype = [ctypes.POINTER(ctypes.c_ulonglong)], ctypes.c_int
     lib.phases_reset.argtypes, lib.phases_reset.restype = [], ctypes.c_int
@@ -97,15 +54,15 @@ def build_instrumented() -> ctypes.CDLL:
 
 
 def measure(torch, b: int, n: int, dtype, seed: int = 0) -> Dict[str, float]:
-    """Phase name -> SM cycles per block of one instrumented launch."""
-    from bio_diffusion_torch.cli.ab_kernels import other_kernels
+    """Phase name -> SM cycles per block of one probed launch."""
     from bio_diffusion_torch.cli.bench_passes import layer_inputs
+    from bio_diffusion_torch.ops import build
     from bio_diffusion_torch.ops import message_layer as ml
 
-    lib = build_instrumented()
+    lib = build_probe()
     s, v, epack, g1, chain = layer_inputs(torch, b, n, dtype, seed)
-    counters = (ctypes.c_ulonglong * 64)()
-    with other_kernels(ml, lib, "message_layer"):
+    counters = (ctypes.c_ulonglong * SLOTS)()
+    with build.library_override("message_layer", lib):
         ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"])  # warm-up
         torch.cuda.synchronize()
         if lib.phases_reset() != 0:
@@ -115,6 +72,8 @@ def measure(torch, b: int, n: int, dtype, seed: int = 0) -> Dict[str, float]:
     if lib.phases_read(counters) != 0:
         raise RuntimeError("could not read the phase counters")
     names = phase_names(QM9["num_gcps"])
+    if counters[len(names) - 1] == 0 or any(counters[len(names):]):
+        raise RuntimeError(f"the kernel's phase marks do not match the {len(names)} named phases")
     return {name: counters[i] / (b * n) for i, name in enumerate(names)}
 
 

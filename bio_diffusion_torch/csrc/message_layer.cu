@@ -122,6 +122,7 @@ message_layer_kernel(const Params<T> p) {
   float* AGG = SC + ROWS;           // [S + 3V] running sum over j
 
   const int i = blockIdx.x, b = blockIdx.y;
+  PHASE_START();
   const int N = p.N, S = p.S, V = p.V, Se = p.Se, Ve = p.Ve, H1 = p.H1, Hc = p.Hc, P = p.P;
   const int V3 = 3 * V, W1 = 3 * H1 + 27, Wc = 3 * Hc + 27, PW = S + W1;
   const T* pi = p.proj_i + (size_t)(b * N + i) * PW;
@@ -133,6 +134,7 @@ message_layer_kernel(const Params<T> p) {
   for (int j0 = 0; j0 < N; j0 += ROWS) {
     const int nrows = min(ROWS, N - j0);
     __syncthreads();  // previous tile's aggregation has read every buffer
+    PHASE_MARK();
 
     // ---- load the tile's edge rows (rows past nrows are zero) ----
     for (int idx = threadIdx.x; idx < ROWS * P; idx += blockDim.x) {
@@ -144,6 +146,7 @@ message_layer_kernel(const Params<T> p) {
       else if (q == Se + 3 * Ve + 9) EM[r] = val;
     }
     __syncthreads();
+    PHASE_MARK();
 
     // ---- GCP1: vh | vdf = proj_i + proj_j + xi @ wve ----
     tile_mm<8>(X, L.ldx, nrows, 3 * Ve, p.wve, W1, [&](int r, int c, float acc) {
@@ -151,8 +154,10 @@ message_layer_kernel(const Params<T> p) {
       Hb[r * L.ldh + c] = (NT::ld(pi[S + c]) + pj) + acc;
     });
     __syncthreads();
+    PHASE_MARK();
     norms_and_frames<ROWS, T>(Hb, L.ldh, FT, A + Se, L.lda, H1);
     __syncthreads();
+    PHASE_MARK();
     // s2 = proj_i + proj_j + [e | vnorm | schid] @ wsx + bs
     wide_mm<4, 8>(A, L.lda, nrows, Se + H1 + 9, p.wsx, S, [&](int r, int c, float acc) {
       const float pj = r < nrows ? NT::ld(pj0[(size_t)(j0 + r) * PW + c]) : 0.f;
@@ -160,10 +165,12 @@ message_layer_kernel(const Params<T> p) {
       X[r * L.ldx + c] = NT::rnd(s2 * sigmoid_f(s2));
     });
     __syncthreads();
+    PHASE_MARK();
     wide_mm<1, 4>(X, L.ldx, nrows, S, p.wg1, V, [&](int r, int c, float acc) {
       Gt[r * L.ldg + c] = NT::rnd(sigmoid_f(acc + NT::ld(p.bg1[c])));
     });
     __syncthreads();
+    PHASE_MARK();
     tile_mm<8>(Hb, L.ldh, nrows, 3 * H1, p.wu1, V3, [&](int r, int c, float acc) {
       Vb[r * L.ldv + c] = NT::rnd(NT::rnd(acc) * Gt[r * L.ldg + c % V]);
     });
@@ -172,6 +179,7 @@ message_layer_kernel(const Params<T> p) {
       A[r * L.lda + c] = X[r * L.ldx + c];
     }
     __syncthreads();
+    PHASE_MARK();
 
     // ---- residual chain of GCP2 stages, then attention x edge mask ----
     const ChainTile tile{A, Vb, Hb, X, Gt, FT, L.lda, L.ldv, L.ldh, L.ldx, L.ldg};
@@ -183,6 +191,7 @@ message_layer_kernel(const Params<T> p) {
     }
     attention_scale<T>(A, L.lda, nrows, S, p.wattn, p.battn, EM, SC);
     __syncthreads();
+    PHASE_MARK();
 
     // ---- masked aggregation over this tile's targets ----
     for (int c = threadIdx.x; c < S + V3; c += blockDim.x) {
@@ -196,12 +205,14 @@ message_layer_kernel(const Params<T> p) {
     }
   }
   __syncthreads();
+  PHASE_MARK();
   T* so = p.s_agg + (size_t)(b * N + i) * S;
   T* vo = p.v_agg + (size_t)(b * N + i) * V3;
   for (int c = threadIdx.x; c < S + V3; c += blockDim.x) {
     if (c < S) so[c] = NT::st(AGG[c]);
     else vo[c - S] = NT::st(AGG[c]);
   }
+  PHASE_MARK();
 }
 
 template <typename T>
@@ -275,5 +286,16 @@ int message_layer_blocks_per_sm(int bf16, int smem) {
 
 MESSAGE_LAYER_ENTRY(message_layer_f32, float)
 MESSAGE_LAYER_ENTRY(message_layer_bf16, __nv_bfloat16)
+
+#ifdef PHASE_PROBE
+// The phase probe's counters (see message_layer_common.cuh): copy out, zero.
+int phases_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+}
+int phases_reset() {
+  static const unsigned long long zero[PHASE_SLOTS] = {};
+  return (int)cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

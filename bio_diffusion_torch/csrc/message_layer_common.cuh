@@ -32,6 +32,36 @@ template <> struct Num<__nv_bfloat16> {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Phase probe of the forward kernel (cli/kernel_phases.py).  Built with
+// -DPHASE_PROBE, thread 0 of a block reads clock64() at PHASE_START and at
+// every PHASE_MARK (one after each block barrier of the kernel and of
+// chain_stage, one at the kernel's end) and adds the cycles since the
+// previous one to that mark's counter, in the order the block passes them.
+// Otherwise the marks compile to nothing.
+#ifdef PHASE_PROBE
+constexpr int PHASE_SLOTS = 64;
+__device__ unsigned long long phase_cycles[PHASE_SLOTS];
+__shared__ long long phase_t;
+__shared__ int phase_i;
+#define PHASE_START()                                   \
+  do {                                                  \
+    if (threadIdx.x == 0) { phase_t = clock64(); phase_i = 0; } \
+  } while (0)
+#define PHASE_MARK()                                                                      \
+  do {                                                                                    \
+    if (threadIdx.x == 0) {                                                               \
+      const long long t_ = clock64();                                                     \
+      if (phase_i < PHASE_SLOTS)                                                          \
+        atomicAdd(&phase_cycles[phase_i], (unsigned long long)(t_ - phase_t));            \
+      ++phase_i;                                                                          \
+      phase_t = t_;                                                                       \
+    }                                                                                     \
+  } while (0)
+#else
+#define PHASE_START() do {} while (0)
+#define PHASE_MARK() do {} while (0)
+#endif
+
 // Blocks of `kernel` that one SM holds at `threads` threads and `smem` bytes
 // of dynamic shared memory each, as a launch configures it; a negative CUDA
 // error code on failure.
@@ -309,17 +339,21 @@ __device__ __forceinline__ void chain_stage(const ChainTile& t, int nrows, int S
   tile_mm<8>(t.Vb, t.ldv, nrows, V3, wcomb, Wc,
              [&](int r, int c, float acc) { t.Hb[r * t.ldh + c] = acc; });
   __syncthreads();
+  PHASE_MARK();
   norms_and_frames<TR, T>(t.Hb, t.ldh, t.FT, t.A + S, t.lda, Hc);
   __syncthreads();
+  PHASE_MARK();
   wide_mm<4, 8>(t.A, t.lda, nrows, S + Hc + 9, wsc, S, [&](int r, int c, float acc) {
     const float s2 = acc + NT::ld(bsc[c]);
     t.X[r * t.ldx + c] = NT::rnd(s2 * sigmoid_f(s2));
   });
   __syncthreads();
+  PHASE_MARK();
   wide_mm<1, 4>(t.X, t.ldx, nrows, S, wgc, V, [&](int r, int c, float acc) {
     t.Gt[r * t.ldg + c] = NT::rnd(sigmoid_f(acc + NT::ld(bgc[c])));
   });
   __syncthreads();
+  PHASE_MARK();
   tile_mm<8>(t.Hb, t.ldh, nrows, 3 * Hc, wubd, V3, [&](int r, int c, float acc) {
     float* v = t.Vb + r * t.ldv + c;
     *v = NT::rnd(*v + NT::rnd(NT::rnd(acc) * t.Gt[r * t.ldg + c % V]));
@@ -329,6 +363,7 @@ __device__ __forceinline__ void chain_stage(const ChainTile& t, int nrows, int S
     t.A[r * t.lda + c] = NT::rnd(t.A[r * t.lda + c] + t.X[r * t.ldx + c]);
   }
   __syncthreads();
+  PHASE_MARK();
 }
 
 // Sigmoid scalar attention of the chain's output, one warp per row:

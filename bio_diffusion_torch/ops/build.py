@@ -9,6 +9,7 @@ stale library).  Nothing is built when a module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -30,6 +31,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
+# name -> another build of that source's C interface, while a
+# library_override block is open
+_overrides: Dict[str, ctypes.CDLL] = {}
 # per source built in this process: the compiler's report (registers,
 # spills), for the record of a run
 build_log: Dict[str, str] = {}
@@ -49,9 +53,9 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def source_digest(src: Path) -> str:
+def source_digest(src: Path, flags: Sequence[str] = NVCC_FLAGS) -> str:
     """Hash of a source, the local headers it includes (transitively) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     seen, todo = set(), [Path(src)]
     while todo:
         path = todo.pop()
@@ -65,20 +69,30 @@ def source_digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def compile_source(src: Path, defines: Sequence[str] = ()) -> Tuple[Path, str]:
+    """Compile one CUDA source with ``-D`` for each of ``defines`` into the
+    build directory unless that library is built -> ``(its path, the
+    compiler's report, empty if it was built already)``."""
+    src = Path(src)
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    out = BUILD_DIR / f"lib{src.stem}-{source_digest(src, flags)}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([find_nvcc(), *flags, "-o", str(tmp), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, (proc.stdout + proc.stderr).strip()
+
+
 def _build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is built -> its path."""
-    src = SOURCE_DIR / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        build_log[name] = (proc.stdout + proc.stderr).strip()
-    return out
+    path, report = compile_source(SOURCE_DIR / f"{name}.cu")
+    if report:
+        build_log[name] = report
+    return path
 
 
 def load_libraries(*names: str) -> List[ctypes.CDLL]:
@@ -86,14 +100,30 @@ def load_libraries(*names: str) -> List[ctypes.CDLL]:
     source, all started together; return the loaded libraries.  A failed
     build raises once every compiler has ended."""
     with _lock:
-        todo = [n for n in names if n not in _libraries]
+        todo = [n for n in names if n not in _libraries and n not in _overrides]
         with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
             paths = list(pool.map(_build, todo))
         for name, path in zip(todo, paths):
             _libraries[name] = ctypes.CDLL(str(path))
-        return [_libraries[n] for n in names]
+        return [_overrides[n] if n in _overrides else _libraries[n] for n in names]
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     return load_libraries(name)[0]
+
+
+@contextlib.contextmanager
+def library_override(name: str, lib: ctypes.CDLL) -> Iterator[None]:
+    """Inside the block, ``load_library(name)`` returns ``lib``: another build
+    of ``csrc/<name>.cu``'s C interface (another version of the source, or
+    the source built with a probe), so the ops modules launch its kernels."""
+    with _lock:
+        if name in _overrides:
+            raise RuntimeError(f"{name} is already overridden")
+        _overrides[name] = lib
+    try:
+        yield
+    finally:
+        with _lock:
+            del _overrides[name]

@@ -570,10 +570,11 @@ def drive_main_path(torch, b1_ms_b250):
         if outs["seeded-a"]["molecules"] != outs["seeded-b"]["molecules"]:
             raise AssertionError("two requests with the same seed returned different molecules")
         print("seeded pair identical: ok")
+        launches = ml.launch_counts["message_layer"]
         print(f"server: {json.dumps(server.describe())}")
         check_decoded_batch(torch, server)
         step_ms = time_reverse_steps(torch, server, layers, b1_ms_b250)
-        return ml.launch_counts["message_layer"], step_ms
+        return launches, step_ms
     finally:
         server.close()
 

@@ -1,7 +1,8 @@
 """The kernel measurement tools on the CPU.  The phase probe of the forward
-kernel (``cli/kernel_phases.py``): its instrumented copy of the CUDA source
-marks one phase per block barrier, as many as it names.  The A/B timer
-(``cli/ab_kernels.py``): it routes a module's launches to the other library
+kernel (``cli/kernel_phases.py``): the kernel's sources carry one phase mark
+per block barrier, as many as the probe names, and compile them to nothing
+unless built with ``PHASE_PROBE``.  The A/B timer (``cli/ab_kernels.py``):
+``build.library_override`` routes an ops module's launches to another library
 only inside its block.  Both refuse without a card.  Imports no jax."""
 
 import types
@@ -10,26 +11,32 @@ import pytest
 import torch
 
 from bio_diffusion_torch.cli import ab_kernels, kernel_phases
-from bio_diffusion_torch.ops import gcp2_chain, message_layer
+from bio_diffusion_torch.ops import build, gcp2_chain, message_layer
 from bio_diffusion_torch.ops.build import SOURCE_DIR
 
 
 def test_instrumented_source_marks_every_named_phase():
     common = (SOURCE_DIR / "message_layer_common.cuh").read_text()
     source = (SOURCE_DIR / "message_layer.cu").read_text()
-    inst_common, inst_source = kernel_phases.instrument(common, source)
-    stage = inst_common[inst_common.index("void chain_stage"):inst_common.index("// Sigmoid scalar attention")]
-    kernel = inst_source[inst_source.index(kernel_phases.KERNEL_START):inst_source.index(kernel_phases.KERNEL_END)]
+    stage = common[common.index("void chain_stage"):common.index("// Sigmoid scalar attention")]
+    kernel = source[source.index("message_layer_kernel(const Params<T> p)"):source.index("int launch(")]
     # each barrier of the stage and of the kernel ends one phase; the kernel's
     # end ends the last
-    assert stage.count("PHASE();") == stage.count("__syncthreads();") == 5
-    assert kernel.count("PHASE();") == kernel.count("__syncthreads();") + 1
+    for body in (stage, kernel):
+        lines = [ln.strip() for ln in body.splitlines()]
+        after = [lines[k + 1] for k, ln in enumerate(lines) if ln.startswith("__syncthreads();")]
+        assert after and all(ln == "PHASE_MARK();" for ln in after)
+    assert stage.count("PHASE_MARK();") == stage.count("__syncthreads();") == 5
+    assert kernel.count("PHASE_MARK();") == kernel.count("__syncthreads();") + 1
+    assert kernel.count("PHASE_START();") == 1
     for num_gcps in (1, 3):
         names = kernel_phases.phase_names(num_gcps)
-        assert len(names) == len(set(names)) == kernel.count("PHASE();") + num_gcps * stage.count("PHASE();")
-    assert "phase_cycles" in inst_common and "phases_read" in inst_source
-    # the sources themselves are untouched
-    assert "PHASE" not in common + source
+        assert len(names) == len(set(names)) == kernel.count("PHASE_MARK();") + num_gcps * stage.count("PHASE_MARK();")
+        assert len(names) <= kernel_phases.SLOTS
+    # without PHASE_PROBE the marks are empty statements
+    assert "#define PHASE_MARK() do {} while (0)" in common
+    assert f"constexpr int PHASE_SLOTS = {kernel_phases.SLOTS};" in common
+    assert "phases_read" in source[source.index("#ifdef PHASE_PROBE"):]
 
 
 def test_kernel_phases_refuses_without_a_card():
@@ -43,15 +50,26 @@ def test_kernel_phases_refuses_without_a_card():
         kernel_phases.main(["--rows", "8"])
 
 
+class _Library:
+    """Stands in for another build's ctypes library: any C function."""
+
+    def __getattr__(self, fn):
+        f = types.SimpleNamespace(argtypes=None, restype=None)
+        setattr(self, fn, f)
+        return f
+
+
 @pytest.mark.parametrize("module,name", [(message_layer, "message_layer"), (gcp2_chain, "gcp2_chain")])
 def test_ab_kernels_routes_launches_only_inside_its_block(module, name):
-    own = module._kernel_function
-    other = types.SimpleNamespace(**{fn: object() for fn in module._C_FUNCTIONS.values()})
-    with pytest.raises(AttributeError):  # object() takes no argtypes: the other library's function is used
-        with ab_kernels.other_kernels(module, other, name):
-            assert module._kernel_function is not own
-            module._kernel_function(torch.bfloat16)
-    assert module._kernel_function is own
+    other = _Library()
+    with build.library_override(name, other):
+        assert build.load_library(name) is other
+        fn = module._kernel_function(torch.bfloat16)
+        assert fn is getattr(other, module._C_FUNCTIONS[torch.bfloat16]) and fn.argtypes
+        with pytest.raises(RuntimeError, match="already overridden"):
+            with build.library_override(name, _Library()):
+                pass
+    assert name not in build._overrides
 
 
 def test_ab_kernels_refuses_without_a_card_or_a_source():

@@ -80,14 +80,16 @@ def test_slope_fit():
 
 
 def test_forward_pass_accounting():
-    items = bench_passes.forward_passes(**bench_passes.QM9, bf16=True, mma_rows_per_row=32 / 19)
+    items = bench_passes.forward_passes(**bench_passes.QM9, n=19, bf16=True)
     counts = {what: count for what, _, count in items}
     # 298,032 multiply-adds per edge row at QM9 width (message_layer.cu
     # header); in bf16 266,240 of them (wsx 93x256, wg 256x32, three wsc
     # 273x256 and wg) run on the tensor cores, over 32 computed rows per 19
     assert counts["products (FMA)"] == pytest.approx((298032 - 266240) / 256)
     assert counts["products (tensor cores, at the bf16 peak)"] == pytest.approx(266240 / 256 * 32 / 19)
-    f32 = {what: count for what, _, count in bench_passes.forward_passes(**bench_passes.QM9, bf16=False)}
+    # m16 tiles of 32-row tiles: one for <= 16 rows, two for 17-32, and so on
+    assert [bench_passes.mma_rows(n) for n in (7, 16, 19, 29, 40, 64)] == [16, 16, 32, 32, 48, 64]
+    f32 = {what: count for what, _, count in bench_passes.forward_passes(**bench_passes.QM9, n=19, bf16=False)}
     assert f32["products (FMA)"] == pytest.approx(298032 / 256)
     # rounded values per row: 4 stages of silu, gate, vh, norms, vu, vu * gate;
     # the chain's residual sums; the attention scale and the summed terms
