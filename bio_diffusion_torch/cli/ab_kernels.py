@@ -1,11 +1,12 @@
-"""Time the forward message-layer kernel (B1) and the flat-edge chain kernel
-(B3) of this checkout against another version of their sources, in one
-process on one CUDA card.
+"""Time the message-layer kernels (B1 forward, B2 backward) and the flat-edge
+chain kernel (B3) of this checkout against another version of their sources,
+in one process on one CUDA card.
 
 Usage:
   python -m bio_diffusion_torch.cli.ab_kernels --other DIR [--reps 20]
 
-DIR holds the other ``message_layer.cu``, ``gcp2_chain.cu`` and their header,
+DIR holds the other ``message_layer.cu``, ``message_layer_bwd.cu``,
+``gcp2_chain.cu`` and their header,
 for instance a parent commit's, unpacked with
 ``git archive <commit> bio_diffusion_torch/csrc | tar -x -C build/parent``
 (DIR is then ``build/parent/bio_diffusion_torch/csrc``).  Both versions are
@@ -14,9 +15,11 @@ modules' own wrappers (``build.library_override``).  On the same inputs (full QM
 and inputs drawn from a seed) each pair's outputs are compared (max
 difference over max|this|) and timed in turns, other, this, this, other (CUDA
 events, best of two each): B1 in bf16 at B=8/N=19, B=250/N=19, B=64/N=29 and
-B=16/N=64 and in float32 at B=64/N=29; B3 at E=53,824 and 90,250 in both
-dtypes.  Prints one line per pair and, last, one JSON object.  Without a
-CUDA device it exits with an error.
+B=16/N=64 and in float32 at B=64/N=29; B2 at B=64/N=29 in both dtypes, all
+21 outputs, each also marked bit-identical or not, with each of its four
+kernels' device times per launch (``torch.profiler``, in the same turns);
+B3 at E=53,824 and 90,250 in both dtypes.  Prints one line per pair and,
+last, one JSON object.  Without a CUDA device it exits with an error.
 """
 
 from __future__ import annotations
@@ -33,12 +36,13 @@ from bio_diffusion_torch.cli.bench_passes import QM9, layer_inputs
 
 B1_SHAPES = (("bfloat16", 8, 19), ("bfloat16", 250, 19), ("bfloat16", 64, 29), ("bfloat16", 16, 64),
              ("float32", 64, 29))
+B2_SHAPES = (("float32", 64, 29), ("bfloat16", 64, 29))
 B3_SHAPES = (("bfloat16", 53824), ("bfloat16", 90250), ("float32", 53824), ("float32", 90250))
-NAMES = ("message_layer", "gcp2_chain")
+NAMES = ("message_layer", "message_layer_bwd", "gcp2_chain")
 
 
 def build_other(src_dir: Path) -> Dict[str, ctypes.CDLL]:
-    """Compile DIR's two sources (one nvcc each, started together)."""
+    """Compile DIR's sources (one nvcc each, started together)."""
     from bio_diffusion_torch.ops import build
 
     with ThreadPoolExecutor(len(NAMES)) as pool:
@@ -77,22 +81,44 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, lib, name: str, run, reps: int) -> Dict[str, float]:
-    """Outputs of both versions and their times in turns (other, this, this, other)."""
+def compare(torch, lib, name: str, run, reps: int, sub_kernels: bool = False) -> Dict[str, object]:
+    """Outputs of both versions (``run`` returns a list of ``(name, tensor)``:
+    each one's difference over max|this| and whether it is bit-identical) and
+    their times in turns (other, this, this, other); with ``sub_kernels``
+    also the device ms per launch of each of the wrapper's kernels, best of
+    the two turns."""
+    from bio_diffusion_torch.cli.profile_train import group_kernel_ms
     from bio_diffusion_torch.ops import build
 
     with build.library_override(name, lib):
         theirs = run()
     ours = run()
     torch.cuda.synchronize()
-    diff = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
-               for a, b in zip(theirs, ours))
+    diffs, identical = {}, []
+    for (what, a), (_, b) in zip(theirs, ours):
+        ref = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        diffs[what] = err / ref if ref > 0 else err
+        if torch.equal(a, b):
+            identical.append(what)
     times = {"other": [], "this": []}
+    subs = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
         with build.library_override(name, lib) if who == "other" else contextlib.nullcontext():
             times[who].append(time_ms(torch, run, reps))
-    return {"this_ms": min(times["this"]), "other_ms": min(times["other"]), "max_rel_diff": diff,
-            "runs": times}
+            if sub_kernels:
+                subs[who].append(group_kernel_ms(torch, run, 5, name))
+    out = {"this_ms": min(times["this"]), "other_ms": min(times["other"]),
+           "max_rel_diff": max(diffs.values()), "rel_diff": diffs, "bit_identical": identical,
+           "all_bit_identical": len(identical) == len(diffs), "runs": times}
+    if sub_kernels:
+        out["sub_kernels_ms"] = {who: {k: min(r[k] for r in runs) for k in runs[0]}
+                                 for who, runs in subs.items()}
+    return out
+
+
+def named(outputs) -> list:
+    return [(str(k), t) for k, t in enumerate(outputs)]
 
 
 def main(argv=None) -> Dict[str, object]:
@@ -123,15 +149,32 @@ def main(argv=None) -> Dict[str, object]:
     for dt, b, n in B1_SHAPES:
         s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt])
         r = compare(torch, other["message_layer"], "message_layer",
-                    lambda: ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"]), reps)
+                    lambda: named(ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=QM9["ve"])), reps)
         results[f"message_layer {dt} B={b} N={n}"] = r
+    for dt, b, n in B2_SHAPES:
+        s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt])
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        ct = (torch.randn(s.shape, generator=gen, device="cuda").to(s.dtype),
+              torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype))
+        r = compare(torch, other["message_layer_bwd"], "message_layer_bwd",
+                    lambda: ml.bwd_outputs(ml.fused_message_layer_bwd(s, v, epack, g1, chain, ct,
+                                                                      ve_dim=QM9["ve"])),
+                    max(2, reps // 4), sub_kernels=True)
+        results[f"message_layer_bwd {dt} B={b} N={n}"] = r
     for dt, e in B3_SHAPES:
         args = chain_inputs(torch, e, dtypes[dt])
         results[f"gcp2_chain {dt} E={e}"] = compare(torch, other["gcp2_chain"], "gcp2_chain",
-                                                   lambda: gc.fused_gcp2_chain(*args), reps)
+                                                   lambda: named(gc.fused_gcp2_chain(*args)), reps)
     for what, r in results.items():
-        print(f"{what:>36}: this {r['this_ms']:.4f} ms, other {r['other_ms']:.4f} ms "
-              f"(this/other {r['this_ms'] / r['other_ms']:.3f}), max rel diff {r['max_rel_diff']:.3g}")
+        same = "all" if r["all_bit_identical"] else f"{len(r['bit_identical'])} of {len(r['rel_diff'])}"
+        print(f"{what:>40}: this {r['this_ms']:.4f} ms, other {r['other_ms']:.4f} ms "
+              f"(this/other {r['this_ms'] / r['other_ms']:.3f}), max rel diff {r['max_rel_diff']:.3g}, "
+              f"bit-identical: {same}")
+        for who, subs in r.get("sub_kernels_ms", {}).items():
+            print(f"{'':>42}{who}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in subs.items()))
+        if not r["all_bit_identical"]:
+            print(f"{'':>42}differences: " + ", ".join(f"{k} {d:.3g}" for k, d in r["rel_diff"].items()
+                                                       if k not in r["bit_identical"]))
     out = {"device": torch.cuda.get_device_name(0), "other": opts["--other"], "pairs": results}
     print(json.dumps(out))
     return out

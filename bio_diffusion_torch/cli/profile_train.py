@@ -43,6 +43,23 @@ def group_times(kernels: Dict[str, List[float]]) -> Dict[str, List[float]]:
     return out
 
 
+def group_kernel_ms(torch, fn, reps: int, group: str) -> Dict[str, float]:
+    """Device ms per call of each kernel of one wrapper (``KERNEL_GROUPS[group]``)
+    over ``reps`` calls of ``fn`` under ``torch.profiler``, after one warm-up
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_times(prof.events(), reps)
+    return {n: sum(v[0] for k, v in kernels.items() if f"(anonymous namespace)::{n}" in k)
+            for n in KERNEL_GROUPS[group]}
+
+
 def _timed_steps(torch, trainer, steps: int) -> float:
     """ms per step of ``steps`` further Trainer steps, by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -1,7 +1,9 @@
 // Device helpers shared by the message-layer kernels (message_layer.cu,
 // message_layer_bwd.cu, gcp2_chain.cu): the compute-dtype rounding points,
-// the sigmoid, the register-tiled product of a shared-memory tile with a
-// weight matrix (FMA pipes, and tensor cores for bf16), and the residual GCP2
+// the sigmoid, the register-tiled products of a shared-memory tile with a
+// weight matrix (FMA pipes: tile_mm, one column a thread, and tile_rm, 2-D
+// register tiles over weights staged in shared memory; tensor cores for
+// bf16: tile_mma), and the residual GCP2
 // chain stage and attention over a tile.
 
 #pragma once
@@ -32,12 +34,13 @@ template <> struct Num<__nv_bfloat16> {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
-// Phase probe of the forward kernel (cli/kernel_phases.py).  Built with
-// -DPHASE_PROBE, thread 0 of a block reads clock64() at PHASE_START and at
-// every PHASE_MARK (one after each block barrier of the kernel and of
-// chain_stage, one at the kernel's end) and adds the cycles since the
-// previous one to that mark's counter, in the order the block passes them.
-// Otherwise the marks compile to nothing.
+// Phase probe of the message-layer kernels (cli/kernel_phases.py).  Built
+// with -DPHASE_PROBE, thread 0 of a block reads clock64() at PHASE_START and
+// at every PHASE_MARK (one after each block barrier of the kernel and of
+// chain_stage, one at the kernel's or the tile's end) and adds the cycles
+// since the previous one to that mark's counter, in the order the block
+// passes them; PHASE_FOLD starts that order again, so every tile of target
+// rows adds to the same counters.  Otherwise the marks compile to nothing.
 #ifdef PHASE_PROBE
 constexpr int PHASE_SLOTS = 64;
 __device__ unsigned long long phase_cycles[PHASE_SLOTS];
@@ -57,9 +60,14 @@ __shared__ int phase_i;
       phase_t = t_;                                                                       \
     }                                                                                     \
   } while (0)
+#define PHASE_FOLD()                      \
+  do {                                    \
+    if (threadIdx.x == 0) phase_i = 0;    \
+  } while (0)
 #else
 #define PHASE_START() do {} while (0)
 #define PHASE_MARK() do {} while (0)
+#define PHASE_FOLD() do {} while (0)
 #endif
 
 // Blocks of `kernel` that one SM holds at `threads` threads and `smem` bytes
@@ -119,6 +127,157 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ in, int ldi, i
     }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) epi(r0 + r, c, acc[r]);
+  }
+}
+
+// Four consecutive values in shared memory as floats (p aligned to 4 of them).
+__device__ __forceinline__ void lds4(const float* p, float (&w)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&w)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  w[0] = __uint_as_float(v.x << 16);
+  w[1] = __uint_as_float(v.x & 0xffff0000u);
+  w[2] = __uint_as_float(v.y << 16);
+  w[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// Asynchronous 16-byte copy from device to shared memory (sm_80+), of which
+// the first `bytes` are read and the rest zero-filled; commit, and wait for
+// all but the newest N groups of this thread.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// Rows k0 .. k0+kn of W [K, ncols] are one contiguous span; staged as it
+// lies, in W's type, row kk starts at WS[lead + kk * ncols].  A
+// 16-byte-aligned W goes by cp.async in 16-byte pieces from the aligned
+// address at or below the span's start (lead = its offset; the last piece
+// zero-filled past the span), left in flight in one commit group; any other
+// W value by value (lead = 0).
+template <typename T>
+__device__ __forceinline__ int stage_lead(const T* W, int ncols, int k0) {
+  constexpr int PER = 16 / sizeof(T);
+  return reinterpret_cast<uintptr_t>(W) % 16 == 0 ? (int)(((size_t)k0 * ncols) % PER) : 0;
+}
+template <typename T>
+__device__ __forceinline__ void stage_span(const T* __restrict__ W, int ncols, int k0, int kn,
+                                          T* __restrict__ WS) {
+  constexpr int PER = 16 / sizeof(T);
+  const int lead = stage_lead(W, ncols, k0), n = lead + kn * ncols;
+  const T* src = W + (size_t)k0 * ncols - lead;
+  if (reinterpret_cast<uintptr_t>(W) % 16 == 0) {
+    for (int i = PER * threadIdx.x; i < n; i += PER * blockDim.x)
+      cp_async16(WS + i, src + i, (int)sizeof(T) * min(PER, n - i));
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) WS[i] = src[i];
+  }
+  cp_async_commit();
+}
+
+// tile_mm's product on 2-D register tiles, the weights staged in shared
+// memory.  Every block reads all of a product's weights for each tile of
+// rows; read from L2 by every thread, as tile_mm reads them, the weight bytes
+// bound the product.  So the block copies W (in its own type) into WS
+// (ws_floats floats: two buffers) in slabs of ks rows, ks the largest
+// multiple of 4 a buffer holds, the next slab in flight (cp.async) while the
+// current one is multiplied, and every thread reads its weights from there:
+// each weight leaves L2 once per tile.  A thread owns R rows and 4 columns
+// (an item), 4 R FMAs per staged weight row it reads; R is chosen per product
+// so that its items fit the block (more items take more passes, each staging
+// W again).  The 4 columns are consecutive, one vector read, where ncols % 4
+// == 0; else an item takes the columns cg, cg + G, cg + 2G, cg + 3G (G =
+// ceil(ncols / 4)), scalar reads free of bank conflicts.  tile_mm's
+// contract: rows of `in` 16-byte aligned (ldi % 4 == 0), the tile's first
+// ceil(nrows/R)*R rows computed, epi(r, c, acc) for each c < ncols; and
+// tile_mm's sum for each output (k = 0..K-1 by fmaf from 0), so float32
+// results are bit-identical to it.  Every thread of the block calls it: it
+// waits at block barriers.
+template <int R, typename T, typename Epi>
+__device__ __forceinline__ void tile_rm(const float* __restrict__ in, int ldi, int nrows, int K,
+                                        const T* __restrict__ W, int ncols, float* __restrict__ WS,
+                                        int ws_floats, Epi epi) {
+  constexpr int PER = 16 / sizeof(T);
+  T* const stage = reinterpret_cast<T*>(WS);
+  const int cap = ws_floats * (int)(sizeof(float) / sizeof(T)) / 2;  // values a buffer
+  const int groups = (ncols + 3) / 4;
+  const bool quad = ncols % 4 == 0;
+  const int ks = min(K, ((cap - 2 * PER) / ncols) & ~3), nslabs = (K + ks - 1) / ks;
+  const int items = (nrows + R - 1) / R * groups;
+  for (int base = 0; base < items; base += blockDim.x) {  // uniform across the block
+    const int item = base + threadIdx.x;
+    const int cg = item % groups, r0 = (item / groups) * R;
+    const int c0 = quad ? 4 * cg : cg, cstep = quad ? 1 : groups;  // column e: c0 + e * cstep
+    const float* x = in + r0 * ldi;
+    float acc[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    __syncthreads();  // every thread is done with WS (the previous product or pass)
+    stage_span(W, ncols, 0, ks, stage);
+    for (int s = 0; s < nslabs; ++s) {
+      const int k0 = s * ks, kn = min(ks, K - k0);
+      if (s + 1 < nslabs) {
+        stage_span(W, ncols, k0 + ks, min(ks, K - k0 - ks), stage + ((s + 1) & 1) * cap);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // slab s is in its buffer for every thread
+      if (item < items) {
+        const T* ws = stage + (s & 1) * cap + stage_lead(W, ncols, k0) + c0;
+        auto wrow = [&](int kk, float (&wv)[4]) {
+          if (quad) {
+            lds4(ws + kk * ncols, wv);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) wv[e] = Num<T>::ld(ws[kk * ncols + e * cstep]);
+          }
+        };
+        int kk = 0;
+        for (; kk + 4 <= kn; kk += 4) {
+          float wv[4][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) wrow(kk + q, wv[q]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 xv = *reinterpret_cast<const float4*>(x + r * ldi + k0 + kk);
+            const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(xs[q], wv[q][e], acc[r][e]);
+          }
+        }
+        for (; kk < kn; ++kk) {
+          float wv[4];
+          wrow(kk, wv);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float xk = x[r * ldi + k0 + kk];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(xk, wv[e], acc[r][e]);
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with this buffer before slab s + 2 fills it
+    }
+    if (item < items) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + e * cstep < ncols) epi(r0 + r, c0 + e * cstep, acc[r][e]);
+    }
   }
 }
 

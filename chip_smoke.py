@@ -8,7 +8,9 @@
 2. Builds the CUDA kernels from ``bio_diffusion_torch/csrc`` (nvcc, sm_90a,
    one compiler per source, started together) and prints each one's
    registers and spills, and the forward's and the chain kernel's shared
-   memory per block and blocks per SM.
+   memory per block and blocks per SM; for the backward's row kernel
+   (float32, bfloat16) and weight-grad kernel also each one's registers and
+   local memory a thread, shared memory per block and blocks per SM.
 3. Holds the message-layer kernel against its plain PyTorch version at full
    QM9 width (S=256, V=32, Se=64, Ve=16, 4 message GCPs), in float32 and
    bfloat16, at B=8 with N=19 and N=29, on a padded batch and at N=64; then
@@ -19,8 +21,11 @@
    training path's B=64, N=29 with padded rows: every output (the node and
    edge cotangents and all 18 weight grads), two runs bit-identical.  At
    B=64, N=29 the forward kernel is held against its plain version too, and
-   both pairs are timed on the same inputs.  The kernels line reports the
-   backward's errors and times at B=64, N=29 (float32, bfloat16 beside).
+   both pairs are timed on the same inputs, and the backward's four kernels
+   (row kernel, node-side sums, weight grads, their reduction) are timed by
+   name under ``torch.profiler``, each beside its own bound.  The kernels
+   line reports the backward's errors and times at B=64, N=29 (float32,
+   bfloat16 beside) and its split by kernel.
 5. Checks the full-width denoiser on the card (kernels) against the same
    weights on the CPU (plain versions), float32, on a small batch: the
    output, then the gradient of every parameter.
@@ -182,6 +187,48 @@ def layer_flops(args, ve) -> float:
     return 2.0 * (b * n * n * rows + b * n * node)
 
 
+def bwd_sub_bounds(args, ct, ve, name):
+    """{kernel: (bound_ms, bound_by)} of the backward's four kernels on these
+    inputs.  ``bwd_rows_kernel``: the recompute's and the input cotangents'
+    products per edge row (in bfloat16 the recompute's four wide products at
+    the bf16 rate: they run on the tensor cores), and the bytes of the layer's
+    inputs, cotangents and d_epack.  ``weight_grad_kernel``: one multiply-add
+    per edge row and weight-grad element, and the bytes of the scratch columns
+    it reads (each once) and of the grads.  ``proj_sum_kernel`` and
+    ``reduce_kernel``: the bytes of the columns or chunk partials they sum and
+    of their outputs."""
+    import ctypes
+
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    s_node, v_node, epack, g1, chain = args
+    b, n, s_dim = s_node.shape
+    v_dim = v_node.shape[-1] // 3
+    h1 = g1["wu_bd"].shape[0] // 3
+    se = g1["wsx"].shape[0] - h1 - 9
+    num_gcps, hc = chain[0].shape[0], (chain[0].shape[2] - 27) // 3
+    rows = b * n * n
+    w1, wc, m1, v3 = 3 * h1 + 27, 3 * hc + 27, s_dim + hc + 9, 3 * v_dim
+    fwd = ml.layer_macs_per_row(s_dim, v_dim, se, ve, h1, hc, num_gcps) - s_dim
+    wide = (se + h1 + 9) * s_dim + s_dim * v_dim + num_gcps * (m1 * s_dim + s_dim * v_dim)
+    fast = wide if name == "bfloat16" else 0
+    t_ops = 2.0 * rows * (fast / PEAK_FLOP_S["bfloat16"] + (2 * fwd - fast) / PEAK_FLOP_S["float32"])
+    t_bytes = (nbytes(args, ct) + nbytes(epack)) / PEAK_BYTES_S
+    out = {"bwd_rows_kernel": (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")}
+    grads = sum(g1[k].numel() for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")) + sum(c.numel() for c in chain)
+    cols = (3 * ve + se + h1 + 9 + s_dim + w1 + s_dim + v3 + v_dim + 3 * h1
+            + num_gcps * (v3 + m1 + s_dim + wc + s_dim + v3 + v_dim + 3 * hc) + s_dim + 1)
+    out["weight_grad_kernel"] = bound(2.0 * rows * grads, 4.0 * (rows * cols + grads), "float32")
+    out["proj_sum_kernel"] = bound(rows * (s_dim + w1), 4.0 * (rows + 2 * b * n) * (s_dim + w1), "float32")
+    lib = ml._bwd_library()
+    dims = (ctypes.c_int * 10)(b, n, epack.shape[-1], s_dim, v_dim, se, ve, h1, hc, num_gcps)
+    sizes = (ctypes.c_longlong * 3)()
+    if lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes)) != 0:
+        raise AssertionError("the backward kernel refuses the QM9 widths")
+    out["reduce_kernel"] = bound(sizes[1], 4.0 * (sizes[1] + grads), "float32")
+    return out
+
+
 def time_ms(torch, fn, reps=20):
     for _ in range(3):
         fn()
@@ -285,6 +332,46 @@ def kernel_occupancy(torch, evd):
     return out
 
 
+def bwd_occupancy(torch, evd):
+    """Registers and local memory a thread (spills and stack, as loaded),
+    shared memory per block and blocks per SM of the backward's row kernel
+    (float32, bfloat16) and weight-grad kernel at full width, as their
+    launches set them up."""
+    import ctypes
+
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    mc = evd.dynamics_network.model_cfg
+    (_, _, epack, g1, chain), ve = kernel_inputs(torch, evd, 1, 2, torch.bfloat16, False, seed=0)
+    h1, hc = g1["wu_bd"].shape[0] // 3, (chain[0].shape[2] - 27) // 3
+    lib = ml._bwd_library()
+    lib.message_layer_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.message_layer_bwd_blocks_per_sm.restype = ctypes.c_int
+    lib.message_layer_bwd_kernel_attrs.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.message_layer_bwd_kernel_attrs.restype = ctypes.c_int
+    dims = (ctypes.c_int * 10)(1, 2, epack.shape[-1], mc.h_hidden_dim, mc.chi_hidden_dim, mc.e_hidden_dim,
+                               ve, h1, hc, chain[0].shape[0])
+    sizes = (ctypes.c_longlong * 3)()
+    if lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes)) != 0:
+        raise AssertionError("the backward kernel refuses the QM9 widths")
+    kernels = {"bwd_rows_kernel float32": (0, 0), "bwd_rows_kernel bfloat16": (0, 1), "weight_grad_kernel": (1, 0)}
+    out = {}
+    for label, (kernel, bf16) in kernels.items():
+        attrs = (ctypes.c_int * 3)()
+        if lib.message_layer_bwd_kernel_attrs(kernel, bf16, ctypes.addressof(attrs)) != 0:
+            raise AssertionError(f"{label}: no kernel attributes")
+        # the row kernel's shared memory is dynamic (the workspace query), the weight-grad kernel's static
+        smem = int(sizes[2]) if kernel == 0 else attrs[2]
+        blocks = lib.message_layer_bwd_blocks_per_sm(kernel, bf16, smem if kernel == 0 else 0)
+        if blocks < 1:
+            raise AssertionError(f"{label} fits no block on an SM (code {blocks})")
+        print(f"  occupancy {label}: {smem} B of {'dynamic' if kernel == 0 else 'static'} shared memory "
+              f"per block, {blocks} blocks per SM, {attrs[0]} registers and {attrs[1]} B of local memory "
+              f"(spills, stack) a thread")
+        out[label] = dict(smem_bytes=smem, blocks_per_sm=blocks, registers=attrs[0], local_bytes=attrs[1])
+    return out
+
+
 def check_denoiser(torch):
     """Full-width denoiser, float32: the card (kernel) against the CPU (plain)."""
     import copy
@@ -355,6 +442,7 @@ def compare_bwd(torch, args, ct, ve, name, label):
 
 
 def check_bwd_kernel(torch, evd):
+    from bio_diffusion_torch.cli.profile_train import group_kernel_ms
     from bio_diffusion_torch.ops import message_layer as ml
 
     result = {}
@@ -392,6 +480,16 @@ def check_bwd_kernel(torch, evd):
             timings[(what, name)] = (kernel_ms, plain_ms) + bounds[what]
             print(f"timing {what} {name} B=64 N=29: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bounds[what][0]:.4f} ms ({bounds[what][1]}) (runs {runs})")
+        # the backward's four kernels by name (torch.profiler), each beside its bound
+        sub_ms = group_kernel_ms(torch, pairs["bwd"][0], 5, "message_layer_bwd")
+        sub_bounds = bwd_sub_bounds(args, ct, ve, name)
+        result[f"sub_kernels_{name}"] = {k: {"ms": ms, "bound_ms": sub_bounds[k][0], "bound_by": sub_bounds[k][1]}
+                                         for k, ms in sub_ms.items()}
+        for k, ms in sub_ms.items():
+            print(f"timing bwd {name} B=64 N=29 {k}: {ms:.4f} ms per launch (profiler), "
+                  f"bound {sub_bounds[k][0]:.4f} ms ({sub_bounds[k][1]})")
+        if not sub_ms["bwd_rows_kernel"] > 0 or not sub_ms["weight_grad_kernel"] > 0:
+            raise AssertionError(f"the profiler saw no backward kernel ({name}): {sub_ms}")
     # the kernels line reports the backward at the training path's shape and
     # default precision (float32), with the bfloat16 numbers beside them
     result["max_abs_err"], result["max_rel_err"] = result["bwd_err_b64_float32"]
@@ -810,6 +908,7 @@ def main() -> int:
 
     evd_kernels = build_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
     occupancy = kernel_occupancy(torch, evd_kernels)
+    occupancy_bwd = bwd_occupancy(torch, evd_kernels)
     kernel = check_kernel(torch, evd_kernels)
     kernel_bwd = check_bwd_kernel(torch, evd_kernels)
     chain = check_chain(torch, evd_kernels)
@@ -876,6 +975,8 @@ def main() -> int:
         "ms_bf16": kernel_bwd["ms_bf16"],
         "plain_ms_bf16": kernel_bwd["plain_ms_bf16"],
         "bound_ms_bf16": kernel_bwd["bound_ms_bf16"],
+        "sub_kernels": {"fp32": kernel_bwd["sub_kernels_float32"], "bf16": kernel_bwd["sub_kernels_bfloat16"]},
+        "occupancy": occupancy_bwd,
     }, {
         "name": "gcp2_chain",
         "route": "cuda",

@@ -22,7 +22,12 @@ some columns ragged (K not a multiple of 16, V=4 gate columns); (TINY, 2,
 40) a second target tile of 8 rows; (QM9, 8, 19) and the training shape
 (QM9, 64, 29) two m16 tiles with the second partly real; (QM9, 2, 64) two
 full 32-row tiles.  The chain's E=70 and 4,001 end in ragged tiles of 6 and
-1 rows.
+1 rows.  The backward's shapes add the training shape (QM9, 64, 29), whose
+53,824 edge rows end in a partial row chunk of the weight grads, and (QM9,
+3, 23), target tiles of 16 and 7 rows and 1,587 rows, one partial chunk; at
+QM9 width every weight-grad product has a ragged output tile (K = 48, 93,
+60, 17, 96, 24; N = 87, 51) or column-sum tile (the one-column attention
+weight, N=1), and the tiny widths make every tile ragged.
 """
 
 import pytest
@@ -104,7 +109,7 @@ TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims,b,n", [(TINY, 3, 7), (TINY, 2, 29), (QM9, 4, 19), (QM9, 4, 29),
-                                      (QM9, 2, 64)])
+                                      (QM9, 2, 64), (QM9, 64, 29), (QM9, 3, 23)])
 def test_bwd_kernel_matches_plain_on_card(dtype, dims, b, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
