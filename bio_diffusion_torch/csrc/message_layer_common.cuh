@@ -3,8 +3,8 @@
 // the sigmoid, the register-tiled products of a shared-memory tile with a
 // weight matrix (FMA pipes: tile_mm, one column a thread, and tile_rm, 2-D
 // register tiles over weights staged in shared memory; tensor cores for
-// bf16: tile_mma), and the residual GCP2
-// chain stage and attention over a tile.
+// bf16: tile_mma), and the residual GCP2 chain stage and attention over a
+// tile.
 
 #pragma once
 
@@ -151,11 +151,12 @@ __device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&w)[4]) {
 // all but the newest N groups of this thread.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // Rows k0 .. k0+kn of W [K, ncols] are one contiguous span; staged as it
 // lies, in W's type, row kk starts at WS[lead + kk * ncols].  A
