@@ -62,3 +62,6 @@ BONDS3 = {
     "N": {"C": 116, "N": 110},
     "O": {"C": 113},
 }
+
+# atomic numbers of the elements QM9 uses
+CHARGE_DICT = {"H": 1, "C": 6, "N": 7, "O": 8, "F": 9}

@@ -10,8 +10,10 @@ Usage:
       [port=8080] [serving_batch_size=8] [num_timesteps=1000] \
       [warmup_buckets=[20,29]] [precision=bf16|fp32] [k=v ...]
 
-``ckpt_path=null`` serves weights drawn from ``seed``.  ``device`` defaults
-to ``cuda``; there is no fallback to the CPU.
+``ckpt_path`` is a reference ``.ckpt``, a checkpoint directory of the port's
+Trainer (its EMA weights) or a params file; ``ckpt_path=null`` serves
+weights drawn from ``seed``.  ``device`` defaults to ``cuda``; there is no
+fallback to the CPU.
 
 Endpoints:
   GET  /healthz   -> server + device status, buckets, stats
@@ -27,88 +29,34 @@ import logging
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Tuple
 
-import torch
-
-from bio_diffusion_torch.config.build import ExperimentConfig, build_experiment
-from bio_diffusion_torch.config.loader import default_config_dir, load_config
-from bio_diffusion_torch.data.dataset_info import get_dataset_info
-from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
-from bio_diffusion_torch.models.distributions import NumNodesDistribution
-from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
+from bio_diffusion_torch.cli.common import (
+    device_of,
+    load_model,
+    nodes_distribution_for,
+    parse_cli,
+    precision_of,
+    with_precision,
+)
+from bio_diffusion_torch.config.build import build_experiment, get_dataset_info_for
 from bio_diffusion_torch.serve import MoleculeServer
-from bio_diffusion_torch.train.torch_import import init_random_weights, load_reference_checkpoint
 
 log = logging.getLogger(__name__)
 
 
-def parse_cli(argv: List[str], config_name: str) -> Tuple[Dict[str, Any], Dict[str, str]]:
-    """Split args into ``key=value`` config overrides and ``--flags``; compose the config."""
-    overrides, flags = [], {}
-    for arg in argv:
-        if arg.startswith("--"):
-            k, _, v = arg[2:].partition("=")
-            flags[k] = v
-        else:
-            overrides.append(arg)
-    if "help" in flags:
-        print(__doc__.strip())
-        raise SystemExit(0)
-    return load_config(default_config_dir(), config_name, overrides), flags
-
-
-def serving_precision(cfg) -> str:
-    """An explicit ``trainer.precision`` wins over the top-level ``precision``
-    key (default bf16)."""
-    trainer = cfg.get("trainer")
-    explicit = trainer.get("precision") if isinstance(trainer, dict) else None
-    value = explicit if explicit is not None else cfg.get("precision", "bf16")
-    return "bf16" if str(value).lower() in ("bf16", "bfloat16") else "fp32"
-
-
-def build_model(exp: ExperimentConfig, ckpt_path: Optional[str], device, seed: int = 0
-                ) -> EquivariantVariationalDiffusion:
-    """The port's EVD with the configured denoiser, on ``device``, weights
-    from a reference ``.ckpt`` or (``ckpt_path=None``) drawn from ``seed``."""
-    if exp.diffusion_cfg.dynamics_network != "gcpnet":
-        raise NotImplementedError(f"dynamics network {exp.diffusion_cfg.dynamics_network!r} is not ported yet")
-    compute_dtype = "bfloat16" if exp.trainer.precision in ("bf16", "bfloat16") else None
-    dynamics = GCPNetDynamics(exp.model_cfg, exp.module_cfg, exp.layer_cfg, exp.diffusion_cfg,
-                              exp.dataloader_cfg, compute_dtype=compute_dtype)
-    evd = EquivariantVariationalDiffusion(dynamics, exp.diffusion_cfg, exp.dataloader_cfg)
-    if ckpt_path is None:
-        log.warning("No ckpt_path given: serving weights drawn from seed %d", seed)
-        init_random_weights(evd, seed)
-    elif str(ckpt_path).endswith((".ckpt", ".pt", ".pth")):
-        load_reference_checkpoint(evd, str(ckpt_path))
-    else:
-        raise ValueError(f"the port loads reference .ckpt files, not {ckpt_path!r}")
-    return evd.to(device).eval()
-
-
-def dataset_info_for(exp: ExperimentConfig) -> Dict[str, Any]:
-    dataset = exp.dataloader_cfg.dataset
-    if dataset not in ("QM9", "synthetic"):
-        raise NotImplementedError(f"dataset {dataset!r} is not ported yet (QM9 only)")
-    return get_dataset_info("QM9", exp.dataloader_cfg.remove_h)
-
-
 def build_server(cfg) -> MoleculeServer:
-    if serving_precision(cfg) == "bf16":
-        cfg = dict(cfg)
-        cfg["trainer"] = {**cfg.get("trainer", {}), "precision": "bf16"}
-    exp = build_experiment(cfg)
+    """The server of a composed ``serve`` config: the model of ``ckpt_path``
+    (see ``cli.common.load_model``) on ``device``, in ``precision``
+    (default bf16)."""
+    exp = build_experiment(with_precision(cfg, precision_of(cfg, default="bf16")))
     if exp.module_cfg.conditioning:
         raise ValueError("cli.serve serves unconditional models")
-    device = torch.device(str(cfg.get("device", "cuda")))
+    device = device_of(cfg)
     seed = int(cfg.get("seed", 0))
-    evd = build_model(exp, cfg.get("ckpt_path"), device, seed)
-    info = dataset_info_for(exp)
+    evd = load_model(exp, cfg.get("ckpt_path"), device, seed=seed)
     num_timesteps = cfg.get("num_timesteps")
     return MoleculeServer(
-        evd, info,
-        NumNodesDistribution({int(k): int(v) for k, v in info["n_nodes"].items()}),
+        evd, get_dataset_info_for(exp), nodes_distribution_for(exp),
         device=device,
         batch_size=int(cfg.get("serving_batch_size", 8)),
         buckets=cfg.get("buckets"),

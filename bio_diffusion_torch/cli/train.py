@@ -6,12 +6,19 @@ on one device.
 
 Usage:
   python -m bio_diffusion_torch.cli.train experiment=qm9_mol_gen_ddpm \\
-      datamodule.dataloader_cfg.dataset=synthetic [k=v ...] \\
+      [datamodule.dataloader_cfg.dataset=QM9|QM9_first_half|QM9_second_half|synthetic] \\
+      [datamodule.dataloader_cfg.data_dir=DIR] [k=v ...] \\
       [--max-steps=K] [--max-epochs=E] [--workdir=DIR] [--device=cuda|cpu]
 
-``--device`` defaults to ``cuda``; there is no fallback to the CPU.  Only
-the synthetic QM9-schema dataset is ported so far.  Metrics go to
-``<workdir>/metrics.csv``.
+QM9 is read from ``<data_dir>/QM9``: the processed ``train/valid/test.npz``
+or the GDB9 tarball with ``uncharacterized.txt`` and ``atomref.txt``;
+nothing is downloaded.  ``--device`` defaults to ``cuda``; there is no
+fallback to the CPU.  Checkpoints go to ``<workdir>/<trainer.ckpt_dir>``
+(``step_<n>.pt``); a second run on the same workdir resumes from the newest
+(the train state, not the data order), and ``trainer.warm_start_ckpt=PATH``
+(with ``trainer.warm_start_source=params|ema_params``) warm-starts a fresh
+run.  Metrics go to ``<workdir>/metrics.csv`` (and the ``logger`` group's
+other backends).  ``test=true`` evaluates the test split after training.
 """
 
 from __future__ import annotations
@@ -19,41 +26,33 @@ from __future__ import annotations
 import logging
 import sys
 
+from bio_diffusion_torch.cli.common import parse_cli
 from bio_diffusion_torch.config.build import build_experiment
-from bio_diffusion_torch.config.loader import default_config_dir, load_config
 from bio_diffusion_torch.train.loop import Trainer
+from bio_diffusion_torch.utils.logging import build_loggers, get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 
 def main(argv=None) -> Trainer:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    overrides, flags = [], {}
-    for arg in argv:
-        if arg.startswith("--"):
-            k, _, v = arg[2:].partition("=")
-            flags[k] = v
-        else:
-            overrides.append(arg)
-    if "help" in flags:
-        print(__doc__.strip())
-        raise SystemExit(0)
-    unknown = set(flags) - {"max-steps", "max-epochs", "workdir", "device"}
+    cfg, flags = parse_cli(list(sys.argv[1:] if argv is None else argv), "train")
+    unknown = set(flags) - {"max-steps", "max-epochs", "workdir", "device", "config-dir", "config-name"}
     if unknown:
         raise SystemExit(f"unknown flags: {sorted(unknown)}")
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
-    cfg = load_config(default_config_dir(), "train", overrides)
     exp = build_experiment(cfg)
     workdir = flags.get("workdir") or "outputs/train_torch"
     device = flags.get("device") or "cuda"
     log.info("Experiment: dataset=%s, layers=%d, precision=%s, device=%s, workdir=%s",
              exp.dataloader_cfg.dataset, exp.model_cfg.num_encoder_layers, exp.trainer.precision,
              device, workdir)
-    trainer = Trainer(exp, workdir, device)
+    trainer = Trainer(exp, workdir, device, loggers=build_loggers(cfg.get("logger"), workdir))
     trainer.fit(max_epochs=int(flags["max-epochs"]) if flags.get("max-epochs") else None,
                 max_steps=int(flags["max-steps"]) if flags.get("max-steps") else None)
+    if cfg.get("test"):
+        log.info("test metrics: %s", trainer.validate(epoch=-1, split="test"))
     return trainer
 
 

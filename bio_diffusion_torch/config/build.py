@@ -1,9 +1,9 @@
-"""Typed experiment config from a composed config dict.
+"""Typed experiment config from a composed config dict, and what it builds.
 
-Copy of ``ExperimentConfig``, ``safe_arith`` and ``build_experiment`` of
+Copy of ``ExperimentConfig``, ``safe_arith``, ``build_experiment``,
+``get_dataset_info_for`` and ``build_datasets`` of
 ``bio_diffusion_tpu/config/build.py`` (the port imports nothing of the JAX
-package).  The port builds its own models and data from the result
-(``cli/serve.py::build_model``, ``train/loop.py``, ``data/``).
+package), and ``build_evd``, the port's model for a config.
 """
 
 from __future__ import annotations
@@ -95,3 +95,63 @@ def build_experiment(cfg: Dict[str, Any]) -> ExperimentConfig:
         trainer=trainer,
         raw=cfg,
     )
+
+
+POCKET_DATASETS = ("bindingmoad", "crossdock", "crossdock_full")
+
+
+def _refuse_unported(dataset: str) -> None:
+    if dataset in POCKET_DATASETS:
+        raise NotImplementedError(f"dataset {dataset!r}: pocket data is not ported yet (ROADMAP A10)")
+    if "GEOM" in dataset:
+        raise NotImplementedError(f"dataset {dataset!r}: GEOM-Drugs is not ported yet (ROADMAP A9)")
+
+
+def get_dataset_info_for(exp: ExperimentConfig) -> Dict[str, Any]:
+    """The statistics table (atom types, size histogram) of the configured dataset."""
+    from bio_diffusion_torch.data.dataset_info import get_dataset_info
+
+    dl = exp.dataloader_cfg
+    _refuse_unported(dl.dataset)
+    name = "QM9_second_half" if dl.dataset == "QM9_second_half" else "QM9"
+    return get_dataset_info(name, dl.remove_h)
+
+
+def build_datasets(exp: ExperimentConfig) -> Dict[str, Any]:
+    """Train/valid/test ``DenseDataset``s of the configured dataset:
+    ``synthetic`` (the offline stand-in) or QM9 read from ``data_dir``."""
+    dl = exp.dataloader_cfg
+    if dl.dataset == "synthetic":
+        from bio_diffusion_torch.data.synthetic import synthetic_qm9_like
+
+        return {
+            "train": synthetic_qm9_like(512, seed=exp.seed),
+            "valid": synthetic_qm9_like(128, seed=exp.seed + 1),
+            "test": synthetic_qm9_like(128, seed=exp.seed + 2),
+        }
+    _refuse_unported(dl.dataset)
+    if "QM9" in dl.dataset:
+        from bio_diffusion_torch.data.qm9 import load_qm9_datasets
+
+        if dl.force_download:
+            raise RuntimeError("force_download: the port does not download QM9; place the files "
+                               f"under {dl.data_dir}/QM9")
+        return load_qm9_datasets(
+            dl.data_dir, dataset=dl.dataset, remove_h=dl.remove_h, subtract_thermo=dl.subtract_thermo,
+            num_pts={"train": dl.num_train, "valid": dl.num_valid, "test": dl.num_test})
+    raise ValueError(f"unknown dataset {dl.dataset!r}")
+
+
+def build_evd(exp: ExperimentConfig):
+    """The port's EVD with the configured denoiser on the CPU, weights not
+    yet set; ``trainer.precision`` bf16 gives the bf16 network body."""
+    from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
+    from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
+
+    if exp.diffusion_cfg.dynamics_network != "gcpnet":
+        raise NotImplementedError(
+            f"dynamics network {exp.diffusion_cfg.dynamics_network!r} is not ported yet (ROADMAP A13)")
+    compute_dtype = "bfloat16" if exp.trainer.precision in ("bf16", "bfloat16") else None
+    dynamics = GCPNetDynamics(exp.model_cfg, exp.module_cfg, exp.layer_cfg, exp.diffusion_cfg,
+                              exp.dataloader_cfg, compute_dtype=compute_dtype)
+    return EquivariantVariationalDiffusion(dynamics, exp.diffusion_cfg, exp.dataloader_cfg)

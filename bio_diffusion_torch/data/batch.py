@@ -3,14 +3,15 @@
 Copy of ``bio_diffusion_tpu/data/batch.py`` without jax: a
 ``DenseMolBatch`` holds statically shaped padded arrays; collation pads every
 molecule of a batch to one node count (QM9: the dataset's 29, or a bucket).
-The compiled ``native_loader`` collation and the conditioning context of the
-JAX package are not ported yet.
+``DenseDataset`` carries what the QM9 loader and the sampling evaluation
+read.  The compiled ``native_loader`` collation (ROADMAP A7) and the
+conditioning context (A8) wait for their ROADMAP items.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +60,26 @@ class DenseDataset:
 
     def __len__(self) -> int:
         return len(self.data["num_atoms"])
+
+    @property
+    def num_species(self) -> int:
+        return len(self.included_species)
+
+    @property
+    def max_charge(self) -> int:
+        return int(self.included_species.max())
+
+    def property_values(self, key: str) -> np.ndarray:
+        return self.data[key]
+
+    def stats(self) -> Dict[str, Tuple[float, float]]:
+        """(mean, std) of every 1-D float column."""
+        out = {}
+        for key, val in self.data.items():
+            val = np.asarray(val)
+            if val.ndim == 1 and np.issubdtype(val.dtype, np.floating):
+                out[key] = (float(val.mean()), float(val.std()))
+        return out
 
 
 def iterate_dense_batches(

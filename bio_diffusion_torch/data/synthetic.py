@@ -3,11 +3,14 @@
 Copy of ``bio_diffusion_tpu/data/synthetic.py::synthetic_qm9_like``: the same
 seed gives byte-identical arrays.  Random-walk chains with ~1.4 A steps, QM9
 species, sizes 4..29, padded to 29 atoms: QM9's shape, not its chemistry.
+``write_qm9_layout`` writes such molecules as the processed QM9 files the
+loader (``data/qm9.py``) reads, for rehearsals of the data path.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -64,3 +67,36 @@ def synthetic_qm9_like(
     one_hot = (charges[..., None] == QM9_SPECIES[None, None, :]).astype(np.float32)
     data["one_hot"] = one_hot
     return DenseDataset(data, included_species=QM9_SPECIES)
+
+
+# a fixed per-element (H, C, N, O, F) reference table for the *_thermo
+# columns of written files (values in the GDB9 atomref's units and range)
+_FIXTURE_THERMO = {
+    "zpve": {1: 0.0, 6: 0.0, 7: 0.0, 8: 0.0, 9: 0.0},
+    "U0": {1: -0.500273, 6: -37.846772, 7: -54.583861, 8: -75.064579, 9: -99.718730},
+    "U": {1: -0.498857, 6: -37.845355, 7: -54.582445, 8: -75.063162, 9: -99.717314},
+    "H": {1: -0.497912, 6: -37.844411, 7: -54.581501, 8: -75.062219, 9: -99.716370},
+    "G": {1: -0.510927, 6: -37.861317, 7: -54.598897, 8: -75.079532, 9: -99.733544},
+    "Cv": {1: 2.981, 6: 2.981, 7: 2.981, 8: 2.981, 9: 2.981},
+}
+
+
+def write_qm9_layout(data_dir: str, counts: Sequence[int] = (1024, 256, 256), seed: int = 0) -> str:
+    """Write ``<data_dir>/QM9/{train,valid,test}.npz`` in the processed EDM
+    QM9 layout (``num_atoms``, ``charges``, ``positions``, ``index``, the 15
+    QM9 properties, ``omega1`` and the six ``*_thermo`` columns; hydrogens
+    kept, padded to 29 atoms) from ``synthetic_qm9_like`` molecules drawn
+    from ``seed``; returns the QM9 directory."""
+    from bio_diffusion_torch.data.qm9 import QM9_PROPERTY_NAMES, add_thermo_targets
+
+    qm9_dir = os.path.join(data_dir, "QM9")
+    os.makedirs(qm9_dir, exist_ok=True)
+    for i, (split, n) in enumerate(zip(("train", "valid", "test"), counts)):
+        d = synthetic_qm9_like(n, seed=seed + i).data
+        rng = np.random.default_rng(seed + 100 + i)
+        data = {"num_atoms": d["num_atoms"], "charges": d["charges"], "positions": d["positions"],
+                "index": np.arange(1, n + 1, dtype=np.int64)}
+        for name in QM9_PROPERTY_NAMES[1:] + ["omega1"]:
+            data[name] = d[name] if name in d else rng.normal(size=n)
+        np.savez_compressed(os.path.join(qm9_dir, f"{split}.npz"), **add_thermo_targets(data, _FIXTURE_THERMO))
+    return qm9_dir

@@ -1,7 +1,8 @@
 """Host-side sampling drivers: the reverse-diffusion loop, batching, analysis.
 
 Port of ``bio_diffusion_tpu/train/sampling.py`` (``SegmentedSampler``,
-``make_node_mask``, ``sample_molecules``, ``analyze_samples``).  PyTorch runs
+``make_node_mask``, ``sample_molecules``, ``analyze_samples``) with the JAX
+package's signatures; the conditioning context waits for A8.  PyTorch runs
 eagerly, so the sampler is a Python loop over the reverse steps on the EVD's
 device; randomness comes from the ``torch.Generator`` each call is given.
 """
@@ -61,18 +62,30 @@ def sample_molecules(
     nodes_dist: NumNodesDistribution,
     rng: np.random.Generator,
     batch_size: int = 100,
+    pad_to: Optional[int] = None,
     num_timesteps: Optional[int] = None,
     bucket_sizes: Optional[Sequence[int]] = None,
     pad_to_multiple: int = 2,
+    sort_sizes: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Sample in size-sorted batches, each padded to its own bucket ->
-    ``(xh [M, N, .], node_mask [M, N], num_nodes [M])``."""
-    sizes_all = np.sort(nodes_dist.sample(num_samples, rng))[::-1]
+    """Sample in batches -> ``(xh [M, N, .], node_mask [M, N], num_nodes [M])``.
+
+    All sizes are drawn up front; by default they are sorted descending and
+    each batch is padded only to its own bucket (its largest size rounded up
+    to ``pad_to_multiple``, or the ``bucket_sizes`` ladder, never past the
+    dataset's largest molecule).  ``pad_to`` pins one padded size for every
+    batch and keeps the drawn order."""
+    sizes_all = nodes_dist.sample(num_samples, rng)
+    if pad_to is None and sort_sizes:
+        sizes_all = np.sort(sizes_all)[::-1]
     xs, masks, sizes = [], [], []
     for start in range(0, num_samples, batch_size):
         num_nodes = sizes_all[start: start + batch_size]
-        n_pad = select_bucket(int(num_nodes.max()), bucket_sizes, pad_to_multiple)
-        n_pad = min(n_pad, max(int(nodes_dist.max_n), int(num_nodes.max())))
+        if pad_to is not None:
+            n_pad = pad_to
+        else:
+            n_pad = select_bucket(int(num_nodes.max()), bucket_sizes, pad_to_multiple)
+            n_pad = min(n_pad, max(int(nodes_dist.max_n), int(num_nodes.max())))
         node_mask = make_node_mask(num_nodes, n_pad)
         xs.append(sampler.run(node_mask, generator, num_timesteps=num_timesteps))
         masks.append(node_mask)
@@ -86,18 +99,26 @@ def sample_molecules(
             np.concatenate(sizes))
 
 
-def analyze_samples(xh: np.ndarray, node_mask: np.ndarray, dataset_info: Dict[str, Any]
-                    ) -> Dict[str, float]:
-    """Molecule/atom stability and the atom-type KL of sampled molecules."""
+def analyze_samples(xh: np.ndarray, node_mask: np.ndarray, dataset_info: Dict[str, Any],
+                    include_charges: bool = True, molecular_metrics=None) -> Dict[str, float]:
+    """Molecule/atom stability and the atom-type KL of sampled molecules;
+    validity, uniqueness and novelty when an RDKit metrics object
+    (``chem.rdkit_bridge.build_molecular_metrics``) is given.
+    ``include_charges`` is accepted for the JAX package's signature: the
+    metrics read positions and atom types only."""
     dataset_info = ensure_bond_tables(dataset_info)
     k = len(dataset_info["atom_decoder"])
+    x = xh[..., :3]
     atom_types = xh[..., 3: 3 + k].argmax(-1)
-    mol_stable, stable_atoms, num_atoms = batch_molecular_stability(
-        xh[..., :3], atom_types, node_mask, dataset_info
-    )
+    mol_stable, stable_atoms, num_atoms = batch_molecular_stability(x, atom_types, node_mask, dataset_info)
     type_dist = CategoricalDistribution(dataset_info["atom_types"], dataset_info["atom_encoder"])
-    return {
+    metrics = {
         "mol_stable": float(mol_stable.mean()),
         "atm_stable": float(stable_atoms.sum() / max(num_atoms.sum(), 1)),
         "kl_div_atom_types": type_dist.kl_divergence(atom_types[node_mask > 0].astype(int).tolist()),
     }
+    if molecular_metrics is not None:
+        mols = [(x[i][node_mask[i] > 0], atom_types[i][node_mask[i] > 0]) for i in range(len(x))]
+        validity, uniqueness, novelty = molecular_metrics.evaluate(mols)[:3]
+        metrics.update(validity=validity, uniqueness=uniqueness, novelty=novelty)
+    return metrics

@@ -49,16 +49,30 @@
    backward launches per training micro-batch (and 2 x 9 forward launches
    per validation batch).  Times 6 (float32) and 4 (bfloat16) further
    Trainer steps with CUDA events and prints the peak device memory.
-8. Holds the flat-edge GCP2 chain kernel against its plain version at full
+8. Drives the user path from files on disk to evaluated samples, fp32 at
+   full width: writes QM9-layout files (1,024/256/256 molecules with
+   hydrogens, N=29, from a seed) under ``outputs/user_path``; runs
+   ``cli.train.main`` on them (batch 64, 4 train batches, 2 EMA validation
+   batches, a sampling evaluation of 16 molecules at T=1000); restores the
+   checkpoint into zeroed copies and requires every tensor bit-identical to
+   the trainer's; runs ``cli.train.main`` again, which must resume at the
+   saved step and train on; then ``cli.mol_gen_sample.main`` (64 molecules,
+   sizes drawn, T=1000; 64 xyz files whose molecules pass the checks of the
+   serving phase) and ``cli.mol_gen_eval.main`` (64 molecules, one NLL pass
+   over the test split; a finite ``test_nll``) from the checkpoint
+   directory.  Every run's forward and backward launch counts must be
+   exact; prints seconds per reverse step, molecules per second and the
+   Trainer's ms/step on those files.
+9. Holds the flat-edge GCP2 chain kernel against its plain version at full
    QM9 width (G=3, S=256, V=32, H=8, the weights of layer 0 of the bf16
    model), float32 and bfloat16, at E=53,824 (B=64, N=29), E=90,250 (B=250,
    N=19) and a ragged E, then times both at the first two sizes.
-9. Drives the unfused message-passing path
+10. Drives the unfused message-passing path
    (``models.gcpnet.message_passing_unfused``, which runs that kernel)
    against the fused message-layer kernel on the same layer inputs and
    weights at B=64, N=29 (float32 and bfloat16, both timed); the chain
    kernel must have been launched in this phase.
-10. Holds the pass-probe kernel against its plain version for each of its
+11. Holds the pass-probe kernel against its plain version for each of its
    nine ops at k=8, then runs the probe (``cli.bench_passes``) at its
    default shape.
 
@@ -72,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -376,11 +391,11 @@ def check_denoiser(torch):
     """Full-width denoiser, float32: the card (kernel) against the CPU (plain)."""
     import copy
 
-    from bio_diffusion_torch.cli.serve import build_model
+    from bio_diffusion_torch.cli.common import load_model
     from bio_diffusion_torch.ops.geometry import centralize
 
     exp = qm9_experiment("fp32")
-    evd_gpu = build_model(exp, None, torch.device("cuda"), seed=1)
+    evd_gpu = load_model(exp, None, torch.device("cuda"), seed=1)
     evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
     gen = torch.Generator().manual_seed(3)
     b, n = 2, 11
@@ -507,11 +522,11 @@ def check_denoiser_grad(torch):
     kernels) against the CPU (plain versions)."""
     import copy
 
-    from bio_diffusion_torch.cli.serve import build_model
+    from bio_diffusion_torch.cli.common import load_model
     from bio_diffusion_torch.ops.geometry import centralize
 
     exp = qm9_experiment("fp32")
-    evd_gpu = build_model(exp, None, torch.device("cuda"), seed=2)
+    evd_gpu = load_model(exp, None, torch.device("cuda"), seed=2)
     evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
     gen = torch.Generator().manual_seed(4)
     b, n = 2, 11
@@ -556,6 +571,7 @@ def drive_training(torch, precision: str, steps: int, timed_steps: int):
     from bio_diffusion_torch.train.torch_import import init_random_weights
 
     workdir = os.path.join(REPO, "outputs", f"train_smoke_{precision}")
+    shutil.rmtree(workdir, ignore_errors=True)  # a checkpoint there would be resumed
     args = ["experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=synthetic",
             "trainer.check_val_every_n_epoch=1", f"trainer.precision={precision}",
             "--device=cuda", f"--max-steps={steps}", f"--workdir={workdir}"]
@@ -576,8 +592,9 @@ def drive_training(torch, precision: str, steps: int, timed_steps: int):
           f"(need {need_bwd})")
     if counts["message_layer"] != need_fwd or counts["message_layer_bwd"] != need_bwd or st["steps"] != steps:
         raise AssertionError("training did not launch 9 forward and 9 backward kernels per step")
-    train_rows = [r for r in trainer.logger.rows if "train/loss" in r]
-    val_rows = [r for r in trainer.logger.rows if "valid/loss" in r]
+    rows = trainer.loggers.loggers[0].rows
+    train_rows = [r for r in rows if "train/loss" in r]
+    val_rows = [r for r in rows if "valid/loss" in r]
     losses = [r["train/loss"] for r in train_rows]
     if not val_rows or not np.all(np.isfinite(losses + [r["valid/loss"] for r in val_rows])):
         raise AssertionError(f"training or EMA validation loss is not finite: {losses}")
@@ -605,6 +622,164 @@ def drive_training(torch, precision: str, steps: int, timed_steps: int):
     print(f"train {precision}: {ms:.3f} ms/step over {timed_steps} Trainer steps (CUDA events, "
           f"after {steps} warm-up steps), peak device memory {peak:.3f} GiB")
     return counts, ms
+
+
+def restored_equal(torch, trainer):
+    """``restore_checkpoint`` of the newest checkpoint into zeroed copies of
+    the trainer's models and state: every tensor bit-identical to the
+    trainer's -> the number of tensors compared."""
+    import copy
+
+    from bio_diffusion_torch.train import checkpoints as ck
+    from bio_diffusion_torch.train.state import TrainState
+
+    evd, ema = copy.deepcopy(trainer.evd), copy.deepcopy(trainer.evd_ema)
+    state = TrainState(list(evd.parameters()), list(ema.parameters()), trainer.exp.optimizer)
+    with torch.no_grad():
+        for t in state.params + state.ema_params + [state.gradnorm_buffer]:
+            t.zero_()
+    step = ck.restore_checkpoint(trainer.ckpt_dir, evd, ema, state)
+    ours, ref = trainer.state, state
+    if step != ours.count or (ref.count, ref.gradnorm_count) != (ours.count, ours.gradnorm_count):
+        raise AssertionError(f"restored step {step}/{ref.count} differs from the trainer's {ours.count}")
+    pairs = [(a, b) for key in ("params", "ema_params", "mu", "nu", "nu_max")
+             for a, b in zip(getattr(ref, key), getattr(ours, key))]
+    pairs.append((ref.gradnorm_buffer, ours.gradnorm_buffer))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("a restored tensor differs from the trainer's")
+    return len(pairs)
+
+
+def xyz_molecules(out_dir, info):
+    """The molecules of the xyz files under ``out_dir`` as the server's
+    molecule records (atomic numbers as charges)."""
+    import numpy as np
+
+    from bio_diffusion_torch.chem.constants import CHARGE_DICT
+    from bio_diffusion_torch.chem.molecule import load_molecule_xyz
+
+    mols = []
+    for root, _, files in sorted(os.walk(out_dir)):
+        for name in sorted(f for f in files if f.endswith(".xyz")):
+            pos, one_hot = load_molecule_xyz(os.path.join(root, name), info)
+            atoms = [info["atom_decoder"][int(k)] for k in one_hot.argmax(-1)]
+            mols.append({"positions": pos.astype(np.float64).tolist(), "atoms": atoms, "size": len(atoms),
+                         "charges": [CHARGE_DICT[a] for a in atoms]})
+    return mols
+
+
+def drive_user_path(torch):
+    """The QM9 user path from files on disk to evaluated samples, at full
+    width in float32 (B=64): QM9-layout files written from a seed,
+    ``cli.train.main`` (4 train batches an epoch, 2 EMA validation batches,
+    one sampling evaluation of 16 molecules at T=1000), the checkpoint
+    restored bit-identically, a second ``cli.train.main`` that resumes at the
+    saved step, then ``cli.mol_gen_sample.main`` and ``cli.mol_gen_eval.main``
+    from the checkpoint directory (64 molecules, sizes drawn, T=1000; one NLL
+    pass over the test split).  Every launch count is held exactly ->
+    (launches by path of the forward and backward kernels, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_eval, mol_gen_sample, train
+    from bio_diffusion_torch.data.dataset_info import get_dataset_info
+    from bio_diffusion_torch.data.synthetic import write_qm9_layout
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train import checkpoints as ck
+
+    root = os.path.join(REPO, "outputs", "user_path")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir, workdir = os.path.join(root, "data"), os.path.join(root, "train")
+    t0 = time.perf_counter()
+    write_qm9_layout(data_dir, counts=(1024, 256, 256), seed=0)
+    print(f"user path: QM9-layout files (1,024/256/256 molecules, N=29 with H) written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    args = ["experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=QM9",
+            f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+            "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1", "trainer.limit_train_batches=4",
+            "trainer.limit_val_batches=2", "--device=cuda", f"--workdir={workdir}", "--max-epochs=1"]
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+
+    def run(fn):
+        ml.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, dict(ml.launch_counts)
+
+    trainer, sec, counts = run(lambda: train.main(args + [
+        "model.diffusion_cfg.sample_during_training=true", "model.diffusion_cfg.eval_epochs=1",
+        "model.diffusion_cfg.num_eval_samples=16", "model.diffusion_cfg.eval_batch_size=16"]))
+    layers, T = trainer.exp.model_cfg.num_encoder_layers, trainer.exp.diffusion_cfg.num_timesteps
+    st = trainer.stats
+    need = {"train_qm9": layers * (st["micro_batches"] + 2 * st["eval_batches"]),
+            "train_sampling_eval": layers * (T + 1) * st["sample_batches"]}
+    print(f"user path train: {st['steps']} steps, {st['eval_batches']} EMA validation batches, "
+          f"{st['sample_batches']} sampling batch(es) of 16 at T={T}, {sec:.3f} s with set-up; launches "
+          f"fwd={counts['message_layer']} (need {sum(need.values())}), bwd={counts['message_layer_bwd']} "
+          f"(need {layers * st['micro_batches']})")
+    if (st["steps"], st["sample_batches"]) != (4, 1) or counts["message_layer"] != sum(need.values()) \
+            or counts["message_layer_bwd"] != layers * st["micro_batches"]:
+        raise AssertionError("the QM9 training run's launch counts are not exact")
+    out["fwd"].update(need)
+    out["bwd"]["train_qm9"] = counts["message_layer_bwd"]
+    val = [r for r in trainer.loggers.loggers[0].rows if "val/mol_stable" in r]
+    if not val or not np.isfinite(val[-1]["val/kl_div_atom_types"]):
+        raise AssertionError("the sampling evaluation logged no val/ metrics")
+    print(f"user path sampling eval (printed, not judged): { {k: v for k, v in val[-1].items() if k.startswith('val/')} }")
+    step = ck.latest_step(trainer.ckpt_dir)
+    if step != trainer.state.count:
+        raise AssertionError(f"newest checkpoint step {step}, trainer at {trainer.state.count}")
+    print(f"user path checkpoint {ck.checkpoint_path(trainer.ckpt_dir, step)}: restore_checkpoint gives "
+          f"{restored_equal(torch, trainer)} tensors bit-identical to the trainer's: ok")
+
+    resumed, sec, counts = run(lambda: train.main(args + ["model.diffusion_cfg.sample_during_training=false"]))
+    st = resumed.stats
+    if resumed.start_step != step or resumed.state.count != step + st["steps"] or st["steps"] < 1:
+        raise AssertionError(f"resume started at {resumed.start_step} (saved {step}), ran to {resumed.state.count}")
+    if counts["message_layer"] != layers * (st["micro_batches"] + 2 * st["eval_batches"]) \
+            or counts["message_layer_bwd"] != layers * st["micro_batches"]:
+        raise AssertionError("the resumed run's launch counts are not exact")
+    out["fwd"]["train_qm9"] += counts["message_layer"]
+    out["bwd"]["train_qm9"] += counts["message_layer_bwd"]
+    print(f"user path resume: started at step {resumed.start_step}, ran to {resumed.state.count} in {sec:.3f} s")
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    resumed.train_epoch(epoch=1)
+    end_ev.record()
+    torch.cuda.synchronize()
+    numbers["train_ms_per_step"] = start_ev.elapsed_time(end_ev) / 4
+    print(f"user path train: {numbers['train_ms_per_step']:.3f} ms/step over 4 further Trainer steps on the "
+          f"QM9-layout files (fp32, B=64, N=29, CUDA events)")
+
+    info = get_dataset_info("QM9")
+    cli = [f"ckpt_path={trainer.ckpt_dir}", "device=cuda", "precision=fp32", "num_samples=64",
+           "sampling_batch_size=64"]
+    metrics, sec, counts = run(lambda: mol_gen_sample.main(cli + [f"output_dir={root}/samples"]))
+    mols = xyz_molecules(os.path.join(root, "samples"), info)
+    check_molecules(mols, 64)
+    if counts["message_layer"] != layers * (T + 1):
+        raise AssertionError(f"mol_gen_sample launched {counts['message_layer']}, need {layers * (T + 1)}")
+    out["fwd"]["sample_cli"] = counts["message_layer"]
+    numbers["sample_s_per_step"], numbers["sample_mol_per_s"] = sec / T, 64 / sec
+    print(f"user path mol_gen_sample: 64 xyz files (sizes {sorted(m['size'] for m in mols)}), molecules pass the "
+          f"checks; {sec:.3f} s for the CLI call with set-up = {sec / T:.5f} s per reverse step, "
+          f"{64 / sec:.3f} molecules/s; launches {counts['message_layer']}; metrics (printed, not judged) {metrics}")
+
+    metrics, sec, counts = run(lambda: mol_gen_eval.main(cli + [
+        "num_test_passes=1", f"datamodule.dataloader_cfg.data_dir={data_dir}", f"output_dir={root}/eval"]))
+    with open(os.path.join(root, "eval", "eval_results.json")) as f:
+        saved = json.load(f)
+    test_batches = -(-256 // 64)
+    if not np.isfinite(saved.get("test_nll", float("nan"))) or saved != metrics:
+        raise AssertionError(f"eval_results.json has no finite test_nll: {saved}")
+    if counts["message_layer"] != layers * (T + 1 + 2 * test_batches):
+        raise AssertionError(f"mol_gen_eval launched {counts['message_layer']}, "
+                             f"need {layers * (T + 1 + 2 * test_batches)}")
+    out["fwd"]["eval_cli"] = counts["message_layer"]
+    numbers["eval_s"] = sec
+    print(f"user path mol_gen_eval: {sec:.3f} s, test_nll {saved['test_nll']:.6g} (finite), launches "
+          f"{counts['message_layer']}; metrics (printed, not judged) {saved}")
+    return out, numbers
 
 
 def check_molecules(mols, num_samples):
@@ -894,7 +1069,7 @@ def main() -> int:
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    from bio_diffusion_torch.cli.serve import build_model
+    from bio_diffusion_torch.cli.common import load_model
     from bio_diffusion_torch.ops import build
 
     sources = ("message_layer", "message_layer_bwd", "gcp2_chain", "elementwise_passes")
@@ -906,7 +1081,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  nvcc {name}: {line.strip()}")
 
-    evd_kernels = build_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
+    evd_kernels = load_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
     occupancy = kernel_occupancy(torch, evd_kernels)
     occupancy_bwd = bwd_occupancy(torch, evd_kernels)
     kernel = check_kernel(torch, evd_kernels)
@@ -925,6 +1100,9 @@ def main() -> int:
               f"= {100 * share:.1f}% of the step")
     train_fwd = train_counts["message_layer"] + train_counts_bf16["message_layer"]
     train_bwd = train_counts["message_layer_bwd"] + train_counts_bf16["message_layer_bwd"]
+    t0 = time.perf_counter()
+    user_launches, user_numbers = drive_user_path(torch)
+    print(f"user path phase: {time.perf_counter() - t0:.3f} s")
     passes_err, passes_launches, probe = check_passes(torch)
 
     # the chain row: bf16 at the training shape's E, float32 and the serving
@@ -940,8 +1118,8 @@ def main() -> int:
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
-        "launches": serve_launches + train_fwd,
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd},
+        "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values()),
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"]},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -954,14 +1132,15 @@ def main() -> int:
         "ms_b64": kernel_bwd["fwd_ms_b64"],
         "bound_ms_b64": kernel_bwd["fwd_bound_ms_b64"],
         "reverse_step_ms_b250": step_ms_b250,
+        "user_path": user_numbers,
         "smem_bytes_blocks_per_sm": occupancy["message_layer"],
     }, {
         "name": "message_layer_bwd",
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
-        "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd},
+        "launches": train_bwd + sum(user_launches["bwd"].values()),
+        "launches_by_path": {"train": train_bwd, **user_launches["bwd"]},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],
         "max_abs_err_bf16": kernel_bwd["max_abs_err_bf16"],
