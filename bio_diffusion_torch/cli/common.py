@@ -7,7 +7,6 @@ package waits for multi-GPU support (ROADMAP A12).
 
 from __future__ import annotations
 
-import inspect
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -16,7 +15,7 @@ import torch
 from bio_diffusion_torch.config.build import ExperimentConfig, build_evd, get_dataset_info_for
 from bio_diffusion_torch.config.loader import default_config_dir, load_config
 from bio_diffusion_torch.models.distributions import NumNodesDistribution
-from bio_diffusion_torch.train.checkpoints import load_checkpoint, restore_params
+from bio_diffusion_torch.train.checkpoints import load_checkpoint
 from bio_diffusion_torch.train.torch_import import (
     init_random_weights,
     load_reference_checkpoint,
@@ -27,11 +26,12 @@ from bio_diffusion_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 
-def parse_cli(argv: List[str], config_name: str) -> Tuple[Dict[str, Any], Dict[str, str]]:
+def parse_cli(argv: List[str], config_name: str, usage: Optional[str] = None
+              ) -> Tuple[Dict[str, Any], Dict[str, str]]:
     """Split args into ``key=value`` config overrides and ``--flags``; compose
     the config (``--config-dir``, ``--config-name`` pick another one).
 
-    ``--help`` prints the calling entry point's docstring and the composed
+    ``--help`` prints ``usage`` (the entry point's docstring) and the composed
     default config (every key is overridable as ``key=value``)."""
     config_dir = default_config_dir()
     overrides, flags = [], {}
@@ -46,21 +46,16 @@ def parse_cli(argv: List[str], config_name: str) -> Tuple[Dict[str, Any], Dict[s
         else:
             overrides.append(arg)
     if "help" in flags or "-h" in overrides:
-        _print_help(config_dir, config_name)
+        _print_help(config_dir, config_name, usage)
         raise SystemExit(0)
     return load_config(config_dir, config_name, overrides), flags
 
 
-def _print_help(config_dir: str, config_name: str) -> None:
+def _print_help(config_dir: str, config_name: str, usage: Optional[str]) -> None:
     import yaml
 
-    # the calling entry point's docstring is the usage text
-    for frame in inspect.stack()[2:]:
-        doc = frame.frame.f_globals.get("__doc__")
-        mod = frame.frame.f_globals.get("__name__", "")
-        if doc and (mod == "__main__" or mod.startswith("bio_diffusion_torch.cli")):
-            print(doc.strip())
-            break
+    if usage:
+        print(usage.strip())
     print(f"\nDefault config ({config_name}.yaml; any key is a 'key=value' override,"
           f"\ngroups like datamodule/model/logger/experiment re-select group files):\n")
     print(yaml.safe_dump(load_config(config_dir, config_name, []), default_flow_style=False, sort_keys=False))
@@ -94,11 +89,11 @@ def load_model(exp: ExperimentConfig, ckpt_path: Optional[str], device, prefer_e
     """The port's EVD on ``device`` in eval mode, weights from any supported
     checkpoint form:
 
-      * a reference PyTorch-Lightning ``.ckpt``/``.pt``/``.pth`` (also a
-        port ``step_<n>.pt`` file: its raw weights)
       * a port checkpoint directory written by the Trainer (the newest
         step's EMA weights, or with ``prefer_ema=False`` its raw weights)
-      * a params file written by ``train.checkpoints.save_params``
+      * any file in the reference Lightning layout: a reference
+        ``.ckpt``/``.pt``/``.pth``, a port ``step_<n>.pt`` (its raw weights)
+        or a params file written by ``train.checkpoints.save_params``
       * None: weights drawn from ``seed`` (with a warning)
     """
     evd = build_evd(exp)
@@ -110,12 +105,9 @@ def load_model(exp: ExperimentConfig, ckpt_path: Optional[str], device, prefer_e
         load_reference_state_dict(evd, payload["ema_state_dict" if prefer_ema else "state_dict"])
         log.info("Restored %s weights of checkpoint step %d from %s", "EMA" if prefer_ema else "raw",
                  payload["step"], ckpt_path)
-    elif str(ckpt_path).endswith((".ckpt", ".pt", ".pth")):
-        log.info("Importing reference torch checkpoint %s", ckpt_path)
-        load_reference_checkpoint(evd, str(ckpt_path))
     else:
-        log.info("Restoring params from %s", ckpt_path)
-        restore_params(str(ckpt_path), evd)
+        log.info("Importing reference-layout torch checkpoint %s", ckpt_path)
+        load_reference_checkpoint(evd, str(ckpt_path))
     return evd.to(device).eval()
 
 

@@ -73,7 +73,7 @@ def nll_passes(cfg, exp, evd, device, nodes_dist, rng):
 
 
 def main(argv=None):
-    cfg, _ = parse_cli(list(sys.argv[1:] if argv is None else argv), "mol_gen_eval")
+    cfg, _ = parse_cli(list(sys.argv[1:] if argv is None else argv), "mol_gen_eval", __doc__)
     exp = build_experiment(with_precision(cfg, precision_of(cfg)))
     device = device_of(cfg)
     dataset_info = get_dataset_info_for(exp)

@@ -51,7 +51,7 @@ UNPORTED_MODES = {"inpainting": "A10", "chain": "A4", "pocket": "A10"}
 
 
 def main(argv=None):
-    cfg, _ = parse_cli(list(sys.argv[1:] if argv is None else argv), "mol_gen_sample")
+    cfg, _ = parse_cli(list(sys.argv[1:] if argv is None else argv), "mol_gen_sample", __doc__)
     ddpm_mode = cfg.get("ddpm_mode", "unconditional")
     if ddpm_mode in UNPORTED_MODES:
         raise NotImplementedError(f"ddpm_mode={ddpm_mode} is not ported yet (ROADMAP {UNPORTED_MODES[ddpm_mode]})")

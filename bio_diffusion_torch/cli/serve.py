@@ -114,7 +114,7 @@ def make_handler(server: MoleculeServer):
 
 
 def main(argv=None):
-    cfg, flags = parse_cli(list(sys.argv[1:] if argv is None else argv), "serve")
+    cfg, flags = parse_cli(list(sys.argv[1:] if argv is None else argv), "serve", __doc__)
     server = build_server(cfg)
     if bool(cfg.get("warmup", True)):
         server.warmup(cfg.get("warmup_buckets"))

@@ -35,7 +35,7 @@ log = get_logger(__name__)
 
 
 def main(argv=None) -> Trainer:
-    cfg, flags = parse_cli(list(sys.argv[1:] if argv is None else argv), "train")
+    cfg, flags = parse_cli(list(sys.argv[1:] if argv is None else argv), "train", __doc__)
     unknown = set(flags) - {"max-steps", "max-epochs", "workdir", "device", "config-dir", "config-name"}
     if unknown:
         raise SystemExit(f"unknown flags: {sorted(unknown)}")

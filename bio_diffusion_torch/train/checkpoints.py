@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from bio_diffusion_torch.train.state import TrainState
-from bio_diffusion_torch.train.torch_import import load_reference_state_dict
+from bio_diffusion_torch.train.torch_import import load_reference_checkpoint, load_reference_state_dict
 
 PREFIX = "ddpm."
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
@@ -160,4 +160,5 @@ def save_params(path: str, module: nn.Module) -> None:
 
 
 def restore_params(path: str, module: nn.Module) -> None:
-    load_reference_state_dict(module, torch.load(path, map_location="cpu", weights_only=True)["state_dict"])
+    """Load a ``save_params`` file: it is a reference ``.ckpt`` in all but name."""
+    load_reference_checkpoint(module, path)

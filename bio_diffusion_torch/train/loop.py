@@ -14,7 +14,6 @@ sampling evaluation writes xyz files.
 from __future__ import annotations
 
 import copy
-import math
 import os
 import time
 from typing import Any, Dict, Optional
@@ -243,10 +242,10 @@ class Trainer:
         dc = exp.diffusion_cfg
         num_samples = num_samples or dc.num_eval_samples
         generator = torch.Generator(device=self.device).manual_seed(exp.seed + 3 + epoch)
-        xh, node_mask, _ = sample_molecules(
-            SegmentedSampler(self.evd_ema, self.device), generator, num_samples, self.nodes_dist, self.rng,
-            batch_size=dc.eval_batch_size)
-        self.stats["sample_batches"] += math.ceil(num_samples / dc.eval_batch_size)
+        sampler = SegmentedSampler(self.evd_ema, self.device)
+        xh, node_mask, _ = sample_molecules(sampler, generator, num_samples, self.nodes_dist, self.rng,
+                                            batch_size=dc.eval_batch_size)
+        self.stats["sample_batches"] += sampler.runs
         metrics = analyze_samples(xh, node_mask, self.dataset_info,
                                   include_charges=exp.dataloader_cfg.include_charges,
                                   molecular_metrics=self._get_molecular_metrics())

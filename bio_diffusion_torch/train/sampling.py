@@ -19,11 +19,13 @@ from bio_diffusion_torch.models.distributions import CategoricalDistribution, Nu
 
 
 class SegmentedSampler:
-    """Reverse diffusion for one EVD: prior draw, T ancestral steps, decode."""
+    """Reverse diffusion for one EVD: prior draw, T ancestral steps, decode.
+    ``runs`` counts the batches it has sampled."""
 
     def __init__(self, evd, device):
         self.evd = evd
         self.device = torch.device(device)
+        self.runs = 0
 
     @torch.inference_mode()
     def run(self, node_mask, generator: torch.Generator, num_timesteps: Optional[int] = None,
@@ -37,6 +39,7 @@ class SegmentedSampler:
         z = evd.reverse_segment(z, s_values / T_s, (s_values + 1) / T_s, node_mask,
                                 generator, fix_noise)
         xh = evd.decode_sample(z, node_mask, generator, fix_noise)
+        self.runs += 1
         return xh.cpu().numpy()
 
 

@@ -84,6 +84,7 @@ the exit code is non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -668,6 +669,30 @@ def xyz_molecules(out_dir, info):
     return mols
 
 
+@contextlib.contextmanager
+def spy(torch, cls, name):
+    """Wrap ``cls.<name>`` for the block: each call's host seconds (the card
+    synchronized before and after) and its forward-kernel launches are
+    appended to the list it yields."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    orig, calls = getattr(cls, name), []
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        before, t0 = ml.launch_counts["message_layer"], time.perf_counter()
+        result = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append({"s": time.perf_counter() - t0, "launches": ml.launch_counts["message_layer"] - before})
+        return result
+
+    setattr(cls, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
+
+
 def drive_user_path(torch):
     """The QM9 user path from files on disk to evaluated samples, at full
     width in float32 (B=64): QM9-layout files written from a seed,
@@ -676,8 +701,10 @@ def drive_user_path(torch):
     restored bit-identically, a second ``cli.train.main`` that resumes at the
     saved step, then ``cli.mol_gen_sample.main`` and ``cli.mol_gen_eval.main``
     from the checkpoint directory (64 molecules, sizes drawn, T=1000; one NLL
-    pass over the test split).  Every launch count is held exactly ->
-    (launches by path of the forward and backward kernels, numbers)."""
+    pass over the test split).  Every launch count is read around the call
+    that makes it (the sampling evaluation's and each sampler batch's apart)
+    and held exactly against its formula -> (launches by path of the forward
+    and backward kernels, numbers)."""
     import numpy as np
 
     from bio_diffusion_torch.cli import mol_gen_eval, mol_gen_sample, train
@@ -685,6 +712,8 @@ def drive_user_path(torch):
     from bio_diffusion_torch.data.synthetic import write_qm9_layout
     from bio_diffusion_torch.ops import message_layer as ml
     from bio_diffusion_torch.train import checkpoints as ck
+    from bio_diffusion_torch.train.loop import Trainer
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
 
     root = os.path.join(REPO, "outputs", "user_path")
     shutil.rmtree(root, ignore_errors=True)
@@ -706,21 +735,26 @@ def drive_user_path(torch):
         torch.cuda.synchronize()
         return result, time.perf_counter() - t0, dict(ml.launch_counts)
 
-    trainer, sec, counts = run(lambda: train.main(args + [
-        "model.diffusion_cfg.sample_during_training=true", "model.diffusion_cfg.eval_epochs=1",
-        "model.diffusion_cfg.num_eval_samples=16", "model.diffusion_cfg.eval_batch_size=16"]))
+    with spy(torch, Trainer, "evaluate_sampling") as evals, spy(torch, SegmentedSampler, "run") as batches:
+        trainer, sec, counts = run(lambda: train.main(args + [
+            "model.diffusion_cfg.sample_during_training=true", "model.diffusion_cfg.eval_epochs=1",
+            "model.diffusion_cfg.num_eval_samples=16", "model.diffusion_cfg.eval_batch_size=16"]))
     layers, T = trainer.exp.model_cfg.num_encoder_layers, trainer.exp.diffusion_cfg.num_timesteps
     st = trainer.stats
+    eval_launches = sum(c["launches"] for c in evals)
+    measured = {"train_qm9": counts["message_layer"] - eval_launches, "train_sampling_eval": eval_launches}
     need = {"train_qm9": layers * (st["micro_batches"] + 2 * st["eval_batches"]),
-            "train_sampling_eval": layers * (T + 1) * st["sample_batches"]}
+            "train_sampling_eval": layers * (T + 1) * len(batches)}
     print(f"user path train: {st['steps']} steps, {st['eval_batches']} EMA validation batches, "
-          f"{st['sample_batches']} sampling batch(es) of 16 at T={T}, {sec:.3f} s with set-up; launches "
-          f"fwd={counts['message_layer']} (need {sum(need.values())}), bwd={counts['message_layer_bwd']} "
-          f"(need {layers * st['micro_batches']})")
-    if (st["steps"], st["sample_batches"]) != (4, 1) or counts["message_layer"] != sum(need.values()) \
+          f"{len(evals)} sampling evaluation(s) of {len(batches)} sampler batch(es) of 16 at T={T}, "
+          f"{sec:.3f} s with set-up; launches fwd train {measured['train_qm9']} (need {need['train_qm9']}), "
+          f"sampling eval {measured['train_sampling_eval']} (need {need['train_sampling_eval']}), "
+          f"bwd={counts['message_layer_bwd']} (need {layers * st['micro_batches']})")
+    if (st["steps"], len(evals), len(batches), st["sample_batches"]) != (4, 1, 1, 1) or measured != need \
+            or any(c["launches"] != layers * (T + 1) for c in batches) \
             or counts["message_layer_bwd"] != layers * st["micro_batches"]:
         raise AssertionError("the QM9 training run's launch counts are not exact")
-    out["fwd"].update(need)
+    out["fwd"].update(measured)
     out["bwd"]["train_qm9"] = counts["message_layer_bwd"]
     val = [r for r in trainer.loggers.loggers[0].rows if "val/mol_stable" in r]
     if not val or not np.isfinite(val[-1]["val/kl_div_atom_types"]):
@@ -754,27 +788,36 @@ def drive_user_path(torch):
     info = get_dataset_info("QM9")
     cli = [f"ckpt_path={trainer.ckpt_dir}", "device=cuda", "precision=fp32", "num_samples=64",
            "sampling_batch_size=64"]
-    metrics, sec, counts = run(lambda: mol_gen_sample.main(cli + [f"output_dir={root}/samples"]))
+    with spy(torch, SegmentedSampler, "run") as batches:
+        metrics, sec, counts = run(lambda: mol_gen_sample.main(cli + [f"output_dir={root}/samples"]))
     mols = xyz_molecules(os.path.join(root, "samples"), info)
     check_molecules(mols, 64)
-    if counts["message_layer"] != layers * (T + 1):
-        raise AssertionError(f"mol_gen_sample launched {counts['message_layer']}, need {layers * (T + 1)}")
+    if len(batches) != 1 or counts["message_layer"] != layers * (T + 1) \
+            or batches[0]["launches"] != counts["message_layer"]:
+        raise AssertionError(f"mol_gen_sample launched {counts['message_layer']} in {len(batches)} sampler "
+                             f"batch(es), need {layers * (T + 1)} in one")
     out["fwd"]["sample_cli"] = counts["message_layer"]
-    numbers["sample_s_per_step"], numbers["sample_mol_per_s"] = sec / T, 64 / sec
+    loop_s = batches[0]["s"]
+    numbers.update(sample_s_per_step=loop_s / T, sample_mol_per_s=64 / loop_s, sample_cli_s=sec)
     print(f"user path mol_gen_sample: 64 xyz files (sizes {sorted(m['size'] for m in mols)}), molecules pass the "
-          f"checks; {sec:.3f} s for the CLI call with set-up = {sec / T:.5f} s per reverse step, "
-          f"{64 / sec:.3f} molecules/s; launches {counts['message_layer']}; metrics (printed, not judged) {metrics}")
+          f"checks; the sampler's batch of 64 (prior, T={T} reverse steps, decode) took {loop_s:.3f} s = "
+          f"{loop_s / T:.6f} s per reverse step, {64 / loop_s:.3f} molecules/s; the CLI call {sec:.3f} s with "
+          f"set-up; launches {counts['message_layer']}; metrics (printed, not judged) {metrics}")
 
-    metrics, sec, counts = run(lambda: mol_gen_eval.main(cli + [
-        "num_test_passes=1", f"datamodule.dataloader_cfg.data_dir={data_dir}", f"output_dir={root}/eval"]))
+    with spy(torch, SegmentedSampler, "run") as batches:
+        metrics, sec, counts = run(lambda: mol_gen_eval.main(cli + [
+            "num_test_passes=1", f"datamodule.dataloader_cfg.data_dir={data_dir}", f"output_dir={root}/eval"]))
     with open(os.path.join(root, "eval", "eval_results.json")) as f:
         saved = json.load(f)
     test_batches = -(-256 // 64)
     if not np.isfinite(saved.get("test_nll", float("nan"))) or saved != metrics:
         raise AssertionError(f"eval_results.json has no finite test_nll: {saved}")
-    if counts["message_layer"] != layers * (T + 1 + 2 * test_batches):
-        raise AssertionError(f"mol_gen_eval launched {counts['message_layer']}, "
-                             f"need {layers * (T + 1 + 2 * test_batches)}")
+    sampled = sum(c["launches"] for c in batches)
+    if len(batches) != 1 or sampled != layers * (T + 1) \
+            or counts["message_layer"] - sampled != layers * 2 * test_batches:
+        raise AssertionError(f"mol_gen_eval launched {sampled} in {len(batches)} sampler batch(es) (need "
+                             f"{layers * (T + 1)} in one) and {counts['message_layer'] - sampled} for the NLL "
+                             f"(need {layers * 2 * test_batches})")
     out["fwd"]["eval_cli"] = counts["message_layer"]
     numbers["eval_s"] = sec
     print(f"user path mol_gen_eval: {sec:.3f} s, test_nll {saved['test_nll']:.6g} (finite), launches "

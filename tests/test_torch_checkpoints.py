@@ -193,3 +193,6 @@ def test_load_model_matches_jax_and_reads_port_checkpoints(tmp_path, monkeypatch
     ck.save_params(params_file, trainer.evd_ema)
     loaded = load_model(trainer.exp, params_file, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(loaded.parameters(), trainer.evd_ema.parameters()))
+    raw = load_model(trainer.exp, step_file, "cpu")
+    ck.restore_params(params_file, raw)  # the raw weights overwritten by the EMA's
+    assert all(torch.equal(a, b) for a, b in zip(raw.parameters(), trainer.evd_ema.parameters()))

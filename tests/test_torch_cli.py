@@ -14,6 +14,7 @@ and ``cli.serve`` from the checkpoint directory.
 * Trainer behaviour as the JAX package's tests have it: early stopping after
   ``patience`` checks, the halt file, the sampling evaluation's ``val/``
   metrics and xyz files.
+* ``--help`` prints each entry point's docstring and default config.
 * The CLIs refuse ``device=cuda`` without a card; importing them loads
   nothing of jax or of the JAX package.
 """
@@ -282,6 +283,19 @@ def test_debug_presets(tmp_path, preset, steps, eval_batches, checkpoints):
     assert os.path.isdir(trainer.ckpt_dir) == checkpoints
     if preset == "overfit":
         assert len(trainer._overfit_cache) == 3
+
+
+@pytest.mark.parametrize("cli", ["train", "mol_gen_sample", "mol_gen_eval", "serve"])
+def test_cli_help_prints_its_usage(cli, capsys):
+    """``--help`` prints the entry point's own docstring, then its default config."""
+    import importlib
+
+    module = importlib.import_module(f"bio_diffusion_torch.cli.{cli}")
+    with pytest.raises(SystemExit) as exit_info:
+        module.main(["--help"])
+    out = capsys.readouterr().out
+    assert exit_info.value.code == 0
+    assert out.startswith(module.__doc__.strip()) and f"Default config ({cli}.yaml" in out
 
 
 @pytest.mark.parametrize("cli", ["mol_gen_sample", "mol_gen_eval"])
