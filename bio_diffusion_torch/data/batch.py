@@ -4,8 +4,9 @@ Copy of ``bio_diffusion_tpu/data/batch.py`` without jax: a
 ``DenseMolBatch`` holds statically shaped padded arrays; collation pads every
 molecule of a batch to one node count (QM9: the dataset's 29, or a bucket).
 ``DenseDataset`` carries what the QM9 loader and the sampling evaluation
-read.  The compiled ``native_loader`` collation (ROADMAP A7) and the
-conditioning context (A8) wait for their ROADMAP items.
+read.  A batch of a property-conditioned model carries its context: the
+normalized property values of each molecule broadcast to its nodes.  The
+compiled ``native_loader`` collation (ROADMAP A7) is not ported.
 """
 
 from __future__ import annotations
@@ -21,16 +22,20 @@ import torch
 class DenseMolBatch:
     """Statically shaped molecule batch: ``x [B, N, 3]`` positions (padded
     rows 0), ``one_hot [B, N, K]`` atom types, ``charges [B, N, 1]`` atomic
-    numbers, ``node_mask [B, N]`` 0/1; numpy arrays or torch tensors."""
+    numbers, ``node_mask [B, N]`` 0/1, ``context [B, N, C]`` per-node
+    conditioning features (padded rows 0) or None; numpy arrays or torch
+    tensors."""
 
     x: object
     one_hot: object
     charges: object
     node_mask: object
+    context: object = None
 
     def to(self, device) -> "DenseMolBatch":
-        """float32 torch tensors on ``device``."""
-        return DenseMolBatch(*(torch.as_tensor(getattr(self, f.name), dtype=torch.float32).to(device)
+        """float32 torch tensors on ``device`` (a None context stays None)."""
+        return DenseMolBatch(*(None if getattr(self, f.name) is None
+                               else torch.as_tensor(getattr(self, f.name), dtype=torch.float32).to(device)
                                for f in dataclasses.fields(self)))
 
 
@@ -48,6 +53,14 @@ def select_bucket(max_nodes: int, bucket_sizes: Optional[Sequence[int]], pad_to_
                 return b
         return max(bucket_sizes)
     return round_up(max_nodes, pad_to_multiple)
+
+
+def broadcast_context(context: np.ndarray, node_mask: np.ndarray) -> np.ndarray:
+    """Per-molecule values ``[B, C]`` -> per-node ``[B, N, C]``, padded rows 0."""
+    context = np.asarray(context, dtype=np.float32)
+    b, n = node_mask.shape
+    out = np.broadcast_to(context[:, None, :], (b, n, context.shape[-1])).copy()
+    return out * np.asarray(node_mask, dtype=np.float32)[..., None]
 
 
 class DenseDataset:
@@ -91,9 +104,15 @@ def iterate_dense_batches(
     pad_to: Optional[int] = None,
     pad_to_multiple: int = 1,
     bucket_sizes: Optional[Sequence[int]] = None,
+    conditioning: Sequence[str] = (),
+    property_norms: Optional[Dict[str, Dict[str, float]]] = None,
 ) -> Iterator[DenseMolBatch]:
     """Yield numpy ``DenseMolBatch``es from a ``DenseDataset`` (shuffled by
-    ``rng`` when ``shuffle``), each padded to ``pad_to`` or to its bucket."""
+    ``rng`` when ``shuffle``), each padded to ``pad_to`` or to its bucket.
+    With ``conditioning`` (property names), each batch carries the context
+    ``(value - mean) / mad`` of those properties (``property_norms``)."""
+    if conditioning and property_norms is None:
+        raise ValueError("conditioning requires property_norms")
     m = len(dataset)
     idx = np.arange(m)
     if shuffle:
@@ -122,4 +141,9 @@ def iterate_dense_batches(
         mask[:, :src_n] = (charges[sel][:, :src_n] > 0).astype(np.float32)
         x *= mask[..., None]  # missing nodes carry no geometry
         oh *= mask[..., None]
-        yield DenseMolBatch(x=x, one_hot=oh, charges=ch, node_mask=mask)
+        ctx = None
+        if conditioning:
+            cols = [(dataset.data[p][sel].astype(np.float32) - property_norms[p]["mean"])
+                    / property_norms[p]["mad"] for p in conditioning]
+            ctx = broadcast_context(np.stack(cols, axis=-1), mask)
+        yield DenseMolBatch(x=x, one_hot=oh, charges=ch, node_mask=mask, context=ctx)

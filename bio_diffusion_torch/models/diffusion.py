@@ -3,8 +3,11 @@
 Port of ``bio_diffusion_tpu/models/diffusion.py``: the predefined gamma
 table, the sigma/alpha algebra, CoM-free noise, the loss terms (L2 and VLB,
 KL prior, the L0 likelihoods, the two-pass L0 estimate for evaluation) and
-``assemble_nll``, one ancestral reverse step, the final decode and the
-reverse loop.  Every function that draws takes an explicit
+``assemble_nll``, one ancestral reverse step, the final decode, the
+reverse loop and the guided round trip of existing molecules
+(``mol_gen_optimize``).  Every function that runs the denoiser takes the
+property context of a conditioned model (``context [B, N, C]``, else None)
+and hands it to each denoiser call.  Every function that draws takes an explicit
 ``torch.Generator`` and also accepts the draws as tensors (``noise``,
 ``t_int``, ``eps_t``, ``eps_0``), so tests can pass in another framework's
 draws; raw normal draws are masked and CoM-projected exactly like fresh ones.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -228,8 +232,8 @@ class EquivariantVariationalDiffusion(nn.Module):
 
     def loss_terms(self, x: Tensor, h_cat: Tensor, h_int: Tensor, node_mask: Tensor, training: bool,
                    generator: Optional[torch.Generator] = None, t_int: Optional[Tensor] = None,
-                   eps_t: Optional[Tensor] = None, eps_0: Optional[Tensor] = None
-                   ) -> Dict[str, Tensor]:
+                   eps_t: Optional[Tensor] = None, eps_0: Optional[Tensor] = None,
+                   context: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """All per-graph loss/NLL terms; ``x`` must already be CoM-free.
 
         Draws come from ``generator`` unless given: ``t_int [B, 1]`` (integer
@@ -259,7 +263,7 @@ class EquivariantVariationalDiffusion(nn.Module):
         gamma_s, gamma_t = self.gamma(s), self.gamma(t)
 
         z_t, eps_t = self.compute_noised_representation(xh, node_mask, gamma_t, generator, eps_t)
-        net_out = self.dynamics_network(z_t, t, node_mask)
+        net_out = self.dynamics_network(z_t, t, node_mask, context)
         error_t = sum_except_batch((eps_t - net_out) ** 2)
         snr_weight = (torch.ones_like(error_t) if l2_train
                       else (self.snr(gamma_s - gamma_t) - 1.0)[..., 0])
@@ -279,7 +283,7 @@ class EquivariantVariationalDiffusion(nn.Module):
             # a separate z_0 pass: a lower-variance L0 estimate
             t_zeros = torch.zeros_like(s)
             z_0, eps_0 = self.compute_noised_representation(xh, node_mask, gamma_0, generator, eps_0)
-            net_out_0 = self.dynamics_network(z_0, t_zeros, node_mask)
+            net_out_0 = self.dynamics_network(z_0, t_zeros, node_mask, context)
             log_p_x, log_p_h = self.log_pxh_given_z0_without_constants(
                 h_cat, h_int, z_0, eps_0, net_out_0, gamma_0, node_mask)
             loss_0_x, loss_0_h = -log_p_x, -log_p_h
@@ -300,7 +304,7 @@ class EquivariantVariationalDiffusion(nn.Module):
 
     def sample_p_zs_given_zt(self, s: Tensor, t: Tensor, z: Tensor, node_mask: Tensor,
                              generator: Optional[torch.Generator] = None, fix_noise: bool = False,
-                             noise: Optional[Tensor] = None) -> Tensor:
+                             noise: Optional[Tensor] = None, context: Optional[Tensor] = None) -> Tensor:
         """One ancestral reverse step z_t -> z_s."""
         gamma_s = self.gamma(s)
         gamma_t = self.gamma(t)
@@ -308,7 +312,7 @@ class EquivariantVariationalDiffusion(nn.Module):
         sigma_s = self.sigma(gamma_s)
         sigma_t = self.sigma(gamma_t)
 
-        eps_t = self.dynamics_network(z, t, node_mask)
+        eps_t = self.dynamics_network(z, t, node_mask, context)
 
         mu = z / alpha_tgs[..., None] - (sigma2_tgs / alpha_tgs / sigma_t)[..., None] * eps_t
         sigma = sigma_tgs * sigma_s / sigma_t  # [B, 1]
@@ -320,14 +324,15 @@ class EquivariantVariationalDiffusion(nn.Module):
 
     def sample_p_xh_given_z0(self, z_0: Tensor, node_mask: Tensor,
                              generator: Optional[torch.Generator] = None, fix_noise: bool = False,
-                             noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+                             noise: Optional[Tensor] = None, context: Optional[Tensor] = None
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
         """Final decode x, h ~ p(x, h | z_0) -> (x, one_hot, charges) on the data scale."""
         b = z_0.shape[0]
         t_zeros = torch.zeros((b, 1), dtype=z_0.dtype, device=z_0.device)
         gamma_0 = self.gamma(t_zeros)
         sigma_x = self.snr(-0.5 * gamma_0)
 
-        net_out = self.dynamics_network(z_0, t_zeros, node_mask)
+        net_out = self.dynamics_network(z_0, t_zeros, node_mask, context)
 
         sigma_0 = self.sigma(gamma_0)[..., None]
         alpha_0 = self.alpha(gamma_0)[..., None]
@@ -354,7 +359,8 @@ class EquivariantVariationalDiffusion(nn.Module):
 
     def reverse_segment(self, z: Tensor, s_values: Sequence[float], t_values: Sequence[float],
                         node_mask: Tensor, generator: Optional[torch.Generator] = None,
-                        fix_noise: bool = False, noises: Optional[Sequence[Tensor]] = None) -> Tensor:
+                        fix_noise: bool = False, noises: Optional[Sequence[Tensor]] = None,
+                        context: Optional[Tensor] = None) -> Tensor:
         """Run reverse steps at the given normalized (s, t) pairs.  ``noises``:
         one raw draw per step instead of drawing from ``generator``."""
         b = node_mask.shape[0]
@@ -363,19 +369,43 @@ class EquivariantVariationalDiffusion(nn.Module):
             t_arr = torch.full((b, 1), float(t_val), dtype=z.dtype, device=z.device)
             z = self.sample_p_zs_given_zt(
                 s_arr, t_arr, z, node_mask, generator, fix_noise,
-                None if noises is None else noises[k],
+                None if noises is None else noises[k], context,
             )
         return z
 
     def decode_sample(self, z: Tensor, node_mask: Tensor,
                       generator: Optional[torch.Generator] = None, fix_noise: bool = False,
-                      noise: Optional[Tensor] = None) -> Tensor:
+                      noise: Optional[Tensor] = None, context: Optional[Tensor] = None) -> Tensor:
         """Final p(x, h | z_0) decode and CoM projection -> data-scale xh."""
-        x, one_hot, charges = self.sample_p_xh_given_z0(z, node_mask, generator, fix_noise, noise)
+        x, one_hot, charges = self.sample_p_xh_given_z0(z, node_mask, generator, fix_noise, noise, context)
         _, x = centralize(x, node_mask)
         if self.include_charges:
             return torch.cat([x, one_hot, charges], dim=-1)
         return torch.cat([x, one_hot], dim=-1)
+
+    def mol_gen_optimize(self, x: Tensor, h_cat: Tensor, node_mask: Tensor, num_timesteps: int,
+                         context: Optional[Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         noises: Optional[Sequence[Tensor]] = None) -> Tensor:
+        """Guided round trip of existing molecules: normalize ``(x, h_cat)``
+        (CoM-free positions, one-hot types), run the last ``num_timesteps``
+        reverse steps from there, decode and centralize -> ``[x | one_hot]``
+        on the data scale.  Only for models without the charge channel (the
+        conditional QM9 model).  ``noises``: one raw draw per step and one
+        for the decode instead of drawing from ``generator``."""
+        if self.include_charges:
+            raise ValueError(
+                "mol_gen_optimize requires an include_charges=False model (the guided-optimization "
+                "protocol runs the conditional QM9 model, which is trained without the charge channel)")
+        if noises is not None and len(noises) != num_timesteps + 1:
+            raise ValueError(f"noises: need {num_timesteps + 1} draws, got {len(noises)}")
+        x_n, h_cat_n, _ = self.normalize(x, h_cat, torch.zeros_like(x[..., :1]), node_mask)
+        z = torch.cat([x_n, h_cat_n], dim=-1)
+        s_values = np.arange(num_timesteps - 1, -1, -1, dtype=np.float32)
+        z = self.reverse_segment(z, s_values / num_timesteps, (s_values + 1) / num_timesteps, node_mask, generator,
+                                 noises=None if noises is None else noises[:-1], context=context)
+        return self.decode_sample(z, node_mask, generator, noise=None if noises is None else noises[-1],
+                                  context=context)
 
 
 def assemble_nll(terms: Dict[str, Tensor], loss_type: str, training: bool, T: int, num_x_dims: int,

@@ -18,8 +18,9 @@ forward does not take it.
 
 The port covers the configuration the fast path supports (GCP2 with vector
 gates, no norm/dropout/ablations, one feedforward GCP, scalar message
-attention, residual message stack); ``GCPNetDynamics`` raises
-``NotImplementedError`` for anything else.
+attention, residual message stack), with or without property conditioning;
+``GCPNetDynamics`` raises ``NotImplementedError`` for anything else
+(self-conditioning included).
 """
 
 from __future__ import annotations
@@ -114,8 +115,11 @@ class GCPInteractions(nn.Module):
 
 
 class GCPNetDynamics(nn.Module):
-    """eps-prediction denoiser: ``(xh [B, N, 3+F], t [B, 1], node_mask [B, N])
-    -> [B, N, 3+F]`` (CoM-free velocity | eps_h), float32 out.
+    """eps-prediction denoiser: ``(xh [B, N, 3+F], t [B, 1], node_mask [B, N],
+    context [B, N, C] or None) -> [B, N, 3+F]`` (CoM-free velocity | eps_h),
+    float32 out.  A model conditioned on C properties
+    (``module_cfg.conditioning``) takes their per-node context as C more node
+    input scalars and requires it.
 
     ``compute_dtype`` ("bfloat16" or None) is the network body's dtype.  With
     gradients enabled (training) the forward packs the live parameters on
@@ -130,14 +134,16 @@ class GCPNetDynamics(nn.Module):
         super().__init__()
         if not supports_fast_path(module_cfg, layer_cfg):
             raise NotImplementedError("GCPNet configuration outside the port's packed forward")
-        if diffusion_cfg.self_condition or module_cfg.conditioning:
-            raise NotImplementedError("self-conditioning and property conditioning are not ported yet")
+        if diffusion_cfg.self_condition:
+            raise NotImplementedError("self-conditioning is not ported yet (ROADMAP A3)")
         self.model_cfg, self.module_cfg, self.layer_cfg = model_cfg, module_cfg, layer_cfg
         self.diffusion_cfg, self.dataloader_cfg = diffusion_cfg, dataloader_cfg
         self.compute_dtype = {None: torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
         mc = model_cfg
         h_in = compute_num_atom_types(dataloader_cfg) + int(dataloader_cfg.include_charges)
-        h_cond = int(diffusion_cfg.condition_on_time)
+        # node scalars in: [atom types | charges if any | time | context]
+        self.num_context = len(module_cfg.conditioning)
+        h_cond = int(diffusion_cfg.condition_on_time) + self.num_context
         node_dims = (mc.h_hidden_dim, mc.chi_hidden_dim)
         edge_dims = (mc.e_hidden_dim, mc.xi_hidden_dim)
         self.gcp_embedding = GCPEmbedding(
@@ -188,7 +194,9 @@ class GCPNetDynamics(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor) -> Tensor:
+    def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor, context: Optional[Tensor] = None) -> Tensor:
+        if self.num_context and context is None:
+            raise ValueError("a property-conditioned model requires a context tensor")
         mc, dl = self.model_cfg, self.dataloader_cfg
         cdt = self.compute_dtype
         w = self.weights() if torch.is_grad_enabled() else self.packed_weights()
@@ -205,6 +213,8 @@ class GCPNetDynamics(nn.Module):
         e_s, e_v = edge_features(x_init, edge_mask)  # [B, N, N, 1], [B, N, N, 1, 3]
         if self.diffusion_cfg.condition_on_time:
             h = torch.cat([h, t[:, None, :].expand(b, n, t.shape[-1]).to(h.dtype)], dim=-1)
+        if self.num_context:
+            h = torch.cat([h, context.to(h.dtype)], dim=-1)
         _, x_cent = centralize(x_init, node_mask)
         f_ij = localize(x_cent, edge_mask, norm_x_diff=self.module_cfg.norm_x_diff)
         f_node_c = node_mean_frames(f_ij, edge_mask).to(cdt)
@@ -241,6 +251,8 @@ class GCPNetDynamics(nn.Module):
 
         # ---- outputs ----
         vel = (x - x_init) * mask_f[..., None]
+        # strip the context columns first, then the time column
+        h_out = h_out[..., :h_out.shape[-1] - self.num_context]
         if self.diffusion_cfg.condition_on_time:
             h_out = h_out[..., :-1]
         # a non-finite velocity anywhere zeroes the whole batch's velocity

@@ -7,8 +7,12 @@ validation and the sampling evaluation.  Step metrics stay on the device
 until the end of an epoch.  ``init_state`` resumes from the newest
 checkpoint under ``<workdir>/<trainer.ckpt_dir>`` (the train state only, not
 the data order, as in the JAX package), else warm-starts from
-``trainer.warm_start_ckpt``.  Sample renderings (PNG) are not ported; the
-sampling evaluation writes xyz files.
+``trainer.warm_start_ckpt``.  A property-conditioned model
+(``module_cfg.conditioning``) gets each batch's context from the property
+normalizers (mean and MAD of the valid split for ``QM9_second_half``, of the
+train split otherwise), and its sampling evaluation draws contexts from the
+train split's per-size property histograms.  Sample renderings (PNG) are
+not ported; the sampling evaluation writes xyz files.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from bio_diffusion_torch.config.build import ExperimentConfig, build_datasets, build_evd, get_dataset_info_for
 from bio_diffusion_torch.data.batch import iterate_dense_batches
-from bio_diffusion_torch.models.distributions import NumNodesDistribution
+from bio_diffusion_torch.models.distributions import NumNodesDistribution, property_normalizers
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
 from bio_diffusion_torch.train.checkpoints import (
     latest_step,
@@ -51,8 +55,6 @@ class Trainer:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device=cuda but no CUDA device is available (there is no CPU fallback)")
-        if exp.module_cfg.conditioning:
-            raise NotImplementedError("property conditioning is not ported yet (ROADMAP A8)")
         tc = exp.trainer
         self.exp, self.workdir, self.device = exp, workdir, device
         os.makedirs(workdir, exist_ok=True)
@@ -60,6 +62,9 @@ class Trainer:
         self.dataset_info = get_dataset_info_for(exp)
         hist = {int(k): int(v) for k, v in self.dataset_info["n_nodes"].items()}
         self.nodes_dist = NumNodesDistribution(hist)
+        self.conditioning = tuple(exp.module_cfg.conditioning)
+        self.props_norms, self.props_distr = property_normalizers(
+            self.datasets, self.conditioning, exp.dataloader_cfg.dataset)
         self.evd = build_evd(exp)
         self.evd_ema = None
         self.state: Optional[TrainState] = None
@@ -89,7 +94,8 @@ class Trainer:
             shuffle=shuffle and dl.shuffle,
             drop_last=dl.drop_last if split == "train" else False,
             pad_to=self.datasets[split].data["positions"].shape[1],
-            pad_to_multiple=dl.pad_to_multiple, bucket_sizes=dl.bucket_sizes)
+            pad_to_multiple=dl.pad_to_multiple, bucket_sizes=dl.bucket_sizes,
+            conditioning=self.conditioning, property_norms=self.props_norms)
 
     def init_state(self, state_dict: Optional[Dict[str, Any]] = None, resume: bool = True) -> TrainState:
         """Weights from ``state_dict`` (reference names, e.g. from
@@ -244,7 +250,7 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(exp.seed + 3 + epoch)
         sampler = SegmentedSampler(self.evd_ema, self.device)
         xh, node_mask, _ = sample_molecules(sampler, generator, num_samples, self.nodes_dist, self.rng,
-                                            batch_size=dc.eval_batch_size)
+                                            batch_size=dc.eval_batch_size, props_distr=self.props_distr)
         self.stats["sample_batches"] += sampler.runs
         metrics = analyze_samples(xh, node_mask, self.dataset_info,
                                   include_charges=exp.dataloader_cfg.include_charges,

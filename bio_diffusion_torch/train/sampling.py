@@ -2,7 +2,7 @@
 
 Port of ``bio_diffusion_tpu/train/sampling.py`` (``SegmentedSampler``,
 ``make_node_mask``, ``sample_molecules``, ``analyze_samples``) with the JAX
-package's signatures; the conditioning context waits for A8.  PyTorch runs
+package's signatures, property contexts included.  PyTorch runs
 eagerly, so the sampler is a Python loop over the reverse steps on the EVD's
 device; randomness comes from the ``torch.Generator`` each call is given.
 """
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from bio_diffusion_torch.chem.stability import batch_molecular_stability, ensure_bond_tables
+from bio_diffusion_torch.data.batch import broadcast_context
 from bio_diffusion_torch.models.distributions import CategoricalDistribution, NumNodesDistribution
 
 
@@ -29,16 +30,19 @@ class SegmentedSampler:
 
     @torch.inference_mode()
     def run(self, node_mask, generator: torch.Generator, num_timesteps: Optional[int] = None,
-            fix_noise: bool = False) -> np.ndarray:
-        """Sample xh ``[B, N, 3+F]`` on the data scale (numpy, float32)."""
+            fix_noise: bool = False, context=None) -> np.ndarray:
+        """Sample xh ``[B, N, 3+F]`` on the data scale (numpy, float32);
+        ``context [B, N, C]`` for a property-conditioned model."""
         evd = self.evd
         T_s = evd.T if num_timesteps is None else int(num_timesteps)
         node_mask = torch.as_tensor(np.asarray(node_mask), dtype=torch.float32, device=self.device)
+        if context is not None:
+            context = torch.as_tensor(np.asarray(context), dtype=torch.float32, device=self.device)
         z = evd.init_sample_noise(node_mask, generator, fix_noise)
         s_values = np.arange(T_s - 1, -1, -1, dtype=np.float32)
         z = evd.reverse_segment(z, s_values / T_s, (s_values + 1) / T_s, node_mask,
-                                generator, fix_noise)
-        xh = evd.decode_sample(z, node_mask, generator, fix_noise)
+                                generator, fix_noise, context=context)
+        xh = evd.decode_sample(z, node_mask, generator, fix_noise, context=context)
         self.runs += 1
         return xh.cpu().numpy()
 
@@ -67,6 +71,7 @@ def sample_molecules(
     batch_size: int = 100,
     pad_to: Optional[int] = None,
     num_timesteps: Optional[int] = None,
+    props_distr=None,
     bucket_sizes: Optional[Sequence[int]] = None,
     pad_to_multiple: int = 2,
     sort_sizes: bool = True,
@@ -77,7 +82,9 @@ def sample_molecules(
     each batch is padded only to its own bucket (its largest size rounded up
     to ``pad_to_multiple``, or the ``bucket_sizes`` ladder, never past the
     dataset's largest molecule).  ``pad_to`` pins one padded size for every
-    batch and keeps the drawn order."""
+    batch and keeps the drawn order.  A conditioned model's contexts come
+    from ``props_distr`` (one ``sample_batch`` per batch from ``rng``, after
+    the sizes)."""
     sizes_all = nodes_dist.sample(num_samples, rng)
     if pad_to is None and sort_sizes:
         sizes_all = np.sort(sizes_all)[::-1]
@@ -90,7 +97,10 @@ def sample_molecules(
             n_pad = select_bucket(int(num_nodes.max()), bucket_sizes, pad_to_multiple)
             n_pad = min(n_pad, max(int(nodes_dist.max_n), int(num_nodes.max())))
         node_mask = make_node_mask(num_nodes, n_pad)
-        xs.append(sampler.run(node_mask, generator, num_timesteps=num_timesteps))
+        context = None
+        if props_distr is not None:
+            context = broadcast_context(props_distr.sample_batch(num_nodes, rng), node_mask)
+        xs.append(sampler.run(node_mask, generator, num_timesteps=num_timesteps, context=context))
         masks.append(node_mask)
         sizes.append(num_nodes)
     n_max = max(x.shape[1] for x in xs)

@@ -27,7 +27,8 @@ Draws = Optional[Dict[str, Tensor]]
 def make_loss_fn(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: DataloaderConfig,
                  log_pN_table: np.ndarray, training: bool) -> Callable:
     """``loss_fn(batch, generator, draws=None) -> (mean nll, info)`` for a
-    batch of torch tensors on the model's device."""
+    batch of torch tensors on the model's device; a conditioned model reads
+    the batch's context."""
     nsf = compute_num_atom_types(dataloader_cfg) + int(dataloader_cfg.include_charges)
     tables: Dict[torch.device, Tensor] = {}
 
@@ -38,7 +39,7 @@ def make_loss_fn(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloader
         table = tables[dev]
         _, x = centralize(batch.x, batch.node_mask)
         terms = evd.loss_terms(x, batch.one_hot, batch.charges, batch.node_mask, training,
-                               generator=generator, **(draws or {}))
+                               generator=generator, context=batch.context, **(draws or {}))
         num_nodes = batch.node_mask.sum(dim=-1).long()
         log_pN = table[torch.clamp(num_nodes, 0, table.shape[0] - 1)]
         nll, info = assemble_nll(

@@ -6,7 +6,8 @@ so a reference ``.ckpt`` loads by name after dropping its ``ddpm.`` prefix and
 its non-parameter entries.  :func:`state_dict_from_jax_params` is the jax-free
 counterpart of ``bio_diffusion_tpu/train/torch_import.py::export_state_dict``:
 it turns the JAX package's params tree (nested dicts of numpy arrays) into
-reference-named arrays.
+reference-named arrays; :func:`classifier_state_dict_from_jax_params` does
+the same for the property classifier's params.
 """
 
 from __future__ import annotations
@@ -64,6 +65,56 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
                 m = re.fullmatch(r"(" + "|".join(_INDEXED_CONTAINERS) + r")_(\d+)", p)
                 names.extend([m.group(1), m.group(2)] if m else [p])
         out["ddpm." + ".".join(names)] = arr
+    return out
+
+
+# the property classifier's nn.Sequential containers: flax names them
+# ``edge_mlp_0``, the reference ``edge_mlp.0``
+_CLASSIFIER_SEQUENTIALS = ("edge_mlp", "node_mlp", "att_mlp", "node_dec", "graph_dec")
+
+
+def classifier_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX package's ``EGNNClassifier`` params tree (``{'params': ...}``
+    or its content) -> the reference classifier's state_dict names
+    (``gcl_0.edge_mlp.0.weight``), flax ``kernel [in, out]`` as torch
+    ``weight [out, in]``: the inverse of the JAX package's
+    ``models/classifier.py::_map_classifier_key``."""
+    flat = _flatten(params["params"] if "params" in params else params)
+    out = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        arr = np.asarray(arr)
+        if parts[-1] == "kernel":
+            parts, arr = parts[:-1] + ["weight"], arr.T
+        names: List[str] = []
+        for p in parts:
+            m = re.fullmatch(r"(" + "|".join(_CLASSIFIER_SEQUENTIALS) + r")_(\d+)", p)
+            names.extend([m.group(1), m.group(2)] if m else [p])
+        out[".".join(names)] = arr
+    return out
+
+
+def classifier_jax_paths(state_dict: Dict[str, Any]) -> Dict[tuple, np.ndarray]:
+    """A classifier state_dict -> ``{flax path: array}`` in the JAX
+    package's layout (``('params', 'gcl_0', 'edge_mlp_0', 'kernel')``,
+    kernels ``[in, out]``): the inverse of
+    :func:`classifier_state_dict_from_jax_params`."""
+    out = {}
+    for name, value in state_dict.items():
+        arr = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+        parts = name.split(".")
+        path: List[str] = []
+        i = 0
+        while i < len(parts):
+            if parts[i] in _CLASSIFIER_SEQUENTIALS and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"{parts[i]}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        if path[-1] == "weight" and arr.ndim == 2:
+            path[-1], arr = "kernel", arr.T
+        out[("params", *path)] = arr
     return out
 
 

@@ -63,16 +63,30 @@
    directory.  Every run's forward and backward launch counts must be
    exact; prints seconds per reverse step, molecules per second and the
    Trainer's ms/step on those files.
-9. Holds the flat-edge GCP2 chain kernel against its plain version at full
+9. Drives the conditional path, fp32 at full width, on the user path's
+   QM9-layout files: ``cli.train.main`` with
+   ``experiment=qm9_mol_gen_conditional_ddpm`` (alpha, no charge channel,
+   ``QM9_second_half``; batch 64, 4 train batches, 2 EMA validation batches,
+   a sampling evaluation of 16 molecules at T=1000 with drawn contexts);
+   ``cli.train_classifier.main`` (alpha, hidden 128, 7 layers, batch 96, one
+   epoch on ``QM9_first_half``); ``cli.mol_gen_eval_conditional_qm9.main``
+   with that checkpoint and classifier (one iteration of 100 molecules at
+   T=1000); ``cli.mol_gen_eval_optimization_qm9.main`` (100 starting
+   molecules from seed weights in 10 steps, then 2 round trips of 100 steps
+   through the conditional model).  Every path's launch counts are held
+   exactly (none for the classifier); prints the phase's seconds, the
+   conditional sampler's seconds per reverse step and molecules per second,
+   and the MAE and stability (not judged).
+10. Holds the flat-edge GCP2 chain kernel against its plain version at full
    QM9 width (G=3, S=256, V=32, H=8, the weights of layer 0 of the bf16
    model), float32 and bfloat16, at E=53,824 (B=64, N=29), E=90,250 (B=250,
    N=19) and a ragged E, then times both at the first two sizes.
-10. Drives the unfused message-passing path
+11. Drives the unfused message-passing path
    (``models.gcpnet.message_passing_unfused``, which runs that kernel)
    against the fused message-layer kernel on the same layer inputs and
    weights at B=64, N=29 (float32 and bfloat16, both timed); the chain
    kernel must have been launched in this phase.
-11. Holds the pass-probe kernel against its plain version for each of its
+12. Holds the pass-probe kernel against its plain version for each of its
    nine ops at k=8, then runs the probe (``cli.bench_passes``) at its
    default shape.
 
@@ -825,6 +839,116 @@ def drive_user_path(torch):
     return out, numbers
 
 
+def drive_conditional_path(torch, data_dir):
+    """Property conditioning from end to end at full width in float32, on
+    the user path's QM9-layout files: the conditional model's training
+    (with a sampling evaluation), the property classifier's, the
+    conditional evaluation and the guided optimization, each through its
+    CLI.  Every launch count is read around the call that makes it and held
+    exactly against its formula -> (launches by path of the forward and
+    backward kernels, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_eval_conditional_qm9, mol_gen_eval_optimization_qm9
+    from bio_diffusion_torch.cli import train, train_classifier
+    from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train.loop import Trainer
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    root = os.path.join(REPO, "outputs", "conditional_path")
+    shutil.rmtree(root, ignore_errors=True)
+    data = [f"datamodule.dataloader_cfg.data_dir={data_dir}"]
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+
+    def run(fn):
+        ml.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, dict(ml.launch_counts)
+
+    # (a) the conditional model's training, with a sampling evaluation
+    with spy(torch, Trainer, "evaluate_sampling") as evals, spy(torch, SegmentedSampler, "run") as batches:
+        trainer, sec, counts = run(lambda: train.main([
+            "experiment=qm9_mol_gen_conditional_ddpm", *data, "datamodule.dataloader_cfg.batch_size=64",
+            "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1", "trainer.limit_train_batches=4",
+            "trainer.limit_val_batches=2", "model.diffusion_cfg.sample_during_training=true",
+            "model.diffusion_cfg.eval_epochs=1", "model.diffusion_cfg.num_eval_samples=16",
+            "model.diffusion_cfg.eval_batch_size=16", "--device=cuda", "--max-epochs=1",
+            f"--workdir={root}/train"]))
+    exp, st = trainer.exp, trainer.stats
+    layers, T = exp.model_cfg.num_encoder_layers, exp.diffusion_cfg.num_timesteps
+    if (exp.module_cfg.conditioning, exp.dataloader_cfg.include_charges, exp.model_cfg.h_hidden_dim) \
+            != (("alpha",), False, 256):
+        raise AssertionError("the conditional run is not the full-width alpha model without charges")
+    eval_launches = sum(c["launches"] for c in evals)
+    measured = {"cond_train": counts["message_layer"] - eval_launches, "cond_sampling_eval": eval_launches}
+    need = {"cond_train": layers * (st["micro_batches"] + 2 * st["eval_batches"]),
+            "cond_sampling_eval": layers * (T + 1) * len(batches)}
+    print(f"conditional train: {st['steps']} steps, {st['eval_batches']} EMA validation batches, one sampling "
+          f"evaluation of {len(batches)} sampler batch(es) of 16 at T={T} with drawn alpha contexts, {sec:.3f} s "
+          f"with set-up; launches fwd train {measured['cond_train']} (need {need['cond_train']}), sampling eval "
+          f"{measured['cond_sampling_eval']} (need {need['cond_sampling_eval']}), bwd "
+          f"{counts['message_layer_bwd']} (need {layers * st['micro_batches']})")
+    if (st["steps"], len(evals), len(batches)) != (4, 1, 1) or measured != need \
+            or counts["message_layer_bwd"] != layers * st["micro_batches"]:
+        raise AssertionError("the conditional training run's launch counts are not exact")
+    val = [r for r in trainer.loggers.loggers[0].rows if "val/mol_stable" in r]
+    if not val or not np.isfinite(val[-1]["val/kl_div_atom_types"]):
+        raise AssertionError("the conditional sampling evaluation logged no val/ metrics")
+    out["fwd"].update(measured)
+    out["bwd"]["cond_train"] = counts["message_layer_bwd"]
+    numbers["train_s"] = sec
+
+    # (b) the property classifier at the config's width
+    result, sec, counts = run(lambda: train_classifier.main([
+        "property=alpha", *data, "epochs=1", "device=cuda", f"output_dir={root}/classifier"]))
+    if counts["message_layer"] or counts["message_layer_bwd"] or not np.isfinite(result["best_valid_mae"]):
+        raise AssertionError(f"train_classifier: launches {counts}, result {result}")
+    numbers["classifier_s"] = sec
+    print(f"conditional train_classifier: one epoch (hidden 128, 7 layers, batch 96) {sec:.3f} s, best valid "
+          f"MAE {result['best_valid_mae']:.6g} (printed, not judged), no message-layer launch")
+
+    # (c) the conditional evaluation from (a)'s checkpoint and (b)'s classifier
+    cli = [*data, f"classifier_model_dir={result['model_dir']}", "device=cuda", "precision=fp32"]
+    with spy(torch, SegmentedSampler, "run") as batches:
+        metrics, sec, counts = run(lambda: mol_gen_eval_conditional_qm9.main(cli + [
+            f"generator_model_filepath={trainer.ckpt_dir}", "iterations=1", "batch_size=100",
+            f"output_dir={root}/eval"]))
+    if len(batches) != 1 or counts["message_layer"] != layers * (T + 1) or not np.isfinite(metrics["mae"]):
+        raise AssertionError(f"mol_gen_eval_conditional_qm9 launched {counts['message_layer']} in {len(batches)} "
+                             f"sampler batch(es), need {layers * (T + 1)} in one; MAE {metrics['mae']}")
+    out["fwd"]["cond_eval_cli"] = counts["message_layer"]
+    loop_s = batches[0]["s"]
+    numbers.update(cond_sample_s_per_step=loop_s / T, cond_sample_mol_per_s=100 / loop_s, cond_eval_cli_s=sec)
+    print(f"conditional mol_gen_eval_conditional_qm9: the sampler's batch of 100 (prior, T={T} reverse steps with "
+          f"contexts, decode) took {loop_s:.3f} s = {loop_s / T:.6f} s per reverse step, {100 / loop_s:.3f} "
+          f"molecules/s; the CLI call {sec:.3f} s with set-up; launches {counts['message_layer']}; classifier MAE "
+          f"{metrics['mae']:.6g} (printed, not judged)")
+
+    # (d) guided optimization: seed-weight starting molecules, then round trips
+    opt_args = cli + [f"conditional_generator_model_filepath={trainer.ckpt_dir}", "num_samples=100",
+                      "batch_size=100", "num_gen_timesteps=10", "num_optimization_timesteps=100", "iterations=2",
+                      f"output_dir={root}/optimization"]
+    with spy(torch, SegmentedSampler, "run") as gen, \
+            spy(torch, EquivariantVariationalDiffusion, "mol_gen_optimize") as trips:
+        result, sec, counts = run(lambda: mol_gen_eval_optimization_qm9.main(opt_args))
+    measured = {"opt_generate": sum(c["launches"] for c in gen), "opt_optimize": sum(c["launches"] for c in trips)}
+    if len(gen) != 1 or len(trips) != 2 or measured != {"opt_generate": layers * 11, "opt_optimize": 2 * layers * 101} \
+            or counts["message_layer"] != sum(measured.values()) or counts["message_layer_bwd"]:
+        raise AssertionError(f"the optimization CLI's launch counts are not exact: {measured}, {counts}")
+    if [e["iteration"] for e in result["history"]] != [1, 2] \
+            or not all(np.isfinite(e["mol_stable"]) for e in result["history"]):
+        raise AssertionError(f"optimization history: {result['history']}")
+    out["fwd"].update(measured)
+    numbers.update(opt_cli_s=sec, opt_round_trip_s=[c["s"] for c in trips])
+    print(f"conditional mol_gen_eval_optimization_qm9: 100 molecules in 10 steps, 2 round trips of 100 steps, "
+          f"{sec:.3f} s with set-up (round trips {', '.join('%.3f' % c['s'] for c in trips)} s); launches "
+          f"{measured}; history (printed, not judged) {result['history']}")
+    return out, numbers
+
+
 def check_molecules(mols, num_samples):
     import numpy as np
 
@@ -1146,6 +1270,10 @@ def main() -> int:
     t0 = time.perf_counter()
     user_launches, user_numbers = drive_user_path(torch)
     print(f"user path phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    cond_launches, cond_numbers = drive_conditional_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
+    cond_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"conditional path phase: {cond_numbers['phase_s']:.3f} s")
     passes_err, passes_launches, probe = check_passes(torch)
 
     # the chain row: bf16 at the training shape's E, float32 and the serving
@@ -1161,8 +1289,10 @@ def main() -> int:
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
-        "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values()),
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"]},
+        "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values())
+        + sum(cond_launches["fwd"].values()),
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"],
+                             **cond_launches["fwd"]},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -1176,14 +1306,15 @@ def main() -> int:
         "bound_ms_b64": kernel_bwd["fwd_bound_ms_b64"],
         "reverse_step_ms_b250": step_ms_b250,
         "user_path": user_numbers,
+        "conditional_path": cond_numbers,
         "smem_bytes_blocks_per_sm": occupancy["message_layer"],
     }, {
         "name": "message_layer_bwd",
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
-        "launches": train_bwd + sum(user_launches["bwd"].values()),
-        "launches_by_path": {"train": train_bwd, **user_launches["bwd"]},
+        "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(cond_launches["bwd"].values()),
+        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **cond_launches["bwd"]},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],
         "max_abs_err_bf16": kernel_bwd["max_abs_err_bf16"],

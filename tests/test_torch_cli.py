@@ -120,7 +120,7 @@ def test_sample_molecules_batching_matches_jax(kw):
     from bio_diffusion_torch.train.sampling import sample_molecules
 
     class Ours:
-        def run(self, node_mask, generator, num_timesteps=None):
+        def run(self, node_mask, generator, num_timesteps=None, context=None):
             return np.repeat(node_mask[..., None], 9, axis=-1)
 
     class Ref:
