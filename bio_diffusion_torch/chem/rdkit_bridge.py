@@ -4,7 +4,9 @@ Copy of ``bio_diffusion_tpu/chem/rdkit_bridge.py`` (the port imports nothing
 of the JAX package), the counterpart of the reference's
 BasicMolecularMetrics (src/datamodules/components/edm/rdkit_functions.py:
 121-197).  Without RDKit, ``build_molecular_metrics`` returns None and the
-stability metrics (RDKit-free) carry the evaluation.
+stability metrics (RDKit-free) carry the evaluation.  Unlike the JAX
+package's copy, which reads every SMILES file with ``np.load``, it reads
+GEOM-Drugs' text list (``GEOM_drugs_smiles.txt``) as text.
 """
 
 from __future__ import annotations
@@ -27,18 +29,27 @@ def mol2smiles(mol) -> Optional[str]:
     return Chem.MolToSmiles(mol)
 
 
+def load_smiles_list(path: str) -> List[str]:
+    """The training-set SMILES for novelty: QM9's ``.npy`` array, or a text
+    file with one SMILES a line (GEOM-Drugs' ``GEOM_drugs_smiles.txt``)."""
+    if str(path).endswith(".txt"):
+        with open(path) as f:
+            return [line.strip() for line in f if line.strip()]
+    return [str(s) for s in np.load(path, allow_pickle=True)]
+
+
 def build_molecular_metrics(dataset_info, smiles_filepath=None):
     """``BasicMolecularMetrics`` when RDKit is importable, else None — the
     single construction point shared by in-training sampling eval
     (train/loop.py) and the eval CLI.  Loads the training-set SMILES list
-    (``.npy``) for novelty when the file exists."""
+    (``load_smiles_list``) for novelty when the file exists."""
     import os
 
     if not RDKIT_AVAILABLE:
         return None
     smiles = None
     if smiles_filepath and os.path.exists(str(smiles_filepath)):
-        smiles = np.load(smiles_filepath, allow_pickle=True)
+        smiles = load_smiles_list(smiles_filepath)
     return BasicMolecularMetrics(dataset_info, dataset_smiles_list=smiles)
 
 

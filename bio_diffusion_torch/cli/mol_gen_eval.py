@@ -8,14 +8,15 @@ novelty too when RDKit imports), and the test NLL averaged over
 
 Usage:
   python -m bio_diffusion_torch.cli.mol_gen_eval ckpt_path=<ckpt> \\
-      [device=cuda|cpu] [num_samples=10000] [sampling_batch_size=100] \\
+      [experiment=geom_mol_gen_ddpm] [device=cuda|cpu] [num_samples=10000] [sampling_batch_size=100] \\
       [num_test_passes=5] [evaluate_nll=true] [fast_nll=false] \\
       [save_molecules=false] [precision=fp32|bf16] [output_dir=DIR] [k=v ...]
 
 ``ckpt_path`` takes what ``mol_gen_sample`` takes.  The NLL runs at
 ``precision``; ``fast_nll=true`` runs it with the bf16 network body
 whatever ``precision`` says.  Without the dataset's files the NLL is skipped
-with a warning.  ``device`` defaults to ``cuda``; there is no fallback to
+with a warning.  Novelty (with RDKit only) reads the training SMILES of
+``smiles_filepath``: QM9's ``.npy`` or GEOM-Drugs' ``.txt``.  ``device`` defaults to ``cuda``; there is no fallback to
 the CPU.
 """
 

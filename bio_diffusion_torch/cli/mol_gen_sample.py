@@ -6,14 +6,15 @@ config loader.
 
 Usage:
   python -m bio_diffusion_torch.cli.mol_gen_sample ckpt_path=<ckpt> \\
-      [device=cuda|cpu] [num_samples=250] [num_nodes=19] \\
+      [experiment=geom_mol_gen_ddpm] [device=cuda|cpu] [num_samples=250] [num_nodes=19] \\
       [sampling_batch_size=100] [num_timesteps=1000] [precision=fp32|bf16] \\
       [output_dir=DIR] [k=v ...]
 
 ``ckpt_path`` is a reference ``.ckpt``, a checkpoint directory of the port's
 Trainer (its EMA weights) or a params file; ``null`` samples from weights
 drawn from ``seed``.  ``num_nodes`` fixes every molecule's size; without it
-sizes are drawn from the dataset's size distribution and sampled in
+sizes are drawn from the dataset's size distribution (QM9's, or GEOM-Drugs'
+3..181 atoms with ``experiment=geom_mol_gen_ddpm``) and sampled in
 ``sampling_batch_size`` batches.  ``device`` defaults to ``cuda``; there is
 no fallback to the CPU.
 

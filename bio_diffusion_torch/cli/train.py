@@ -5,13 +5,15 @@ with the port's config loader (a copy of the JAX package's) and trains
 on one device.
 
 Usage:
-  python -m bio_diffusion_torch.cli.train experiment=qm9_mol_gen_ddpm \\
+  python -m bio_diffusion_torch.cli.train experiment=qm9_mol_gen_ddpm|geom_mol_gen_ddpm \\
       [datamodule.dataloader_cfg.dataset=QM9|QM9_first_half|QM9_second_half|synthetic] \\
       [datamodule.dataloader_cfg.data_dir=DIR] [k=v ...] \\
       [--max-steps=K] [--max-epochs=E] [--workdir=DIR] [--device=cuda|cpu]
 
 QM9 is read from ``<data_dir>/QM9``: the processed ``train/valid/test.npz``
 or the GDB9 tarball with ``uncharacterized.txt`` and ``atomref.txt``;
+GEOM-Drugs from ``<data_dir>/GEOM/GEOM_drugs_30.npy`` (made by
+``data.geom.extract_conformers``), each batch padded to its bucket;
 nothing is downloaded.  ``--device`` defaults to ``cuda``; there is no
 fallback to the CPU.  Checkpoints go to ``<workdir>/<trainer.ckpt_dir>``
 (``step_<n>.pt``); a second run on the same workdir resumes from the newest

@@ -103,8 +103,6 @@ POCKET_DATASETS = ("bindingmoad", "crossdock", "crossdock_full")
 def _refuse_unported(dataset: str) -> None:
     if dataset in POCKET_DATASETS:
         raise NotImplementedError(f"dataset {dataset!r}: pocket data is not ported yet (ROADMAP A10)")
-    if "GEOM" in dataset:
-        raise NotImplementedError(f"dataset {dataset!r}: GEOM-Drugs is not ported yet (ROADMAP A9)")
 
 
 def get_dataset_info_for(exp: ExperimentConfig) -> Dict[str, Any]:
@@ -113,13 +111,15 @@ def get_dataset_info_for(exp: ExperimentConfig) -> Dict[str, Any]:
 
     dl = exp.dataloader_cfg
     _refuse_unported(dl.dataset)
-    name = "QM9_second_half" if dl.dataset == "QM9_second_half" else "QM9"
+    name = "QM9_second_half" if dl.dataset == "QM9_second_half" else (
+        "GEOM" if "GEOM" in dl.dataset else "QM9")
     return get_dataset_info(name, dl.remove_h)
 
 
 def build_datasets(exp: ExperimentConfig) -> Dict[str, Any]:
     """Train/valid/test ``DenseDataset``s of the configured dataset:
-    ``synthetic`` (the offline stand-in) or QM9 read from ``data_dir``."""
+    ``synthetic`` (the offline stand-in), or QM9 or GEOM-Drugs read from
+    ``data_dir``."""
     dl = exp.dataloader_cfg
     if dl.dataset == "synthetic":
         from bio_diffusion_torch.data.synthetic import synthetic_qm9_like
@@ -139,6 +139,13 @@ def build_datasets(exp: ExperimentConfig) -> Dict[str, Any]:
         return load_qm9_datasets(
             dl.data_dir, dataset=dl.dataset, remove_h=dl.remove_h, subtract_thermo=dl.subtract_thermo,
             num_pts={"train": dl.num_train, "valid": dl.num_valid, "test": dl.num_test})
+    if "GEOM" in dl.dataset:
+        from bio_diffusion_torch.data.geom import load_geom_datasets
+
+        if dl.force_download:
+            raise RuntimeError("force_download: the port does not download GEOM-Drugs; place the files "
+                               f"under {dl.data_dir}/GEOM")
+        return load_geom_datasets(dl.data_dir, remove_h=dl.remove_h, filter_size=dl.filter_molecule_size)
     raise ValueError(f"unknown dataset {dl.dataset!r}")
 
 

@@ -4,13 +4,15 @@ Copy of ``bio_diffusion_tpu/data/synthetic.py::synthetic_qm9_like``: the same
 seed gives byte-identical arrays.  Random-walk chains with ~1.4 A steps, QM9
 species, sizes 4..29, padded to 29 atoms: QM9's shape, not its chemistry.
 ``write_qm9_layout`` writes such molecules as the processed QM9 files the
-loader (``data/qm9.py``) reads, for rehearsals of the data path.
+loader (``data/qm9.py``) reads, and ``write_geom_layout`` writes chains with
+GEOM-Drugs' sizes and atom types as the conformer files the GEOM loader
+(``data/geom.py``) reads, for rehearsals of the data path.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -100,3 +102,56 @@ def write_qm9_layout(data_dir: str, counts: Sequence[int] = (1024, 256, 256), se
             data[name] = d[name] if name in d else rng.normal(size=n)
         np.savez_compressed(os.path.join(qm9_dir, f"{split}.npz"), **add_thermo_targets(data, _FIXTURE_THERMO))
     return qm9_dir
+
+
+def geom_like_conformers(sizes: Sequence[int], rng: np.random.Generator) -> List[np.ndarray]:
+    """One ``[n, 4]`` (Z, x, y, z) chain a size: atom types drawn from
+    GEOM-Drugs' atom-type frequencies (with hydrogens), ~1.4 A random-walk
+    steps, centred."""
+    from bio_diffusion_torch.data.dataset_info import GEOM_WITH_H
+
+    counts = GEOM_WITH_H["atom_types"]
+    p = np.array([counts[k] for k in range(len(GEOM_WITH_H["atomic_nb"]))], dtype=np.float64)
+    atomic_nb = np.asarray(GEOM_WITH_H["atomic_nb"], dtype=np.float64)
+    out = []
+    for n in sizes:
+        steps = rng.normal(size=(int(n), 3))
+        steps /= np.linalg.norm(steps, axis=-1, keepdims=True)
+        pos = np.cumsum(steps * 1.4, axis=0)
+        z = atomic_nb[rng.choice(len(p), size=int(n), p=p / p.sum())]
+        out.append(np.concatenate([z[:, None], pos - pos.mean(axis=0)], axis=1))
+    return out
+
+
+def write_geom_layout(data_dir: str, num_conformers: int = 2048, seed: int = 0) -> str:
+    """Write ``<data_dir>/GEOM/GEOM_drugs_30.npy`` (``[total_atoms, 5]``:
+    mol_id, Z, x, y, z), ``GEOM_drugs_n_30.npy`` (atoms a conformer) and
+    ``GEOM_drugs_smiles.txt`` (one line a molecule), the layout
+    ``data.geom.extract_conformers`` writes, from ``seed``: sizes drawn from
+    GEOM-Drugs' size histogram (3..181 atoms), 1-3 conformers a molecule
+    (the same atoms, positions jittered by 0.1 A); returns the GEOM
+    directory.  No permutation file is written: the loader makes it."""
+    from bio_diffusion_torch.data.dataset_info import GEOM_WITH_H
+
+    rng = np.random.default_rng(seed)
+    hist = GEOM_WITH_H["n_nodes"]
+    sizes = np.array(sorted(hist))
+    p = np.array([hist[k] for k in sizes], dtype=np.float64)
+    decoder = GEOM_WITH_H["atom_decoder"]
+    nb = list(GEOM_WITH_H["atomic_nb"])
+    rows, counts, smiles = [], [], []
+    while len(counts) < num_conformers:
+        (mol,) = geom_like_conformers([rng.choice(sizes, p=p / p.sum())], rng)
+        smiles.append("".join(f"[{decoder[nb.index(int(z))]}]" for z in mol[:, 0] if z != 1))
+        for _ in range(min(int(rng.integers(1, 4)), num_conformers - len(counts))):
+            conf = mol.copy()
+            conf[:, 1:] += rng.normal(scale=0.1, size=conf[:, 1:].shape)
+            rows.append(np.concatenate([np.full((len(conf), 1), float(len(counts))), conf], axis=1))
+            counts.append(len(conf))
+    geom_dir = os.path.join(data_dir, "GEOM")
+    os.makedirs(geom_dir, exist_ok=True)
+    np.save(os.path.join(geom_dir, "GEOM_drugs_30.npy"), np.vstack(rows))
+    np.save(os.path.join(geom_dir, "GEOM_drugs_n_30.npy"), np.array(counts))
+    with open(os.path.join(geom_dir, "GEOM_drugs_smiles.txt"), "w") as f:
+        f.write("\n".join(smiles) + "\n")
+    return geom_dir

@@ -19,7 +19,10 @@ Layouts (shared with the JAX package):
 
 :func:`fused_message_layer` runs the plain version for tensors on the CPU and
 the CUDA kernel (``csrc/message_layer.cu``) for tensors on a CUDA device; it
-raises for anything else.
+raises for anything else.  :func:`fused_message_layer_bwd` does the same
+with the backward kernel (``csrc/message_layer_bwd.cu``), which it runs over
+a large batch in chunks of whole molecules to bound the kernel's per-row
+scratch (``BWD_SCRATCH_BUDGET``).
 """
 
 from __future__ import annotations
@@ -258,6 +261,43 @@ def bwd_outputs(out) -> list:
             + [(f"d_chain[{k}]", t) for k, t in zip(CHAIN_KEYS, d_chain)])
 
 
+# The backward kernel keeps a per-edge-row scratch in device memory
+# (``RowLayout::width`` floats a row, csrc/message_layer_bwd.cu: 6,040 at
+# GEOM width).  A batch whose scratch would outgrow this budget is walked in
+# chunks of whole molecules, one call of the kernel a chunk, with the scratch
+# and the weight-grad partials allocated once at the chunk's size.  4 GiB
+# keeps QM9's training shape (B=64, N=29: 1.3 GB) one chunk and GEOM's
+# largest bucket (B=64, N=192: 57 GB whole) to 16 chunks of 4 molecules.
+BWD_SCRATCH_BUDGET = 4 << 30  # bytes
+
+
+def bwd_chunk_molecules(n: int, row_floats: int, budget: int = BWD_SCRATCH_BUDGET) -> int:
+    """Molecules a chunk of the backward: as many molecules of ``n * n``
+    edge rows of ``row_floats`` float32 scratch as ``budget`` bytes hold,
+    at least one."""
+    return max(1, budget // (n * n * row_floats * 4))
+
+
+def chunk_ranges(b: int, chunk: int) -> list:
+    """``[(b0, b1), ...]``: molecules ``0..b`` in chunks of ``chunk``, in order."""
+    return [(b0, min(b, b0 + chunk)) for b0 in range(0, b, chunk)]
+
+
+def _walk_chunks(b: int, chunk: int, grads: list, run) -> None:
+    """Molecules ``0..b`` in chunks of ``chunk``, in order: ``run(b0, b1,
+    out)`` computes one chunk, writing its per-molecule outputs in place and
+    its float32 weight grads into ``out`` (tensors shaped as ``grads``).  The
+    first chunk writes ``grads`` itself, each later one a buffer that is
+    then added on (chunk order, float32, no atomics: deterministic)."""
+    chunks = chunk_ranges(b, chunk)
+    more = [torch.empty_like(t) for t in grads] if len(chunks) > 1 else None
+    for c, (b0, b1) in enumerate(chunks):
+        run(b0, b1, grads if c == 0 else more)
+        if c > 0:
+            for t, m in zip(grads, more):
+                t.add_(m)
+
+
 def message_layer_bwd_plain(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor],
                             chain: tuple, cotangents: Tuple[Tensor, Tensor], *, ve_dim: int):
     """Plain PyTorch backward of the layer: autograd through
@@ -273,6 +313,28 @@ def message_layer_bwd_plain(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: D
         grads = torch.autograd.grad(out, leaves, cotangents, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
     return grads[0], grads[1], grads[2], dict(zip(G1_KEYS, grads[3:13])), tuple(grads[13:])
+
+
+def _message_layer_bwd_plain_chunks(s_node, v_node, epack, g1, chain, cotangents, *, ve_dim: int,
+                                    chunk_molecules: int):
+    """:func:`message_layer_bwd_plain` walked in chunks of ``chunk_molecules``
+    molecules by the kernel wrapper's own walk (the CPU check of that walk):
+    the node and edge cotangents of each chunk in place, the weight grads
+    summed over the chunks in order in float32."""
+    d_s, d_v, d_ep = (torch.empty_like(x) for x in (s_node, v_node, epack))
+    like = [g1[k] for k in G1_KEYS] + list(chain)
+    grads = [torch.empty(t.shape, dtype=torch.float32) for t in like]
+
+    def run(b0, b1, out):
+        part = message_layer_bwd_plain(s_node[b0:b1], v_node[b0:b1], epack[b0:b1], g1, chain,
+                                       (cotangents[0][b0:b1], cotangents[1][b0:b1]), ve_dim=ve_dim)
+        d_s[b0:b1], d_v[b0:b1], d_ep[b0:b1] = part[:3]
+        for o, g in zip(out, [part[3][k] for k in G1_KEYS] + list(part[4])):
+            o.copy_(g)
+
+    _walk_chunks(s_node.shape[0], chunk_molecules, grads, run)
+    grads = [g.to(t.dtype) for g, t in zip(grads, like)]
+    return d_s, d_v, d_ep, dict(zip(G1_KEYS, grads[:10])), tuple(grads[10:])
 
 
 def _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim, cotangents=None):
@@ -393,8 +455,32 @@ def _bwd_library():
     return lib
 
 
-def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim):
-    ds_agg, dv_agg = cotangents
+def _bwd_workspace(lib, dims) -> Tuple[int, int, int]:
+    """(scratch floats, weight-grad partial floats, shared-memory bytes a
+    block) of the backward kernel at ``dims``; raises for widths it does not
+    take."""
+    sizes = (ctypes.c_longlong * 3)()
+    err = lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes))
+    if err != 0:
+        raise ValueError(f"message-layer backward kernel does not take these widths (code {err})")
+    return tuple(sizes)
+
+
+def bwd_chunks(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor], chain: tuple, *,
+               ve_dim: int) -> Tuple[int, int, int]:
+    """How the kernel's wrapper walks this batch: ``(molecules a chunk,
+    chunks, scratch bytes a molecule)``."""
+    b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim)
+    dims = (ctypes.c_int * 10)(1, n, epack.shape[-1], s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
+    row_floats = _bwd_workspace(_bwd_library(), dims)[0] // (n * n)
+    chunk = min(b, bwd_chunk_molecules(n, row_floats))
+    return chunk, len(chunk_ranges(b, chunk)), 4 * n * n * row_floats
+
+
+def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim, chunk_molecules=None):
+    """The kernel over the batch in chunks of whole molecules: at most
+    ``BWD_SCRATCH_BUDGET`` bytes of scratch, or ``chunk_molecules`` a chunk."""
+    ds_agg, dv_agg = (c.contiguous() for c in cotangents)
     b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(
         s_node, v_node, epack, g1, chain, ve_dim, cotangents)
     w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn = chain
@@ -402,29 +488,31 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     v3, w1 = 3 * v_dim, 3 * h1 + 27
     p = epack.shape[-1]
     lib = _bwd_library()
-    dims = (ctypes.c_int * 10)(b, n, p, s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
-    sizes = (ctypes.c_longlong * 3)()
-    err = lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes))
-    if err != 0:
-        raise ValueError(f"message-layer backward kernel does not take these widths (code {err})")
-    row_floats, partial_floats, smem = sizes
+
+    def dims(molecules):
+        return (ctypes.c_int * 10)(molecules, n, p, s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
+
+    if chunk_molecules is None:
+        chunk_molecules = bwd_chunks(s_node, v_node, epack, g1, chain, ve_dim=ve_dim)[0]
+    chunk = min(b, chunk_molecules)
+    row_floats, partial_floats, smem = _bwd_workspace(lib, dims(chunk))
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"message-layer backward needs {smem} B of shared memory per block; "
                          f"the device allows {limit}")
 
     proj_i, proj_j = _node_projections(s_node, v_node, g1)
+    epack = epack.contiguous()
     # every weight the kernel multiplies by in the backward, transposed once
     # here (O(weights)) so that each product reads its weight row-major
     def tr(w):
         return w.transpose(-1, -2).contiguous()
 
-    ins = [proj_i, proj_j, epack.contiguous(), ds_agg.contiguous(), dv_agg.contiguous(),
-           g1["wve"], g1["wsx"], g1["bs"], g1["wu_bd"], g1["wg"], g1["bg"],
-           w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn,
-           tr(g1["wve"]), tr(g1["wsx"]), tr(g1["wu_bd"]), tr(g1["wg"]),
-           tr(w_comb), tr(wsc), tr(wu_bd), tr(wgc)]
-    for t in ins:
+    weights = [g1["wve"], g1["wsx"], g1["bs"], g1["wu_bd"], g1["wg"], g1["bg"],
+               w_comb, wsc, bsc, wu_bd, wgc, bgc, wattn, battn,
+               tr(g1["wve"]), tr(g1["wsx"]), tr(g1["wu_bd"]), tr(g1["wg"]),
+               tr(w_comb), tr(wsc), tr(wu_bd), tr(wgc)]
+    for t in weights:
         if not t.is_contiguous():
             raise ValueError("kernel weights must be contiguous")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -433,19 +521,27 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     d_proj_j = torch.empty((b, n, s_dim + w1), **f32)
     d_g1 = {k: torch.empty(g1[k].shape, **f32) for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")}
     d_chain = [torch.empty(c.shape, **f32) for c in chain]
-    outs = [d_epack, d_proj_i, d_proj_j] + [d_g1[k] for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")] + d_chain
+    grads = [d_g1[k] for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")] + d_chain
     rows = torch.empty(row_floats, **f32)
     partials = torch.empty(partial_floats, **f32)
-
-    ptrs_in = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
-    ptrs_out = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
     fn = getattr(lib, _C_BWD_FUNCTIONS[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), rows.data_ptr(),
-                 partials.data_ptr(), ctypes.addressof(dims), stream)
-    if err != 0:
-        raise RuntimeError(f"message-layer backward kernel launch failed with CUDA error {err}")
+
+    def run(b0, b1, wgrads):
+        ins = [proj_i[b0:b1], proj_j[b0:b1], epack[b0:b1], ds_agg[b0:b1], dv_agg[b0:b1]] + weights
+        outs = [d_epack[b0:b1], d_proj_i[b0:b1], d_proj_j[b0:b1]] + wgrads
+        # the ctypes arrays stay referenced until the call returns
+        ptrs_in = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+        ptrs_out = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+        chunk_dims = dims(b1 - b0)
+        with torch.cuda.device(dev):
+            err = fn(ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), rows.data_ptr(),
+                     partials.data_ptr(), ctypes.addressof(chunk_dims), stream)
+        if err != 0:
+            raise RuntimeError(f"message-layer backward kernel launch failed with CUDA error {err}")
+
+    _walk_chunks(b, chunk, grads, run)
+    # one count per layer backward, whatever its chunks
     launch_counts["message_layer_bwd"] += 1
 
     # node-side products, O(B N S^2), in float32 as in the TPU kernel
@@ -469,7 +565,8 @@ def fused_message_layer_bwd(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: D
     """Backward of :func:`fused_message_layer` given ``(d_s_agg, d_v_agg)`` ->
     ``(d_s_node, d_v_node, d_epack, d_g1 dict, d_chain tuple)`` in the primal
     dtypes.  CUDA tensors go through the hand-written kernel
-    (``csrc/message_layer_bwd.cu``), CPU tensors through
+    (``csrc/message_layer_bwd.cu``), in chunks of whole molecules where the
+    batch's scratch would outgrow ``BWD_SCRATCH_BUDGET``; CPU tensors through
     :func:`message_layer_bwd_plain`; any other device raises."""
     if s_node.device.type == "cuda":
         return _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim)

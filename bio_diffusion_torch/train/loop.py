@@ -11,7 +11,9 @@ the data order, as in the JAX package), else warm-starts from
 (``module_cfg.conditioning``) gets each batch's context from the property
 normalizers (mean and MAD of the valid split for ``QM9_second_half``, of the
 train split otherwise), and its sampling evaluation draws contexts from the
-train split's per-size property histograms.  Sample renderings (PNG) are
+train split's per-size property histograms.  QM9 and synthetic batches are
+padded to the dataset's width, GEOM-Drugs batches each to its bucket
+(``bucket_sizes``), as in the JAX package.  Sample renderings (PNG) are
 not ported; the sampling evaluation writes xyz files.
 """
 
@@ -48,7 +50,7 @@ HALT_FILE_EXTENSION = "done"
 
 
 class Trainer:
-    """Single-device trainer of the QM9 DDPM with the GCPNet denoiser."""
+    """Single-device trainer of the QM9 and GEOM-Drugs DDPMs with the GCPNet denoiser."""
 
     def __init__(self, exp: ExperimentConfig, workdir: str, device, datasets: Optional[Dict[str, Any]] = None,
                  loggers: Optional[MetricLoggers] = None):
@@ -88,12 +90,17 @@ class Trainer:
     # -- setup ---------------------------------------------------------------
 
     def _batch_iter(self, split: str, shuffle: bool = True):
+        """The split's batches: QM9 and synthetic ones padded to the
+        dataset's width, GEOM ones each to its bucket (``bucket_sizes``)."""
         dl = self.exp.dataloader_cfg
+        pad_to = None
+        if "QM9" in dl.dataset or dl.dataset == "synthetic":
+            pad_to = self.datasets[split].data["positions"].shape[1]
         return iterate_dense_batches(
             self.datasets[split], batch_size=dl.batch_size, rng=self.rng,
             shuffle=shuffle and dl.shuffle,
             drop_last=dl.drop_last if split == "train" else False,
-            pad_to=self.datasets[split].data["positions"].shape[1],
+            pad_to=pad_to,
             pad_to_multiple=dl.pad_to_multiple, bucket_sizes=dl.bucket_sizes,
             conditioning=self.conditioning, property_norms=self.props_norms)
 

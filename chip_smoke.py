@@ -89,6 +89,25 @@
 12. Holds the pass-probe kernel against its plain version for each of its
    nine ops at k=8, then runs the probe (``cli.bench_passes``) at its
    default shape.
+13. Drives the GEOM-Drugs path (after the conditional path), fp32 at the
+   published ``geom_mol_gen_ddpm`` width (4 layers, S=256, V=32, Se=16,
+   Ve=8, batch 64 in the buckets [48, 64, 96, 128, 192]): writes GEOM-layout
+   files (1,280 conformers, sizes from GEOM-Drugs' histogram, from a seed)
+   under ``outputs/geom_path``; holds both message-layer kernels against
+   their plain versions at GEOM width (float32 and bfloat16; forward at
+   B=8/N=48, B=4/N=96 and B=2/N=181 with padded rows, backward at the last
+   two), times the forward at B=16, N=96 and the backward at B=4, N=96
+   beside their plain versions; holds the backward walked in 4 chunks of
+   molecules against one call at B=16, N=96 and times one backward at B=64,
+   N=96 in the wrapper's own chunks with its peak memory; runs 2 Trainer
+   steps on the worst batch the config admits (B=64 padded to 192, a
+   181-atom molecule: finite loss, 4 + 4 launches, ms and peak memory
+   against the card's); then ``cli.train.main`` (4 train batches in their
+   buckets, 2 EMA validation batches, a sampling evaluation of 16 at
+   T=1000), ``cli.mol_gen_sample.main`` and ``cli.mol_gen_eval.main`` (16
+   molecules each, one NLL pass over the 2 test batches) from the
+   checkpoint directory, every launch count exact; prints each sampler
+   batch's padded N, seconds per reverse step and molecules per second.
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -667,27 +686,30 @@ def restored_equal(torch, trainer):
 
 def xyz_molecules(out_dir, info):
     """The molecules of the xyz files under ``out_dir`` as the server's
-    molecule records (atomic numbers as charges)."""
+    molecule records (atomic numbers as charges, from the dataset's table
+    where it has one: GEOM-Drugs' 16 types)."""
     import numpy as np
 
     from bio_diffusion_torch.chem.constants import CHARGE_DICT
     from bio_diffusion_torch.chem.molecule import load_molecule_xyz
 
+    numbers = dict(zip(info["atom_decoder"], info["atomic_nb"])) if "atomic_nb" in info else CHARGE_DICT
     mols = []
     for root, _, files in sorted(os.walk(out_dir)):
         for name in sorted(f for f in files if f.endswith(".xyz")):
             pos, one_hot = load_molecule_xyz(os.path.join(root, name), info)
             atoms = [info["atom_decoder"][int(k)] for k in one_hot.argmax(-1)]
             mols.append({"positions": pos.astype(np.float64).tolist(), "atoms": atoms, "size": len(atoms),
-                         "charges": [CHARGE_DICT[a] for a in atoms]})
+                         "charges": [numbers[a] for a in atoms]})
     return mols
 
 
 @contextlib.contextmanager
 def spy(torch, cls, name):
     """Wrap ``cls.<name>`` for the block: each call's host seconds (the card
-    synchronized before and after) and its forward-kernel launches are
-    appended to the list it yields."""
+    synchronized before and after), its forward-kernel launches and the
+    shape of its first argument after ``self`` are appended to the list it
+    yields."""
     from bio_diffusion_torch.ops import message_layer as ml
 
     orig, calls = getattr(cls, name), []
@@ -697,7 +719,8 @@ def spy(torch, cls, name):
         before, t0 = ml.launch_counts["message_layer"], time.perf_counter()
         result = orig(*args, **kwargs)
         torch.cuda.synchronize()
-        calls.append({"s": time.perf_counter() - t0, "launches": ml.launch_counts["message_layer"] - before})
+        calls.append({"s": time.perf_counter() - t0, "launches": ml.launch_counts["message_layer"] - before,
+                      "shape": tuple(getattr(args[1], "shape", ())) if len(args) > 1 else ()})
         return result
 
     setattr(cls, name, wrapped)
@@ -947,6 +970,327 @@ def drive_conditional_path(torch, data_dir):
           f"{sec:.3f} s with set-up (round trips {', '.join('%.3f' % c['s'] for c in trips)} s); launches "
           f"{measured}; history (printed, not judged) {result['history']}")
     return out, numbers
+
+
+GEOM_BUCKETS = (48, 64, 96, 128, 192)
+# the kernel's chunks against its whole batch, float32: weight grads
+# relative to max|whole| of each (the chunk sums add in another order)
+TOL_CHUNK_REL = 1e-5
+# the backward's outputs the kernel writes per molecule (or the wrapper
+# forms from those): bit-identical however the batch is cut
+PER_MOLECULE = ("d_s_node", "d_v_node", "d_epack", "d_g1[wsi]", "d_g1[wsj]", "d_g1[wvi]", "d_g1[wvj]")
+
+
+def geom_experiment(precision: str, extra=()):
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+
+    return build_experiment(load_config(default_config_dir(), "train", [
+        "experiment=geom_mol_gen_ddpm", f"trainer.precision={precision}", *extra]))
+
+
+def check_geom_kernels(torch, evd):
+    """B1 and B2 at full GEOM width (S=256, V=32, Se=16, Ve=8, H1=18, 4
+    message GCPs), float32 and bfloat16: each against its plain version up
+    to N=181 (padded rows), B1 timed beside its plain version at B=16, N=96,
+    the backward's chunks of molecules against its whole batch, and one
+    full-width backward at B=64, N=96 in the chunks the wrapper picks ->
+    (forward block, backward block) of the kernels line."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    fwd, bwd = {"errors": {}, "by_shape": {}}, {"errors": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, n, padded in ((8, 48, False), (4, 96, False), (2, 181, True)):
+            args, ve = kernel_inputs(torch, evd, b, n, dtype, padded, seed=b * 1000 + n + 7)
+            label = f"GEOM B={b} N={n} padded={padded}"
+            fwd["errors"][f"{name} B={b} N={n}"] = compare_fwd(torch, args, ve, name, label)
+            if n > 48:
+                ct = cotangents(torch, args, seed=n + 3)
+                bwd["errors"][f"{name} B={b} N={n}"] = compare_bwd(torch, args, ct, ve, name, label)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        args, ve = kernel_inputs(torch, evd, 16, 96, dtype, False, seed=9)
+        kernel_ms, plain_ms, runs = in_turns(torch, lambda: ml.fused_message_layer(*args, ve_dim=ve),
+                                             lambda: ml.message_layer_plain(*args, ve_dim=ve), reps=10)
+        bound_ms, bound_by = bound(layer_flops(args, ve), nbytes(args, ml.fused_message_layer(*args, ve_dim=ve)),
+                                   name)
+        print(f"timing GEOM {name} B=16 N=96: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) (runs {runs})")
+        fwd["by_shape"][f"{name}, B=16, N=96"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                      bound_by=bound_by)
+    # the backward beside its plain version at B=4, N=96, float32
+    args, ve = kernel_inputs(torch, evd, 4, 96, torch.float32, False, seed=11)
+    ct = cotangents(torch, args, seed=12)
+    kernel_ms, plain_ms, runs = in_turns(torch, lambda: ml.fused_message_layer_bwd(*args, ct, ve_dim=ve),
+                                         lambda: ml.message_layer_bwd_plain(*args, ct, ve_dim=ve), reps=5)
+    out = ml.fused_message_layer_bwd(*args, ct, ve_dim=ve)
+    bound_ms, bound_by = bound(3 * layer_flops(args, ve), nbytes(args, ct, out), "float32")
+    bwd["by_shape"] = {"float32, B=4, N=96": dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                   bound_by=bound_by)}
+    print(f"timing GEOM bwd float32 B=4 N=96: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) (runs {runs})")
+
+    # chunks of molecules against the whole batch, at a size where both fit
+    args, ve = kernel_inputs(torch, evd, 16, 96, torch.float32, True, seed=16)
+    ct = cotangents(torch, args, seed=17)
+    whole = ml.bwd_outputs(ml._message_layer_bwd_cuda(*args, ct, ve, chunk_molecules=16))
+    runs = [ml.bwd_outputs(ml._message_layer_bwd_cuda(*args, ct, ve, chunk_molecules=4)) for _ in range(2)]
+    torch.cuda.synchronize()
+    worst = 0.0
+    for (part, a), (_, a2), (_, w) in zip(*runs, whole):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"chunked backward: two runs differ in {part}")
+        if part in PER_MOLECULE:
+            if not torch.equal(a, w):
+                raise AssertionError(f"chunked backward: {part} differs from the whole batch's")
+        else:
+            rel = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            if rel > TOL_CHUNK_REL:
+                raise AssertionError(f"chunked backward: {part} off the whole batch's by {rel:.3g} of max")
+            worst = max(worst, rel)
+    bwd["chunks_vs_whole"] = {"shape": "float32, B=16, N=96, 4 chunks of 4", "weight_grad_max_rel": worst}
+    print(f"chunked bwd GEOM float32 B=16 N=96, 4 chunks of 4 vs one: {', '.join(PER_MOLECULE)} "
+          f"bit-identical; weight grads within {worst:.3g} of max (tol {TOL_CHUNK_REL:g}); two chunked "
+          f"runs bit-identical: ok")
+    del args, ct, whole, runs
+
+    # one full-width backward at B=64, N=96 in the wrapper's own chunks
+    args, ve = kernel_inputs(torch, evd, 64, 96, torch.float32, True, seed=64)
+    ct = cotangents(torch, args, seed=65)
+    chunk, chunks, mol_bytes = ml.bwd_chunks(*args, ve_dim=ve)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: ml.fused_message_layer_bwd(*args, ct, ve_dim=ve), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    out = ml.fused_message_layer_bwd(*args, ct, ve_dim=ve)
+    bound_ms, bound_by = bound(3 * layer_flops(args, ve), nbytes(args, ct, out), "float32")
+    bwd["b64_n96"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, chunk_molecules=chunk, chunks=chunks,
+                          scratch_bytes_per_molecule=mol_bytes, whole_batch_scratch_bytes=64 * mol_bytes,
+                          peak_bytes_above_inputs=peak - base, peak_bytes=peak)
+    print(f"timing GEOM bwd float32 B=64 N=96: {ms:.4f} ms in {chunks} chunks of up to {chunk} molecules "
+          f"(scratch {mol_bytes / 2**20:.1f} MiB a molecule, {64 * mol_bytes / 2**30:.2f} GiB whole), bound "
+          f"{bound_ms:.4f} ms ({bound_by}); peak device memory {peak / 2**30:.3f} GiB, "
+          f"{(peak - base) / 2**30:.3f} GiB above the inputs")
+    return fwd, bwd
+
+
+@contextlib.contextmanager
+def step_batches():
+    """Record the padded shape and largest molecule of every batch the
+    Trainers built in the block train or validate on."""
+    from bio_diffusion_torch.train import loop
+
+    seen = {"train": [], "valid": []}
+    orig = {"train": loop.make_train_step, "valid": loop.make_eval_step}
+
+    def wrap(make, key):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*a, **k):
+                batch = a[1] if key == "train" else a[0]
+                seen[key].append((tuple(batch.node_mask.shape), int(batch.node_mask.sum(1).max())))
+                return step(*a, **k)
+            return run
+        return made
+
+    loop.make_train_step, loop.make_eval_step = wrap(orig["train"], "train"), wrap(orig["valid"], "valid")
+    try:
+        yield seen
+    finally:
+        loop.make_train_step, loop.make_eval_step = orig["train"], orig["valid"]
+
+
+def geom_worst_step(torch, data_dir, root):
+    """Trainer steps of the full-width GEOM model (fp32) on the worst batch
+    the config admits: B=64 padded to the 192 bucket, its largest molecule
+    181 atoms (one drawn from the seed beside the 63 largest of the train
+    split) -> numbers."""
+    import numpy as np
+
+    from bio_diffusion_torch.data.batch import iterate_dense_batches
+    from bio_diffusion_torch.data.geom import _to_dense, load_split_data
+    from bio_diffusion_torch.data.synthetic import geom_like_conformers
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train.loop import Trainer
+
+    exp = geom_experiment("fp32", [f"datamodule.dataloader_cfg.data_dir={data_dir}"])
+    trainer = Trainer(exp, os.path.join(root, "worst"), "cuda")
+    trainer.init_state(resume=False)
+    layers = exp.model_cfg.num_encoder_layers
+    train = load_split_data(os.path.join(data_dir, "GEOM", "GEOM_drugs_30.npy"))["train"]
+    mols = geom_like_conformers([181], np.random.default_rng(181)) + sorted(train, key=len)[-63:]
+    batch = next(iterate_dense_batches(_to_dense(mols, remove_h=False), 64, shuffle=False,
+                                       bucket_sizes=exp.dataloader_cfg.bucket_sizes)).to("cuda")
+    if tuple(batch.node_mask.shape) != (64, 192) or int(batch.node_mask.sum(1).max()) != 181:
+        raise AssertionError(f"the worst batch is {tuple(batch.node_mask.shape)}, not B=64 padded to 192")
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"shape": "fp32, B=64, N=192 (largest molecule 181 atoms)", "steps_ms": [], "total_bytes": total}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ml.reset_launch_counts()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        metrics = trainer.train_step(trainer.state, batch, trainer.generator)
+        end_ev.record()
+        torch.cuda.synchronize()
+        loss = float(metrics["loss"])
+        counts = dict(ml.launch_counts)
+        if not np.isfinite(loss) or (counts["message_layer"], counts["message_layer_bwd"]) != (layers, layers):
+            raise AssertionError(f"worst GEOM step: loss {loss}, launches {counts}")
+        out["steps_ms"].append(start_ev.elapsed_time(end_ev))
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"GEOM worst batch: Trainer steps at B=64, N=192 (largest 181 atoms), fp32: "
+          f"{', '.join('%.3f' % t for t in out['steps_ms'])} ms, loss {loss:.6g} (finite), launches fwd "
+          f"{counts['message_layer']} bwd {counts['message_layer_bwd']} (need {layers} + {layers}); peak device "
+          f"memory {out['peak_bytes'] / 2**30:.3f} GiB of {total / 2**30:.3f} GiB")
+    del trainer, batch
+    return out
+
+
+def drive_geom_path(torch):
+    """GEOM-Drugs at full width (4 layers, S=256, V=32, Se=16, Ve=8) in
+    float32: GEOM-layout files written from a seed (1,280 conformers, sizes
+    drawn from GEOM-Drugs' histogram) under ``outputs/geom_path``; B1 and B2
+    at GEOM width against their plain versions and timed, the backward's
+    chunks against its whole batch; Trainer steps on the worst batch the
+    config admits (B=64 padded to 192); ``cli.train.main`` (batch 64 in its
+    buckets, 4 train batches, 2 EMA validation batches, a sampling evaluation
+    of 16 at T=1000); ``cli.mol_gen_sample.main`` and ``cli.mol_gen_eval.main``
+    (16 molecules each, sizes drawn, T=1000; one NLL pass over the 2 test
+    batches) from the checkpoint directory.  Every launch count is read
+    around the call that makes it and held exactly -> (launches by path of
+    the forward and backward kernels, forward block, backward block)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_eval, mol_gen_sample, train
+    from bio_diffusion_torch.cli.common import load_model
+    from bio_diffusion_torch.data.batch import select_bucket
+    from bio_diffusion_torch.data.dataset_info import GEOM_WITH_H
+    from bio_diffusion_torch.data.synthetic import write_geom_layout
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train.loop import Trainer
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    root = os.path.join(REPO, "outputs", "geom_path")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    write_geom_layout(data_dir, num_conformers=1280, seed=0)
+    print(f"GEOM path: GEOM-layout files (1,280 conformers with H, sizes from GEOM-Drugs' histogram) written "
+          f"in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    evd = load_model(geom_experiment("fp32"), None, torch.device("cuda"), seed=0)
+    fwd_block, bwd_block = check_geom_kernels(torch, evd)
+    del evd
+    torch.cuda.empty_cache()
+    print(f"GEOM path kernel checks: {time.perf_counter() - t0:.3f} s")
+    worst = geom_worst_step(torch, data_dir, root)
+    row_floats = bwd_block["b64_n96"]["scratch_bytes_per_molecule"] // (4 * 96 * 96)
+    chunk = ml.bwd_chunk_molecules(192, row_floats)
+    worst.update(bwd_chunk_molecules=chunk, bwd_chunks=len(ml.chunk_ranges(64, chunk)),
+                 whole_batch_scratch_bytes=64 * 192 * 192 * row_floats * 4)
+    print(f"GEOM worst batch: the backward walks it in {worst['bwd_chunks']} chunks of {chunk} molecules "
+          f"({row_floats} floats of scratch a row: {worst['whole_batch_scratch_bytes'] / 2**30:.2f} GiB for the "
+          f"whole batch, {chunk * 192 * 192 * row_floats * 4 / 2**30:.2f} GiB a chunk)")
+    torch.cuda.empty_cache()
+    fwd_block["worst_step"] = worst
+    bwd_block["worst_step"] = {k: worst[k] for k in ("bwd_chunk_molecules", "bwd_chunks", "whole_batch_scratch_bytes")}
+
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+
+    def run(fn):
+        ml.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, dict(ml.launch_counts)
+
+    args = ["experiment=geom_mol_gen_ddpm", f"datamodule.dataloader_cfg.data_dir={data_dir}",
+            "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1", "trainer.limit_train_batches=4",
+            "trainer.limit_val_batches=2", "model.diffusion_cfg.sample_during_training=true",
+            "model.diffusion_cfg.eval_epochs=1", "model.diffusion_cfg.num_eval_samples=16",
+            "model.diffusion_cfg.eval_batch_size=16", "--device=cuda", "--max-epochs=1", f"--workdir={root}/train"]
+    with spy(torch, Trainer, "evaluate_sampling") as evals, spy(torch, SegmentedSampler, "run") as batches, \
+            step_batches() as seen:
+        trainer, sec, counts = run(lambda: train.main(args))
+    exp, st = trainer.exp, trainer.stats
+    layers, T = exp.model_cfg.num_encoder_layers, exp.diffusion_cfg.num_timesteps
+    dl, mc = exp.dataloader_cfg, exp.model_cfg
+    if (layers, mc.h_hidden_dim, mc.chi_hidden_dim, mc.e_hidden_dim, mc.xi_hidden_dim, dl.batch_size,
+            tuple(dl.bucket_sizes), T) != (4, 256, 32, 16, 8, 64, GEOM_BUCKETS, 1000):
+        raise AssertionError("the GEOM run is not the published configuration")
+    eval_launches = sum(c["launches"] for c in evals)
+    measured = {"geom_train": counts["message_layer"] - eval_launches, "geom_sampling_eval": eval_launches}
+    need = {"geom_train": layers * (st["micro_batches"] + 2 * st["eval_batches"]),
+            "geom_sampling_eval": layers * (T + 1) * len(batches)}
+    buckets_ok = all(shape[1] == select_bucket(largest, GEOM_BUCKETS) for split in seen.values()
+                     for shape, largest in split)
+    print(f"GEOM train: {st['steps']} steps, {st['eval_batches']} EMA validation batches, one sampling evaluation "
+          f"of {len(batches)} sampler batch(es) of 16 at T={T}, {sec:.3f} s with set-up; train batches (B, padded N; "
+          f"largest) {seen['train']}, validation batches {seen['valid']}; launches fwd train {measured['geom_train']} "
+          f"(need {need['geom_train']}), sampling eval {measured['geom_sampling_eval']} (need "
+          f"{need['geom_sampling_eval']}), bwd {counts['message_layer_bwd']} (need {layers * st['micro_batches']})")
+    if (st["steps"], st["eval_batches"], len(evals), len(batches)) != (4, 2, 1, 1) or measured != need \
+            or counts["message_layer_bwd"] != layers * st["micro_batches"] or not buckets_ok \
+            or len(seen["train"]) != 4 or any(shape[0] != 64 for shape, _ in seen["train"]):
+        raise AssertionError("the GEOM training run's batches or launch counts are not exact")
+    val = [r for r in trainer.loggers.loggers[0].rows if "val/mol_stable" in r]
+    losses = [r["train/loss"] for r in trainer.loggers.loggers[0].rows if "train/loss" in r]
+    if not val or not np.isfinite(val[-1]["val/kl_div_atom_types"]) or not np.all(np.isfinite(losses)):
+        raise AssertionError("the GEOM run logged a non-finite loss or no val/ metrics")
+    out["fwd"].update(measured)
+    out["bwd"]["geom_train"] = counts["message_layer_bwd"]
+    numbers.update(train_s=sec, train_batches=seen["train"], valid_batches=seen["valid"],
+                   train_sampling_eval={"n": batches[0]["shape"][1], "s_per_step": batches[0]["s"] / T})
+
+    info = GEOM_WITH_H
+    cli = ["experiment=geom_mol_gen_ddpm", f"ckpt_path={trainer.ckpt_dir}", "device=cuda", "precision=fp32",
+           "num_samples=16", "sampling_batch_size=16"]
+    with spy(torch, SegmentedSampler, "run") as batches:
+        metrics, sec, counts = run(lambda: mol_gen_sample.main(cli + [f"output_dir={root}/samples"]))
+    mols = xyz_molecules(os.path.join(root, "samples"), info)
+    check_molecules(mols, 16)
+    if len(batches) != 1 or counts["message_layer"] != layers * (T + 1) or counts["message_layer_bwd"]:
+        raise AssertionError(f"GEOM mol_gen_sample launched {counts} in {len(batches)} sampler batch(es), need "
+                             f"{layers * (T + 1)} forward in one")
+    out["fwd"]["geom_sample_cli"] = counts["message_layer"]
+    b = batches[0]
+    numbers["sample"] = {"n": b["shape"][1], "s": b["s"], "s_per_step": b["s"] / T, "mol_per_s": 16 / b["s"],
+                         "cli_s": sec}
+    print(f"GEOM mol_gen_sample: 16 xyz files (sizes {sorted(m['size'] for m in mols)}, elements "
+          f"{sorted({a for m in mols for a in m['atoms']})}), molecules pass the checks; the sampler's batch of 16 "
+          f"padded to N={b['shape'][1]} took {b['s']:.3f} s = {b['s'] / T:.6f} s per reverse step, "
+          f"{16 / b['s']:.3f} molecules/s; the CLI {sec:.3f} s with set-up; launches {counts['message_layer']}; "
+          f"metrics (printed, not judged) {metrics}")
+
+    with spy(torch, SegmentedSampler, "run") as batches:
+        metrics, sec, counts = run(lambda: mol_gen_eval.main(cli + [
+            "num_test_passes=1", f"datamodule.dataloader_cfg.data_dir={data_dir}", f"output_dir={root}/eval"]))
+    with open(os.path.join(root, "eval", "eval_results.json")) as f:
+        saved = json.load(f)
+    test_batches = -(-len(trainer.datasets["test"]) // 64)
+    sampled = sum(c["launches"] for c in batches)
+    if not np.isfinite(saved.get("test_nll", float("nan"))) or saved != metrics or test_batches != 2:
+        raise AssertionError(f"GEOM eval_results.json: {saved} ({test_batches} test batches)")
+    if len(batches) != 1 or sampled != layers * (T + 1) \
+            or counts["message_layer"] - sampled != layers * 2 * test_batches:
+        raise AssertionError(f"GEOM mol_gen_eval launched {sampled} in {len(batches)} sampler batch(es) and "
+                             f"{counts['message_layer'] - sampled} for the NLL (need {layers * (T + 1)} and "
+                             f"{layers * 2 * test_batches})")
+    out["fwd"]["geom_eval_cli"] = counts["message_layer"]
+    b = batches[0]
+    numbers["eval"] = {"n": b["shape"][1], "s": b["s"], "s_per_step": b["s"] / T, "mol_per_s": 16 / b["s"],
+                       "cli_s": sec}
+    print(f"GEOM mol_gen_eval: the sampler's batch of 16 padded to N={b['shape'][1]} took {b['s']:.3f} s = "
+          f"{b['s'] / T:.6f} s per reverse step, {16 / b['s']:.3f} molecules/s; the CLI {sec:.3f} s with set-up "
+          f"(one NLL pass over {test_batches} test batches); test_nll {saved['test_nll']:.6g} (finite), launches "
+          f"{counts['message_layer']}; metrics (printed, not judged) {saved}")
+    fwd_block["path"] = numbers
+    return out, fwd_block, bwd_block
 
 
 def check_molecules(mols, num_samples):
@@ -1274,6 +1618,10 @@ def main() -> int:
     cond_launches, cond_numbers = drive_conditional_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
     cond_numbers["phase_s"] = time.perf_counter() - t0
     print(f"conditional path phase: {cond_numbers['phase_s']:.3f} s")
+    t0 = time.perf_counter()
+    geom_launches, geom_fwd, geom_bwd = drive_geom_path(torch)
+    geom_fwd["phase_s"] = time.perf_counter() - t0
+    print(f"GEOM path phase: {geom_fwd['phase_s']:.3f} s")
     passes_err, passes_launches, probe = check_passes(torch)
 
     # the chain row: bf16 at the training shape's E, float32 and the serving
@@ -1290,9 +1638,9 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
         "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values())
-        + sum(cond_launches["fwd"].values()),
+        + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values()),
         "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"],
-                             **cond_launches["fwd"]},
+                             **cond_launches["fwd"], **geom_launches["fwd"]},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -1307,14 +1655,17 @@ def main() -> int:
         "reverse_step_ms_b250": step_ms_b250,
         "user_path": user_numbers,
         "conditional_path": cond_numbers,
+        "geom": geom_fwd,
         "smem_bytes_blocks_per_sm": occupancy["message_layer"],
     }, {
         "name": "message_layer_bwd",
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
-        "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(cond_launches["bwd"].values()),
-        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **cond_launches["bwd"]},
+        "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
+        + sum(geom_launches["bwd"].values()),
+        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **cond_launches["bwd"],
+                             **geom_launches["bwd"]},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],
         "max_abs_err_bf16": kernel_bwd["max_abs_err_bf16"],
@@ -1330,6 +1681,7 @@ def main() -> int:
         "bound_ms_bf16": kernel_bwd["bound_ms_bf16"],
         "sub_kernels": {"fp32": kernel_bwd["sub_kernels_float32"], "bf16": kernel_bwd["sub_kernels_bfloat16"]},
         "occupancy": occupancy_bwd,
+        "geom": geom_bwd,
     }, {
         "name": "gcp2_chain",
         "route": "cuda",

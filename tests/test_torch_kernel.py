@@ -27,7 +27,11 @@ full 32-row tiles.  The chain's E=70 and 4,001 end in ragged tiles of 6 and
 3, 23), target tiles of 16 and 7 rows and 1,587 rows, one partial chunk; at
 QM9 width every weight-grad product has a ragged output tile (K = 48, 93,
 60, 17, 96, 24; N = 87, 51) or column-sum tile (the one-column attention
-weight, N=1), and the tiny widths make every tile ragged.
+weight, N=1), and the tiny widths make every tile ragged.  GEOM's width (Se=16,
+Ve=8: H1=18, wsx's K=43, 81 GCP1 columns) runs the forward at N=53 (a ragged
+second tile) and N=181 (six tiles, the last of 21 rows) and the backward at
+N=53; the backward's chunks of molecules are held against its whole batch,
+and the wrapper's chunk plan against the kernel's row width.
 """
 
 import pytest
@@ -43,6 +47,7 @@ from bio_diffusion_torch.train.torch_import import init_random_weights
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TINY = (16, 4, 8, 2)  # S, V, Se, Ve
 QM9 = (256, 32, 64, 16)
+GEOM = (256, 32, 16, 8)  # H1 = 18: 3 H1 + 27 = 81 columns, wsx's K = 43
 
 
 def make_layer(dims, dtype, device, b, n, seed=0):
@@ -83,7 +88,7 @@ def test_kernel_wrapper_validates_inputs(what, expected):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims,b,n", [(TINY, 3, 7), (TINY, 2, 40), (QM9, 8, 19), (QM9, 64, 29),
-                                      (QM9, 2, 64)])
+                                      (QM9, 2, 64), (GEOM, 2, 53), (GEOM, 1, 181)])
 def test_kernel_matches_plain_on_card(dtype, dims, b, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -109,7 +114,7 @@ TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims,b,n", [(TINY, 3, 7), (TINY, 2, 29), (QM9, 4, 19), (QM9, 4, 29),
-                                      (QM9, 2, 64), (QM9, 64, 29), (QM9, 3, 23)])
+                                      (QM9, 2, 64), (QM9, 64, 29), (QM9, 3, 23), (GEOM, 2, 53)])
 def test_bwd_kernel_matches_plain_on_card(dtype, dims, b, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -132,6 +137,53 @@ def test_bwd_kernel_matches_plain_on_card(dtype, dims, b, n):
         ref = p.float().abs().max().item()
         print(f"{dtype} dims={dims} B={b} N={n} {name}: err {err:.3g} max|plain| {ref:.3g}")
         assert err <= TOL_BWD[dtype] * ref, (name, err, ref)
+
+
+# the backward's per-molecule outputs: bit-identical however the batch is cut
+PER_MOLECULE = ("d_s_node", "d_v_node", "d_epack", "d_g1[wsi]", "d_g1[wsj]", "d_g1[wvi]", "d_g1[wvj]")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_chunks_equal_whole_batch_on_card(dtype):
+    """The backward kernel at GEOM width, B=5, N=21, walked in chunks of 2
+    molecules and of 1 (a call-level chunk size of the wrapper's helper)
+    against one call over the batch: the per-molecule outputs bit-identical,
+    the weight grads (summed over the chunks in order in f32) within 1e-5
+    of max|·| in float32, and in bfloat16 within one bf16 rounding of the
+    f32 sum (2^-8 of max|·|), two chunked runs bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    (s, v, epack), g1, chain, ve = make_layer(GEOM, dtype, "cuda", 5, 21, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ct = (torch.randn(s.shape, generator=gen, device="cuda").to(dtype),
+          torch.randn(v.shape, generator=gen, device="cuda").to(dtype))
+    assert ml.bwd_chunks(s, v, epack, g1, chain, ve_dim=ve)[:2] == (5, 1)
+    whole = ml.bwd_outputs(ml._message_layer_bwd_cuda(s, v, epack, g1, chain, ct, ve))
+    for chunk in (2, 1):
+        before = ml.launch_counts["message_layer_bwd"]
+        runs = [ml.bwd_outputs(ml._message_layer_bwd_cuda(s, v, epack, g1, chain, ct, ve, chunk_molecules=chunk))
+                for _ in range(2)]
+        assert ml.launch_counts["message_layer_bwd"] == before + 2  # one a layer backward
+        for (name, got), (_, again), (_, ref) in zip(*runs, whole):
+            assert torch.equal(got, again), f"{name}: two chunked runs differ"
+            if name in PER_MOLECULE:
+                assert torch.equal(got, ref), f"{name}: chunks of {chunk} differ from the whole batch"
+            else:
+                tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+                assert (got.float() - ref.float()).abs().max() <= tol * ref.float().abs().max(), name
+
+
+@pytest.mark.cuda
+def test_bwd_chunk_plan_on_card():
+    """The wrapper's plan from the kernel's own row width: QM9's training
+    shape in one chunk, GEOM's largest bucket in 16 chunks of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel's workspace query")
+    for dims, b, n, plan in ((QM9, 64, 29, (64, 1)), (GEOM, 64, 192, (4, 16)), (GEOM, 64, 96, (19, 4))):
+        (s, v, epack), g1, chain, ve = make_layer(dims, torch.float32, "cuda", 1, n)
+        s, v, epack = (t.expand(b, *t.shape[1:]).contiguous() for t in (s, v, epack))
+        assert ml.bwd_chunks(s, v, epack, g1, chain, ve_dim=ve)[:2] == plan, (dims, b, n)
 
 
 @pytest.mark.cuda
