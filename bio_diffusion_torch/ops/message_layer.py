@@ -278,26 +278,6 @@ def bwd_chunk_molecules(n: int, row_floats: int, budget: int = BWD_SCRATCH_BUDGE
     return max(1, budget // (n * n * row_floats * 4))
 
 
-def chunk_ranges(b: int, chunk: int) -> list:
-    """``[(b0, b1), ...]``: molecules ``0..b`` in chunks of ``chunk``, in order."""
-    return [(b0, min(b, b0 + chunk)) for b0 in range(0, b, chunk)]
-
-
-def _walk_chunks(b: int, chunk: int, grads: list, run) -> None:
-    """Molecules ``0..b`` in chunks of ``chunk``, in order: ``run(b0, b1,
-    out)`` computes one chunk, writing its per-molecule outputs in place and
-    its float32 weight grads into ``out`` (tensors shaped as ``grads``).  The
-    first chunk writes ``grads`` itself, each later one a buffer that is
-    then added on (chunk order, float32, no atomics: deterministic)."""
-    chunks = chunk_ranges(b, chunk)
-    more = [torch.empty_like(t) for t in grads] if len(chunks) > 1 else None
-    for c, (b0, b1) in enumerate(chunks):
-        run(b0, b1, grads if c == 0 else more)
-        if c > 0:
-            for t, m in zip(grads, more):
-                t.add_(m)
-
-
 def message_layer_bwd_plain(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor],
                             chain: tuple, cotangents: Tuple[Tensor, Tensor], *, ve_dim: int):
     """Plain PyTorch backward of the layer: autograd through
@@ -313,28 +293,6 @@ def message_layer_bwd_plain(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: D
         grads = torch.autograd.grad(out, leaves, cotangents, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
     return grads[0], grads[1], grads[2], dict(zip(G1_KEYS, grads[3:13])), tuple(grads[13:])
-
-
-def _message_layer_bwd_plain_chunks(s_node, v_node, epack, g1, chain, cotangents, *, ve_dim: int,
-                                    chunk_molecules: int):
-    """:func:`message_layer_bwd_plain` walked in chunks of ``chunk_molecules``
-    molecules by the kernel wrapper's own walk (the CPU check of that walk):
-    the node and edge cotangents of each chunk in place, the weight grads
-    summed over the chunks in order in float32."""
-    d_s, d_v, d_ep = (torch.empty_like(x) for x in (s_node, v_node, epack))
-    like = [g1[k] for k in G1_KEYS] + list(chain)
-    grads = [torch.empty(t.shape, dtype=torch.float32) for t in like]
-
-    def run(b0, b1, out):
-        part = message_layer_bwd_plain(s_node[b0:b1], v_node[b0:b1], epack[b0:b1], g1, chain,
-                                       (cotangents[0][b0:b1], cotangents[1][b0:b1]), ve_dim=ve_dim)
-        d_s[b0:b1], d_v[b0:b1], d_ep[b0:b1] = part[:3]
-        for o, g in zip(out, [part[3][k] for k in G1_KEYS] + list(part[4])):
-            o.copy_(g)
-
-    _walk_chunks(s_node.shape[0], chunk_molecules, grads, run)
-    grads = [g.to(t.dtype) for g, t in zip(grads, like)]
-    return d_s, d_v, d_ep, dict(zip(G1_KEYS, grads[:10])), tuple(grads[10:])
 
 
 def _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim, cotangents=None):
@@ -468,18 +426,20 @@ def _bwd_workspace(lib, dims) -> Tuple[int, int, int]:
 
 def bwd_chunks(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor], chain: tuple, *,
                ve_dim: int) -> Tuple[int, int, int]:
-    """How the kernel's wrapper walks this batch: ``(molecules a chunk,
-    chunks, scratch bytes a molecule)``."""
+    """The plan by which the kernel's wrapper walks this batch: ``(molecules
+    a chunk, chunks, scratch bytes a molecule)``.  For tests and
+    measurement; the wrapper itself makes the same arithmetic."""
     b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim)
     dims = (ctypes.c_int * 10)(1, n, epack.shape[-1], s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
     row_floats = _bwd_workspace(_bwd_library(), dims)[0] // (n * n)
     chunk = min(b, bwd_chunk_molecules(n, row_floats))
-    return chunk, len(chunk_ranges(b, chunk)), 4 * n * n * row_floats
+    return chunk, -(-b // chunk), 4 * n * n * row_floats
 
 
 def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim, chunk_molecules=None):
-    """The kernel over the batch in chunks of whole molecules: at most
-    ``BWD_SCRATCH_BUDGET`` bytes of scratch, or ``chunk_molecules`` a chunk."""
+    """The kernel over the batch in chunks of whole molecules, one call of
+    the kernel a chunk: at most ``BWD_SCRATCH_BUDGET`` bytes of scratch, or
+    ``chunk_molecules`` a chunk."""
     ds_agg, dv_agg = (c.contiguous() for c in cotangents)
     b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(
         s_node, v_node, epack, g1, chain, ve_dim, cotangents)
@@ -492,10 +452,13 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     def dims(molecules):
         return (ctypes.c_int * 10)(molecules, n, p, s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
 
+    sizes = _bwd_workspace(lib, dims(b))
     if chunk_molecules is None:
-        chunk_molecules = bwd_chunks(s_node, v_node, epack, g1, chain, ve_dim=ve_dim)[0]
+        chunk_molecules = bwd_chunk_molecules(n, sizes[0] // (b * n * n))
     chunk = min(b, chunk_molecules)
-    row_floats, partial_floats, smem = _bwd_workspace(lib, dims(chunk))
+    if chunk < b:
+        sizes = _bwd_workspace(lib, dims(chunk))
+    row_floats, partial_floats, smem = sizes
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"message-layer backward needs {smem} B of shared memory per block; "
@@ -527,9 +490,13 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     fn = getattr(lib, _C_BWD_FUNCTIONS[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run(b0, b1, wgrads):
+    # the first chunk writes the weight grads, each later one a buffer that
+    # is then added on (chunk order, float32, no atomics: deterministic)
+    more = [torch.empty_like(t) for t in grads] if chunk < b else None
+    for b0 in range(0, b, chunk):
+        b1 = min(b, b0 + chunk)
         ins = [proj_i[b0:b1], proj_j[b0:b1], epack[b0:b1], ds_agg[b0:b1], dv_agg[b0:b1]] + weights
-        outs = [d_epack[b0:b1], d_proj_i[b0:b1], d_proj_j[b0:b1]] + wgrads
+        outs = [d_epack[b0:b1], d_proj_i[b0:b1], d_proj_j[b0:b1]] + (grads if b0 == 0 else more)
         # the ctypes arrays stay referenced until the call returns
         ptrs_in = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
         ptrs_out = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
@@ -539,10 +506,10 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
                      partials.data_ptr(), ctypes.addressof(chunk_dims), stream)
         if err != 0:
             raise RuntimeError(f"message-layer backward kernel launch failed with CUDA error {err}")
-
-    _walk_chunks(b, chunk, grads, run)
-    # one count per layer backward, whatever its chunks
-    launch_counts["message_layer_bwd"] += 1
+        launch_counts["message_layer_bwd"] += 1
+        if b0 > 0:
+            for t, m in zip(grads, more):
+                t.add_(m)
 
     # node-side products, O(B N S^2), in float32 as in the TPU kernel
     dpi_s, dpi_v = d_proj_i[..., :s_dim], d_proj_i[..., s_dim:]

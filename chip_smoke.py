@@ -994,8 +994,10 @@ def check_geom_kernels(torch, evd):
     message GCPs), float32 and bfloat16: each against its plain version up
     to N=181 (padded rows), B1 timed beside its plain version at B=16, N=96,
     the backward's chunks of molecules against its whole batch, and one
-    full-width backward at B=64, N=96 in the chunks the wrapper picks ->
-    (forward block, backward block) of the kernels line."""
+    full-width backward at B=64, N=96 in the chunks the wrapper picks, its
+    launches (one a chunk) held against the wrapper's plan -> (forward
+    block, backward block) of the kernels line, and the kernel's floats of
+    scratch an edge row at GEOM width."""
     from bio_diffusion_torch.ops import message_layer as ml
 
     fwd, bwd = {"errors": {}, "by_shape": {}}, {"errors": {}}
@@ -1062,27 +1064,39 @@ def check_geom_kernels(torch, evd):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    ml.reset_launch_counts()
+    out = ml.fused_message_layer_bwd(*args, ct, ve_dim=ve)
+    walked = ml.launch_counts["message_layer_bwd"]
+    if walked != chunks:
+        raise AssertionError(f"the B=64, N=96 backward launched its kernel {walked} times; the plan is {chunks} "
+                             f"chunks of up to {chunk} molecules")
     ms = time_ms(torch, lambda: ml.fused_message_layer_bwd(*args, ct, ve_dim=ve), reps=3)
     peak = torch.cuda.max_memory_allocated()
-    out = ml.fused_message_layer_bwd(*args, ct, ve_dim=ve)
     bound_ms, bound_by = bound(3 * layer_flops(args, ve), nbytes(args, ct, out), "float32")
-    bwd["b64_n96"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, chunk_molecules=chunk, chunks=chunks,
-                          scratch_bytes_per_molecule=mol_bytes, whole_batch_scratch_bytes=64 * mol_bytes,
+    bwd["b64_n96"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, chunks=walked,
                           peak_bytes_above_inputs=peak - base, peak_bytes=peak)
-    print(f"timing GEOM bwd float32 B=64 N=96: {ms:.4f} ms in {chunks} chunks of up to {chunk} molecules "
-          f"(scratch {mol_bytes / 2**20:.1f} MiB a molecule, {64 * mol_bytes / 2**30:.2f} GiB whole), bound "
-          f"{bound_ms:.4f} ms ({bound_by}); peak device memory {peak / 2**30:.3f} GiB, "
+    print(f"timing GEOM bwd float32 B=64 N=96: {ms:.4f} ms; one backward launched the kernel {walked} times "
+          f"(plan: {chunks} chunks of up to {chunk} molecules, scratch {mol_bytes / 2**20:.1f} MiB a molecule); "
+          f"bound {bound_ms:.4f} ms ({bound_by}); peak device memory {peak / 2**30:.3f} GiB, "
           f"{(peak - base) / 2**30:.3f} GiB above the inputs")
-    return fwd, bwd
+    return fwd, bwd, mol_bytes // (4 * 96 * 96)
+
+
+def bwd_plan_chunks(ml, row_floats, b, n):
+    """Chunks of the backward wrapper's plan for ``b`` molecules padded to
+    ``n`` at ``row_floats`` floats of scratch an edge row."""
+    return -(-b // min(b, ml.bwd_chunk_molecules(n, row_floats)))
 
 
 @contextlib.contextmanager
 def step_batches():
     """Record the padded shape and largest molecule of every batch the
-    Trainers built in the block train or validate on."""
+    Trainers built in the block train or validate on, and the backward
+    kernel's launches of each train step."""
+    from bio_diffusion_torch.ops import message_layer as ml
     from bio_diffusion_torch.train import loop
 
-    seen = {"train": [], "valid": []}
+    seen = {"train": [], "valid": [], "train_bwd": []}
     orig = {"train": loop.make_train_step, "valid": loop.make_eval_step}
 
     def wrap(make, key):
@@ -1092,7 +1106,11 @@ def step_batches():
             def run(*a, **k):
                 batch = a[1] if key == "train" else a[0]
                 seen[key].append((tuple(batch.node_mask.shape), int(batch.node_mask.sum(1).max())))
-                return step(*a, **k)
+                before = ml.launch_counts["message_layer_bwd"]
+                result = step(*a, **k)
+                if key == "train":
+                    seen["train_bwd"].append(ml.launch_counts["message_layer_bwd"] - before)
+                return result
             return run
         return made
 
@@ -1103,11 +1121,12 @@ def step_batches():
         loop.make_train_step, loop.make_eval_step = orig["train"], orig["valid"]
 
 
-def geom_worst_step(torch, data_dir, root):
+def geom_worst_step(torch, data_dir, root, row_floats):
     """Trainer steps of the full-width GEOM model (fp32) on the worst batch
     the config admits: B=64 padded to the 192 bucket, its largest molecule
     181 atoms (one drawn from the seed beside the 63 largest of the train
-    split) -> numbers."""
+    split); the backward's launches held against the wrapper's plan at the
+    kernel's ``row_floats`` -> numbers."""
     import numpy as np
 
     from bio_diffusion_torch.data.batch import iterate_dense_batches
@@ -1127,6 +1146,7 @@ def geom_worst_step(torch, data_dir, root):
     if tuple(batch.node_mask.shape) != (64, 192) or int(batch.node_mask.sum(1).max()) != 181:
         raise AssertionError(f"the worst batch is {tuple(batch.node_mask.shape)}, not B=64 padded to 192")
     total = torch.cuda.get_device_properties(0).total_memory
+    plan = bwd_plan_chunks(ml, row_floats, 64, 192)
     out = {"shape": "fp32, B=64, N=192 (largest molecule 181 atoms)", "steps_ms": [], "total_bytes": total}
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1139,14 +1159,19 @@ def geom_worst_step(torch, data_dir, root):
         torch.cuda.synchronize()
         loss = float(metrics["loss"])
         counts = dict(ml.launch_counts)
-        if not np.isfinite(loss) or (counts["message_layer"], counts["message_layer_bwd"]) != (layers, layers):
-            raise AssertionError(f"worst GEOM step: loss {loss}, launches {counts}")
+        if not np.isfinite(loss) or (counts["message_layer"], counts["message_layer_bwd"]) != (layers, layers * plan):
+            raise AssertionError(f"worst GEOM step: loss {loss}, launches {counts}, need {layers} forward and "
+                                 f"{layers} x {plan} backward chunks")
         out["steps_ms"].append(start_ev.elapsed_time(end_ev))
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(fwd_launches=counts["message_layer"], bwd_launches=counts["message_layer_bwd"],
+               bwd_chunks_per_layer=counts["message_layer_bwd"] // layers)
     print(f"GEOM worst batch: Trainer steps at B=64, N=192 (largest 181 atoms), fp32: "
           f"{', '.join('%.3f' % t for t in out['steps_ms'])} ms, loss {loss:.6g} (finite), launches fwd "
-          f"{counts['message_layer']} bwd {counts['message_layer_bwd']} (need {layers} + {layers}); peak device "
-          f"memory {out['peak_bytes'] / 2**30:.3f} GiB of {total / 2**30:.3f} GiB")
+          f"{counts['message_layer']} bwd {counts['message_layer_bwd']} = {layers} layers x "
+          f"{out['bwd_chunks_per_layer']} chunks (plan: {plan} chunks of up to "
+          f"{ml.bwd_chunk_molecules(192, row_floats)} molecules at {row_floats} floats of scratch an edge row); "
+          f"peak device memory {out['peak_bytes'] / 2**30:.3f} GiB of {total / 2**30:.3f} GiB")
     del trainer, batch
     return out
 
@@ -1184,21 +1209,14 @@ def drive_geom_path(torch):
           f"in {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     evd = load_model(geom_experiment("fp32"), None, torch.device("cuda"), seed=0)
-    fwd_block, bwd_block = check_geom_kernels(torch, evd)
+    fwd_block, bwd_block, row_floats = check_geom_kernels(torch, evd)
     del evd
     torch.cuda.empty_cache()
     print(f"GEOM path kernel checks: {time.perf_counter() - t0:.3f} s")
-    worst = geom_worst_step(torch, data_dir, root)
-    row_floats = bwd_block["b64_n96"]["scratch_bytes_per_molecule"] // (4 * 96 * 96)
-    chunk = ml.bwd_chunk_molecules(192, row_floats)
-    worst.update(bwd_chunk_molecules=chunk, bwd_chunks=len(ml.chunk_ranges(64, chunk)),
-                 whole_batch_scratch_bytes=64 * 192 * 192 * row_floats * 4)
-    print(f"GEOM worst batch: the backward walks it in {worst['bwd_chunks']} chunks of {chunk} molecules "
-          f"({row_floats} floats of scratch a row: {worst['whole_batch_scratch_bytes'] / 2**30:.2f} GiB for the "
-          f"whole batch, {chunk * 192 * 192 * row_floats * 4 / 2**30:.2f} GiB a chunk)")
+    worst = geom_worst_step(torch, data_dir, root, row_floats)
     torch.cuda.empty_cache()
     fwd_block["worst_step"] = worst
-    bwd_block["worst_step"] = {k: worst[k] for k in ("bwd_chunk_molecules", "bwd_chunks", "whole_batch_scratch_bytes")}
+    bwd_block["worst_step"] = {k: worst[k] for k in ("bwd_launches", "bwd_chunks_per_layer")}
 
     out, numbers = {"fwd": {}, "bwd": {}}, {}
 
@@ -1227,15 +1245,17 @@ def drive_geom_path(torch):
     measured = {"geom_train": counts["message_layer"] - eval_launches, "geom_sampling_eval": eval_launches}
     need = {"geom_train": layers * (st["micro_batches"] + 2 * st["eval_batches"]),
             "geom_sampling_eval": layers * (T + 1) * len(batches)}
-    buckets_ok = all(shape[1] == select_bucket(largest, GEOM_BUCKETS) for split in seen.values()
-                     for shape, largest in split)
+    buckets_ok = all(shape[1] == select_bucket(largest, GEOM_BUCKETS) for split in ("train", "valid")
+                     for shape, largest in seen[split])
+    bwd_need = [layers * bwd_plan_chunks(ml, row_floats, *shape) for shape, _ in seen["train"]]
     print(f"GEOM train: {st['steps']} steps, {st['eval_batches']} EMA validation batches, one sampling evaluation "
           f"of {len(batches)} sampler batch(es) of 16 at T={T}, {sec:.3f} s with set-up; train batches (B, padded N; "
           f"largest) {seen['train']}, validation batches {seen['valid']}; launches fwd train {measured['geom_train']} "
           f"(need {need['geom_train']}), sampling eval {measured['geom_sampling_eval']} (need "
-          f"{need['geom_sampling_eval']}), bwd {counts['message_layer_bwd']} (need {layers * st['micro_batches']})")
+          f"{need['geom_sampling_eval']}), bwd {counts['message_layer_bwd']} by train batch {seen['train_bwd']} "
+          f"(need layers x planned chunks: {bwd_need})")
     if (st["steps"], st["eval_batches"], len(evals), len(batches)) != (4, 2, 1, 1) or measured != need \
-            or counts["message_layer_bwd"] != layers * st["micro_batches"] or not buckets_ok \
+            or seen["train_bwd"] != bwd_need or counts["message_layer_bwd"] != sum(bwd_need) or not buckets_ok \
             or len(seen["train"]) != 4 or any(shape[0] != 64 for shape, _ in seen["train"]):
         raise AssertionError("the GEOM training run's batches or launch counts are not exact")
     val = [r for r in trainer.loggers.loggers[0].rows if "val/mol_stable" in r]
@@ -1245,6 +1265,7 @@ def drive_geom_path(torch):
     out["fwd"].update(measured)
     out["bwd"]["geom_train"] = counts["message_layer_bwd"]
     numbers.update(train_s=sec, train_batches=seen["train"], valid_batches=seen["valid"],
+                   train_bwd_launches=seen["train_bwd"],
                    train_sampling_eval={"n": batches[0]["shape"][1], "s_per_step": batches[0]["s"] / T})
 
     info = GEOM_WITH_H

@@ -241,19 +241,44 @@ def geom_layer(evd, b, n, seed, dtype=torch.float32, device="cpu"):
     return (on(s), on(v), on(epack), g1, chain), tuple(on(c) for c in ct), ve
 
 
-@pytest.mark.parametrize("chunk", [5, 2, 1])
+def plain_bwd_in_chunks(args, ct, ve, chunk):
+    """:func:`message_layer_bwd_plain` over the molecules in chunks of
+    ``chunk``, as the kernel's wrapper cuts the batch: each chunk's node and
+    edge cotangents in place, the weight grads summed in chunk order in
+    float32."""
+    s, v, epack, g1, chain = args
+    parts = [ml.bwd_outputs(ml.message_layer_bwd_plain(
+        s[b0:b0 + chunk], v[b0:b0 + chunk], epack[b0:b0 + chunk], g1, chain,
+        (ct[0][b0:b0 + chunk], ct[1][b0:b0 + chunk]), ve_dim=ve)) for b0 in range(0, s.shape[0], chunk)]
+    out = []
+    for i, (name, first) in enumerate(parts[0]):
+        tensors = [part[i][1] for part in parts]
+        if name.startswith(("d_g1", "d_chain")):
+            total = tensors[0].float().clone()
+            for t in tensors[1:]:
+                total += t.float()
+            out.append((name, total.to(first.dtype)))
+        else:
+            out.append((name, torch.cat(tensors)))
+    return out
+
+
+@pytest.mark.parametrize("chunk", [5, 3, 2, 1])
 def test_chunked_backward_equals_whole_batch(setup, chunk):
-    """The plain backward walked in chunks of ``chunk`` molecules (5: one
-    chunk) by the kernel wrapper's own walk (``_walk_chunks``) against the
-    whole batch of 5.  One chunk is the whole batch's call, bit for bit.  In more chunks each molecule's node and edge cotangents are
-    its own (a wrong slice would differ by O(1)), but the CPU's matrix
-    products round by their row count, so they agree to one float32
-    rounding (1e-7 of max|·|); ``test_torch_kernel.py`` holds the kernel's
-    bit-identical on the card."""
+    """The backward cut into chunks of ``chunk`` molecules (5: one chunk; 3:
+    two; 2: three, the last ragged; 1: a chunk a molecule) against the
+    whole batch of 5: the decomposition the kernel's wrapper
+    makes (molecules independent, weight grads summed over the chunks).
+    One chunk is the whole batch's call, bit for bit.  In more chunks each
+    molecule's node and edge cotangents are its own (a wrong slice would
+    differ by O(1)), but the CPU's matrix products round by their row count,
+    so they agree to one float32 rounding (1e-7 of max|·|);
+    ``test_torch_kernel.py`` holds the kernel's own walk bit-identical on
+    the card."""
     *_, evd = setup
     args, ct, ve = geom_layer(evd, 5, 9, seed=chunk)
     whole = ml.bwd_outputs(ml.message_layer_bwd_plain(*args, ct, ve_dim=ve))
-    chunked = ml.bwd_outputs(ml._message_layer_bwd_plain_chunks(*args, ct, ve_dim=ve, chunk_molecules=chunk))
+    chunked = plain_bwd_in_chunks(args, ct, ve, chunk)
     assert [k for k, _ in chunked] == [k for k, _ in whole]
     for (name, got), (_, ref) in zip(chunked, whole):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
@@ -266,15 +291,12 @@ def test_chunked_backward_equals_whole_batch(setup, chunk):
 
 
 def test_chunk_plan():
-    """Chunks of whole molecules in order; the budget's arithmetic at the
-    kernel's row widths (floats a row of scratch): QM9's training shape
+    """The budget's arithmetic at the kernel's row widths (floats a row of scratch): QM9's training shape
     (width 6,128 at S=256, V=32, Se=64, Ve=16) stays one chunk, GEOM's
     192 bucket (6,040 at Se=16, Ve=8) walks 16 chunks of 4 molecules."""
-    assert ml.chunk_ranges(5, 2) == [(0, 2), (2, 4), (4, 5)]
-    assert ml.chunk_ranges(4, 4) == [(0, 4)] and ml.chunk_ranges(3, 1) == [(0, 1), (1, 2), (2, 3)]
     assert ml.BWD_SCRATCH_BUDGET == 4 << 30
     assert ml.bwd_chunk_molecules(29, 6128) == 208
-    assert ml.bwd_chunk_molecules(192, 6040) == 4 and len(ml.chunk_ranges(64, 4)) == 16
+    assert ml.bwd_chunk_molecules(192, 6040) == 4
     assert ml.bwd_chunk_molecules(96, 6040) == 19
     assert ml.bwd_chunk_molecules(400, 6040) == 1  # never fewer than one molecule
 
