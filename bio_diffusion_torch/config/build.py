@@ -100,17 +100,16 @@ def build_experiment(cfg: Dict[str, Any]) -> ExperimentConfig:
 POCKET_DATASETS = ("bindingmoad", "crossdock", "crossdock_full")
 
 
-def _refuse_unported(dataset: str) -> None:
-    if dataset in POCKET_DATASETS:
-        raise NotImplementedError(f"dataset {dataset!r}: pocket data is not ported yet (ROADMAP A10)")
-
-
 def get_dataset_info_for(exp: ExperimentConfig) -> Dict[str, Any]:
-    """The statistics table (atom types, size histogram) of the configured dataset."""
+    """The statistics table (atom types, size histogram) of the configured
+    dataset; a pocket dataset's is the joint ligand+pocket table."""
     from bio_diffusion_torch.data.dataset_info import get_dataset_info
 
     dl = exp.dataloader_cfg
-    _refuse_unported(dl.dataset)
+    if dl.dataset in POCKET_DATASETS:
+        from bio_diffusion_torch.data.pocket import joint_dataset_info
+
+        return joint_dataset_info(dl.dataset)
     name = "QM9_second_half" if dl.dataset == "QM9_second_half" else (
         "GEOM" if "GEOM" in dl.dataset else "QM9")
     return get_dataset_info(name, dl.remove_h)
@@ -118,8 +117,8 @@ def get_dataset_info_for(exp: ExperimentConfig) -> Dict[str, Any]:
 
 def build_datasets(exp: ExperimentConfig) -> Dict[str, Any]:
     """Train/valid/test ``DenseDataset``s of the configured dataset:
-    ``synthetic`` (the offline stand-in), or QM9 or GEOM-Drugs read from
-    ``data_dir``."""
+    ``synthetic`` (the offline stand-in), QM9 or GEOM-Drugs read from
+    ``data_dir``, or synthetic joint graphs for a pocket dataset."""
     dl = exp.dataloader_cfg
     if dl.dataset == "synthetic":
         from bio_diffusion_torch.data.synthetic import synthetic_qm9_like
@@ -129,7 +128,15 @@ def build_datasets(exp: ExperimentConfig) -> Dict[str, Any]:
             "valid": synthetic_qm9_like(128, seed=exp.seed + 1),
             "test": synthetic_qm9_like(128, seed=exp.seed + 2),
         }
-    _refuse_unported(dl.dataset)
+    if dl.dataset in POCKET_DATASETS:
+        # the Binding MOAD / CrossDocked structures are not in the repository:
+        # synthetic joint ligand+pocket graphs of their shape stand in
+        from bio_diffusion_torch.data.pocket import synthetic_pocket_joint_dataset
+
+        counts = {"train": dl.num_train, "valid": dl.num_valid, "test": dl.num_test}
+        return {split: synthetic_pocket_joint_dataset(dl.dataset, num_graphs=n if n and n > 0 else default,
+                                                      seed=exp.seed + i)
+                for i, ((split, n), default) in enumerate(zip(counts.items(), (512, 128, 128)))}
     if "QM9" in dl.dataset:
         from bio_diffusion_torch.data.qm9 import load_qm9_datasets
 

@@ -4,19 +4,27 @@ Port of ``bio_diffusion_tpu/models/diffusion.py``: the predefined gamma
 table, the sigma/alpha algebra, CoM-free noise, the loss terms (L2 and VLB,
 KL prior, the L0 likelihoods, the two-pass L0 estimate for evaluation) and
 ``assemble_nll``, one ancestral reverse step, the final decode, the
-reverse loop and the guided round trip of existing molecules
-(``mol_gen_optimize``).  Every function that runs the denoiser takes the
-property context of a conditioned model (``context [B, N, C]``, else None)
-and hands it to each denoiser call.  Every function that draws takes an explicit
-``torch.Generator`` and also accepts the draws as tensors (``noise``,
-``t_int``, ``eps_t``, ``eps_0``), so tests can pass in another framework's
-draws; raw normal draws are masked and CoM-projected exactly like fresh ones.
+reverse loop, the guided round trip of existing molecules
+(``mol_gen_optimize``) and RePaint inpainting (``inpaint``, its jump back
+``sample_p_zt_given_zs`` and its schedule).  Every function that runs the
+denoiser takes the property context of a conditioned model (``context
+[B, N, C]``, else None) and hands it to each denoiser call.  Every function
+that draws takes an explicit ``torch.Generator`` and also accepts the draws
+as tensors (``noise``, ``noises``, ``t_int``, ``eps_t``, ``eps_0``), so tests
+can pass in another framework's draws; raw normal draws are masked and
+CoM-projected exactly like fresh ones.
+
+Two bugs of the reference stay fixed, as in the JAX package: ``inpaint``
+reads ``num_denoise_steps`` before assigning it (its self-conditioning
+s-array is zeros; built directly here), and ``sample_p_zt_given_zs``
+indexes a ``[B, 1]`` tensor with a node-length mask (the intent, a per-graph
+broadcast, is what the dense layout gives).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -322,6 +330,16 @@ class EquivariantVariationalDiffusion(nn.Module):
         _, zs_x = centralize(zs[..., :nx], node_mask)
         return torch.cat([zs_x, zs[..., nx:]], dim=-1)
 
+    def sample_p_zt_given_zs(self, zs: Tensor, node_mask: Tensor, gamma_t: Tensor, gamma_s: Tensor,
+                             generator: Optional[torch.Generator] = None, noise: Optional[Tensor] = None) -> Tensor:
+        """Jump back: renoise z_s -> z_t (RePaint); the step's sigma and alpha
+        broadcast per graph."""
+        _, sigma_tgs, alpha_tgs = self.sigma_and_alpha_t_given_s(gamma_t, gamma_s)
+        zt = alpha_tgs[..., None] * zs + sigma_tgs[..., None] * self.sample_noise(node_mask, generator, noise=noise)
+        nx = self.num_x_dims
+        _, zt_x = centralize(zt[..., :nx], node_mask)
+        return torch.cat([zt_x, zt[..., nx:]], dim=-1)
+
     def sample_p_xh_given_z0(self, z_0: Tensor, node_mask: Tensor,
                              generator: Optional[torch.Generator] = None, fix_noise: bool = False,
                              noise: Optional[Tensor] = None, context: Optional[Tensor] = None
@@ -406,6 +424,101 @@ class EquivariantVariationalDiffusion(nn.Module):
                                  noises=None if noises is None else noises[:-1], context=context)
         return self.decode_sample(z, node_mask, generator, noise=None if noises is None else noises[-1],
                                   context=context)
+
+    # -- RePaint inpainting -------------------------------------------------------
+
+    @staticmethod
+    def get_repaint_schedule(resamplings: int, jump_length: int, num_timesteps: int) -> List[int]:
+        """RePaint's denoising segment lengths, last segment first."""
+        curr_t = 0
+        schedule: List[int] = []
+        while curr_t < num_timesteps:
+            if curr_t + jump_length < num_timesteps:
+                if schedule:
+                    schedule[-1] += jump_length
+                    schedule.extend([jump_length] * (resamplings - 1))
+                else:
+                    schedule.extend([jump_length] * resamplings)
+                curr_t += jump_length
+            else:
+                residual = num_timesteps - curr_t
+                if schedule:
+                    schedule[-1] += residual
+                else:
+                    schedule.append(residual)
+                curr_t += residual
+        return list(reversed(schedule))
+
+    @staticmethod
+    def repaint_step_arrays(schedule: List[int], jump_length: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The schedule as one ``(s_value, jump_flag)`` pair a step: after the
+        last step of every segment but the final one, jump ``jump_length``
+        steps back."""
+        s_vals, jump_flags = [], []
+        s = sum(schedule) - (len(schedule) - 1) * jump_length - 1
+        for i, num_denoise_steps in enumerate(schedule):
+            for j in range(num_denoise_steps):
+                s_vals.append(s)
+                will_jump = (j == num_denoise_steps - 1) and (i < len(schedule) - 1)
+                jump_flags.append(will_jump)
+                if will_jump:
+                    s = s + jump_length
+                s -= 1
+        return np.array(s_vals, dtype=np.float32), np.array(jump_flags, dtype=bool)
+
+    def inpaint(self, x0: Tensor, h0_cat: Tensor, h0_int: Tensor, node_mask: Tensor, node_mask_fixed: Tensor,
+                num_resamplings: int = 1, jump_length: int = 1, num_timesteps: Optional[int] = None,
+                generator: Optional[torch.Generator] = None, noises: Optional[Sequence[Tensor]] = None,
+                context: Optional[Tensor] = None) -> Tensor:
+        """RePaint inpainting: keep the nodes flagged in ``node_mask_fixed``
+        (their data ``x0``, ``h0_cat``, ``h0_int``), generate the rest ->
+        data-scale ``[x | one_hot (| charges)]``, CoM-free.
+
+        The known part is centred on its CoM; at every step it is noised to
+        the step's level and shifted so that its CoM is the denoised part's
+        CoM over the same nodes, then the two are merged; after the last
+        step of each segment but the final one the state jumps back
+        ``jump_length`` steps.  ``noises``: the raw draws instead of drawing
+        from ``generator``, one for the prior, then per step one for the
+        known part, one for the reverse step and one for the jump (read only
+        where the step jumps), then one for the decode."""
+        if self.diffusion_cfg.self_condition:
+            raise NotImplementedError("self-conditioning is not ported yet")
+        T_s = self.T if num_timesteps is None else int(num_timesteps)
+        s_vals, jump_flags = self.repaint_step_arrays(
+            self.get_repaint_schedule(num_resamplings, jump_length, T_s), jump_length)
+        if noises is not None and len(noises) != 3 * len(s_vals) + 2:
+            raise ValueError(f"noises: need {3 * len(s_vals) + 2} draws, got {len(noises)}")
+
+        def draw(k):
+            return None if noises is None else noises[k]
+
+        b, nx = node_mask.shape[0], self.num_x_dims
+        mf = node_mask_fixed.to(x0.dtype)[..., None]
+        m = node_mask.to(x0.dtype)[..., None]
+        x0n, h0cn, h0in = self.normalize(x0, h0_cat, h0_int, node_mask)
+        xh0 = self.pack_xh(x0n, h0cn, h0in)
+        count_known = torch.clamp(mf.sum(dim=-2), min=1.0)  # [B, 1]
+        mean_known = (x0n * mf).sum(dim=-2) / count_known
+        xh0 = torch.cat([(xh0[..., :nx] - mean_known[:, None, :]) * m, xh0[..., nx:]], dim=-1)
+
+        z = self.sample_noise(node_mask, generator, noise=draw(0))
+        for k, (s_val, jump) in enumerate(zip(s_vals, jump_flags)):
+            s_full = torch.full((b, 1), float(s_val), dtype=z.dtype, device=z.device)
+            s_arr, t_arr = s_full / T_s, (s_full + 1.0) / T_s
+            gamma_s = self.gamma(s_arr)
+            z_known, _ = self.compute_noised_representation(xh0, node_mask, gamma_s, generator, draw(3 * k + 1))
+            z_unknown = self.sample_p_zs_given_zt(s_arr, t_arr, z, node_mask, generator, noise=draw(3 * k + 2),
+                                                  context=context)
+            com_noised = (z_known[..., :nx] * mf).sum(dim=-2) / count_known
+            com_denoised = (z_unknown[..., :nx] * mf).sum(dim=-2) / count_known
+            z_known = torch.cat([z_known[..., :nx] + (com_denoised - com_noised)[:, None, :] * m,
+                                 z_known[..., nx:]], dim=-1)
+            z = (z_known * mf + z_unknown * (1.0 - mf)) * m
+            if jump:
+                gamma_t = self.gamma((s_full + jump_length) / T_s)
+                z = self.sample_p_zt_given_zs(z, node_mask, gamma_t, gamma_s, generator, noise=draw(3 * k + 3))
+        return self.decode_sample(z, node_mask, generator, noise=draw(3 * len(s_vals) + 1), context=context)
 
 
 def assemble_nll(terms: Dict[str, Tensor], loss_type: str, training: bool, T: int, num_x_dims: int,

@@ -1,10 +1,15 @@
 """Host-side sampling drivers: the reverse-diffusion loop, batching, analysis.
 
 Port of ``bio_diffusion_tpu/train/sampling.py`` (``SegmentedSampler``,
-``make_node_mask``, ``sample_molecules``, ``analyze_samples``) with the JAX
-package's signatures, property contexts included.  PyTorch runs
-eagerly, so the sampler is a Python loop over the reverse steps on the EVD's
-device; randomness comes from the ``torch.Generator`` each call is given.
+``make_node_mask``, ``sample_molecules``, ``analyze_samples``,
+``ligand_pocket_geometry``, ``generate_ligands_in_pocket``) with the JAX
+package's signatures, property contexts included; a ``torch.Generator``
+takes the place of the JAX key, and the data-parallel ``mesh`` waits for
+multi-GPU support (ROADMAP A12); ``generate_ligands_in_pocket`` pads the
+ligand block to its largest ligand (JAX's ``pad_to_multiple``, which no
+caller sets, is left out).  PyTorch runs eagerly, so the sampler is a
+Python loop over the reverse steps on the EVD's device; randomness comes
+from the ``torch.Generator`` each call is given.
 """
 
 from __future__ import annotations
@@ -135,3 +140,104 @@ def analyze_samples(xh: np.ndarray, node_mask: np.ndarray, dataset_info: Dict[st
         validity, uniqueness, novelty = molecular_metrics.evaluate(mols)[:3]
         metrics.update(validity=validity, uniqueness=uniqueness, novelty=novelty)
     return metrics
+
+
+def ligand_pocket_geometry(ligand_x: np.ndarray, ligand_mask: np.ndarray, pocket_x: np.ndarray,
+                           pocket_mask: np.ndarray) -> Dict[str, float]:
+    """Geometry of ligands generated into pockets (host side):
+    ``lig_nn_dist``, the mean nearest-neighbour distance among a ligand's
+    atoms (A), and ``lig_center_rms``, the RMS distance of its atoms from
+    the pocket's centroid (A), each averaged over the molecules with at
+    least 2 ligand atoms and a pocket; ``{}`` when there is none.  Valence
+    stability tells nothing on the synthetic random-walk ligands (their own
+    chains score ~0); these two tell trained from untrained models."""
+    nn_dists, center_rms = [], []
+    for i in range(len(ligand_x)):
+        lm, pm = ligand_mask[i] > 0, pocket_mask[i] > 0
+        x = np.asarray(ligand_x[i][lm], dtype=np.float64)
+        if len(x) < 2 or pm.sum() == 0:
+            continue
+        dm = np.linalg.norm(x[:, None] - x[None], axis=-1)
+        np.fill_diagonal(dm, np.inf)
+        nn_dists.append(dm.min(axis=1).mean())
+        center = np.asarray(pocket_x[i][pm], dtype=np.float64).mean(axis=0)
+        center_rms.append(np.sqrt(((x - center) ** 2).sum(-1).mean()))
+    if not nn_dists:
+        return {}
+    return {"lig_nn_dist": float(np.mean(nn_dists)), "lig_center_rms": float(np.mean(center_rms))}
+
+
+def generate_ligands_in_pocket(evd, generator: torch.Generator, pocket_x: np.ndarray, pocket_types: np.ndarray,
+                               pocket_mask: np.ndarray, ligand_sizes: np.ndarray, num_ligand_atom_types: int,
+                               num_resamplings: int = 1, jump_length: int = 1,
+                               num_timesteps: Optional[int] = None,
+                               noises: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+    """Ligands generated into pockets: RePaint inpainting (``evd.inpaint``,
+    on the EVD's device) over the joint ligand+pocket graph with the pocket
+    rows fixed.
+
+    ``pocket_x [B, Np, 3]`` CA coordinates in any frame, ``pocket_types
+    [B, Np]`` residue indices, ``pocket_mask [B, Np]``, ``ligand_sizes [B]``
+    atoms to generate; ``num_ligand_atom_types`` is Kl, the width of the
+    ligand block of the joint one-hot.  ``noises`` go to ``inpaint``.
+    Returns host arrays: ``ligand_x [B, Nl, 3]`` in the input pocket's
+    frame (the best-fit translation of the decoded pocket onto the input),
+    ``ligand_one_hot [B, Nl, Kl]`` (types taken over the ligand block
+    only), ``ligand_mask``, ``joint_xh [B, Nl + Np, 3 + K]`` with the
+    pocket rows restored bit-exact, ``node_mask`` and ``fixed_mask``."""
+    from bio_diffusion_torch.config.schema import compute_num_atom_types
+    from bio_diffusion_torch.data.pocket import JointLigandPocketBatch
+
+    ligand_sizes = np.asarray(ligand_sizes, dtype=np.int64)
+    pocket_x = np.asarray(pocket_x, dtype=np.float32)
+    pocket_mask = np.asarray(pocket_mask, dtype=np.float32)
+    b, np_pad = pocket_mask.shape
+    nl_pad = int(ligand_sizes.max())
+    k_total = compute_num_atom_types(evd.dataloader_cfg)
+    kl = int(num_ligand_atom_types)
+    kp = k_total - kl
+    if kp <= 0:
+        raise ValueError(f"model atom-type width {k_total} does not leave room for a pocket block after {kl} "
+                         "ligand types")
+    pocket_one_hot = np.eye(kp, dtype=np.float32)[np.asarray(pocket_types, dtype=np.int64)] * pocket_mask[..., None]
+    pocket_x = pocket_x * pocket_mask[..., None]
+    ligand_mask = make_node_mask(ligand_sizes, nl_pad)
+    joint = JointLigandPocketBatch(
+        ligand_x=np.zeros((b, nl_pad, 3), np.float32), ligand_one_hot=np.zeros((b, nl_pad, kl), np.float32),
+        ligand_mask=ligand_mask, pocket_x=pocket_x, pocket_one_hot=pocket_one_hot, pocket_mask=pocket_mask)
+
+    device = next(evd.parameters()).device
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    with torch.inference_mode():
+        xh = evd.inpaint(dev(joint.x), dev(joint.one_hot),
+                         torch.zeros((b, nl_pad + np_pad, int(evd.dataloader_cfg.include_charges)), device=device),
+                         dev(joint.node_mask), dev(joint.fixed_mask), num_resamplings, jump_length, num_timesteps,
+                         generator=generator, noises=noises)
+    xh = xh.cpu().numpy()
+
+    # inpaint's output is centred on the joint CoM: move it by the best-fit
+    # translation of the decoded pocket onto the input pocket, then restore
+    # the pocket rows exactly (conditioning, not a sample)
+    count = np.maximum(pocket_mask.sum(axis=1, keepdims=True), 1.0)
+    shift = ((pocket_x - xh[:, nl_pad:, :3]) * pocket_mask[..., None]).sum(axis=1) / count
+    xh[..., :3] += shift[:, None, :]
+    xh[..., :3] *= joint.node_mask[..., None]
+    xh[:, nl_pad:, :3] = pocket_x
+    xh[:, nl_pad:, 3: 3 + k_total] = joint.one_hot[:, nl_pad:]
+
+    # a generated row takes its best type of the ligand block
+    lig_types = xh[:, :nl_pad, 3: 3 + kl].argmax(-1)
+    ligand_one_hot = np.eye(kl, dtype=np.float32)[lig_types] * ligand_mask[..., None]
+    xh[:, :nl_pad, 3: 3 + k_total] = 0.0
+    xh[:, :nl_pad, 3: 3 + kl] = ligand_one_hot
+    return {
+        "ligand_x": xh[:, :nl_pad, :3] * ligand_mask[..., None],
+        "ligand_one_hot": ligand_one_hot,
+        "ligand_mask": ligand_mask,
+        "joint_xh": xh,
+        "node_mask": joint.node_mask,
+        "fixed_mask": joint.fixed_mask,
+    }

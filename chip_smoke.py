@@ -108,6 +108,29 @@
    molecules each, one NLL pass over the 2 test batches) from the
    checkpoint directory, every launch count exact; prints each sampler
    batch's padded N, seconds per reverse step and molecules per second.
+14. Drives the pocket path (after the GEOM path), fp32 at the
+   ``pocket_mol_gen_ddpm`` width (the GEOM widths; 30 atom types = 10
+   ligand + 20 residue, no charge channel; batch 32 in the buckets [48, 64,
+   96, 128, 144]), weights drawn from a seed: holds B1 against its plain
+   version at the training shape B=32, N=144 (padded rows; timed in
+   turns), B2 against its plain version at B=2, N=144, and B2 at B=32,
+   N=144 in the wrapper's 4 chunks of 8 against one whole-batch call
+   (per-molecule outputs bit-identical; timed, with its peak memory); then
+   (a) ``cli.train.main`` on the synthetic joint graphs (4 train batches,
+   2 EMA validation batches; each batch's bucket, B2's launches by batch
+   held against the plan of 1 / 1 / 2 / 4 / 4 chunks in the 48 / 64 / 96 /
+   128 / 144 buckets, peak memory) and 2 more Trainer steps on the 32
+   largest train graphs (CUDA events, launches, peak memory), (b)
+   ``cli.mol_gen_sample.main`` with
+   ``ddpm_mode=pocket`` from (a)'s checkpoint into 8 synthetic pockets at
+   T=1000 (4 x 1,001 launches; finite ligands, one ligand type a real
+   atom, the pocket rows of ``joint_xh`` the input's bit for bit,
+   ``pockets.json``; s per reverse step and the padded N), (c) the same
+   into the binding site of a PDB file it writes (40 CAs of chain A around
+   a HETATM ligand, a chain-B residue and an alternate location left out;
+   T=100, 2 resamplings, jumps of 10: 4 x 191 launches), (d) the QM9
+   ``inpainting`` mode (8 molecules of 19 atoms, the first fixed at the
+   origin, T=1000: 9 x 1,001 launches).
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -706,10 +729,11 @@ def xyz_molecules(out_dir, info):
 
 @contextlib.contextmanager
 def spy(torch, cls, name):
-    """Wrap ``cls.<name>`` for the block: each call's host seconds (the card
-    synchronized before and after), its forward-kernel launches and the
-    shape of its first argument after ``self`` are appended to the list it
-    yields."""
+    """Wrap ``cls.<name>`` (a class's method or a module's function) for the
+    block: each call's host seconds (the card synchronized before and
+    after), its forward-kernel launches, the shape of its second argument
+    (the first after ``self``), its arguments and its result are appended to
+    the list it yields."""
     from bio_diffusion_torch.ops import message_layer as ml
 
     orig, calls = getattr(cls, name), []
@@ -720,7 +744,8 @@ def spy(torch, cls, name):
         result = orig(*args, **kwargs)
         torch.cuda.synchronize()
         calls.append({"s": time.perf_counter() - t0, "launches": ml.launch_counts["message_layer"] - before,
-                      "shape": tuple(getattr(args[1], "shape", ())) if len(args) > 1 else ()})
+                      "shape": tuple(getattr(args[1], "shape", ())) if len(args) > 1 else (),
+                      "args": args, "kwargs": kwargs, "result": result})
         return result
 
     setattr(cls, name, wrapped)
@@ -1314,6 +1339,333 @@ def drive_geom_path(torch):
     return out, fwd_block, bwd_block
 
 
+POCKET_BUCKETS = (48, 64, 96, 128, 144)
+# the backward's chunks a B=32 pocket micro-batch in each bucket, by the
+# wrapper's plan at the GEOM width's 6,040 floats of scratch an edge row
+POCKET_PLAN = {48: 1, 64: 1, 96: 2, 128: 4, 144: 4}
+
+
+def pocket_experiment(precision: str, extra=()):
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+
+    return build_experiment(load_config(default_config_dir(), "train", [
+        "experiment=pocket_mol_gen_ddpm", f"trainer.precision={precision}", *extra]))
+
+
+def check_pocket_kernels(torch, evd):
+    """B1 and B2 at the pocket training shape, float32, with the pocket
+    model's layer-0 weights (the GEOM widths): B1 against its plain version
+    at B=32, N=144 with padded rows, timed in turns; B2 against its plain
+    version at B=2, N=144; B2 at B=32, N=144 in the wrapper's own chunks
+    (launches held against the plan) against one whole-batch call, the
+    per-molecule outputs bit-identical, and timed -> (numbers, the kernel's
+    floats of scratch an edge row)."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    out = {}
+    args, ve = kernel_inputs(torch, evd, 32, 144, torch.float32, True, seed=144)
+    out["fwd_max_rel_err"] = compare_fwd(torch, args, ve, "float32", "pocket B=32 N=144 padded=True")
+    kernel_ms, plain_ms, runs = in_turns(torch, lambda: ml.fused_message_layer(*args, ve_dim=ve),
+                                         lambda: ml.message_layer_plain(*args, ve_dim=ve), reps=5)
+    bound_ms, bound_by = bound(layer_flops(args, ve), nbytes(args, ml.fused_message_layer(*args, ve_dim=ve)),
+                               "float32")
+    out["fwd_b32_n144"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"timing pocket fwd float32 B=32 N=144: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) (runs {runs})")
+
+    small, ve = kernel_inputs(torch, evd, 2, 144, torch.float32, True, seed=145)
+    out["bwd_max_rel_err"] = compare_bwd(torch, small, cotangents(torch, small, seed=146), ve, "float32",
+                                         "pocket B=2 N=144 padded=True")
+    del small
+
+    ct = cotangents(torch, args, seed=147)
+    chunk, chunks, mol_bytes = ml.bwd_chunks(*args, ve_dim=ve)
+    row_floats = mol_bytes // (4 * 144 * 144)
+    if (chunk, chunks) != (32 // POCKET_PLAN[144], POCKET_PLAN[144]):
+        raise AssertionError(f"the pocket backward's plan at B=32, N=144 is {chunks} chunks of {chunk}")
+    ml.reset_launch_counts()
+    chunked = ml.bwd_outputs(ml.fused_message_layer_bwd(*args, ct, ve_dim=ve))
+    walked = ml.launch_counts["message_layer_bwd"]
+    whole = ml.bwd_outputs(ml._message_layer_bwd_cuda(*args, ct, ve, chunk_molecules=32))
+    torch.cuda.synchronize()
+    if walked != chunks:
+        raise AssertionError(f"the pocket backward launched its kernel {walked} times; the plan is {chunks}")
+    worst = 0.0
+    for (part, a), (_, w) in zip(chunked, whole):
+        if part in PER_MOLECULE:
+            if not torch.equal(a, w):
+                raise AssertionError(f"pocket chunked backward: {part} differs from the whole batch's")
+        else:
+            rel = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            if rel > TOL_CHUNK_REL:
+                raise AssertionError(f"pocket chunked backward: {part} off the whole batch's by {rel:.3g} of max")
+            worst = max(worst, rel)
+    del whole, chunked
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: ml.fused_message_layer_bwd(*args, ct, ve_dim=ve), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms, bound_by = bound(3 * layer_flops(args, ve), nbytes(args, ct, ml.fused_message_layer_bwd(
+        *args, ct, ve_dim=ve)), "float32")
+    out["bwd_b32_n144"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, chunks=walked,
+                               weight_grad_max_rel=worst, peak_bytes_above_inputs=peak - base)
+    print(f"pocket bwd float32 B=32 N=144: {walked} launches (plan: {chunks} chunks of {chunk} molecules at "
+          f"{row_floats} floats of scratch an edge row) against one whole-batch call: {', '.join(PER_MOLECULE)} "
+          f"bit-identical, weight grads within {worst:.3g} of max (tol {TOL_CHUNK_REL:g}); {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); peak {(peak - base) / 2**30:.3f} GiB above the inputs")
+    return out, row_floats
+
+
+def pocket_largest_step(torch, trainer, layers):
+    """Two Trainer steps (fp32, after its run) on the 32 largest joint
+    graphs of the train split, padded to their bucket: CUDA events, launches
+    held against the plan, peak memory -> numbers."""
+    import numpy as np
+
+    from bio_diffusion_torch.data.batch import DenseDataset, iterate_dense_batches
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    ds = trainer.datasets["train"]
+    idx = np.argsort(ds.data["num_atoms"], kind="stable")[-32:]
+    sub = DenseDataset({k: v[idx] for k, v in ds.data.items()}, ds.included_species)
+    batch = next(iterate_dense_batches(sub, 32, shuffle=False, drop_last=False,
+                                       bucket_sizes=POCKET_BUCKETS)).to("cuda")
+    (b, n), largest = batch.node_mask.shape, int(batch.node_mask.sum(1).max())
+    if b != 32:
+        raise AssertionError(f"the pocket train split has {b} graphs, not 32 or more")
+    out = {"shape": f"fp32, B=32, N={n} (largest graph {largest} nodes)", "steps_ms": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ml.reset_launch_counts()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        loss = float(trainer.train_step(trainer.state, batch, trainer.generator)["loss"])
+        end_ev.record()
+        torch.cuda.synchronize()
+        counts = (ml.launch_counts["message_layer"], ml.launch_counts["message_layer_bwd"])
+        if not np.isfinite(loss) or counts != (layers, layers * POCKET_PLAN[n]):
+            raise AssertionError(f"pocket step at N={n}: loss {loss}, launches {counts}, need {layers} forward "
+                                 f"and {layers} x {POCKET_PLAN[n]} backward")
+        out["steps_ms"].append(start_ev.elapsed_time(end_ev))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"pocket Trainer steps on the 32 largest train graphs (B=32, N={n}, largest {largest}), fp32: "
+          f"{', '.join('%.3f' % t for t in out['steps_ms'])} ms, loss {loss:.6g} (finite), launches fwd "
+          f"{counts[0]} bwd {counts[1]} ({layers} layers x {POCKET_PLAN[n]} chunks); peak device memory "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB")
+    return out
+
+
+def write_pocket_pdb(path, seed=0):
+    """A PDB file of 40 CA residues of chain A on a shell of radius ~6.5 A
+    around a 4-atom HETATM ligand ``LIG``, one chain-B residue 30 A away,
+    one alternate location B of residue 1 (both must be left out) ->
+    (the 40 coordinates as written, the residue names)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = ["ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE", "LEU", "LYS", "MET", "PHE",
+             "PRO", "SER", "THR", "TRP", "TYR", "VAL"]
+    center = np.array([12.0, -4.0, 7.0])
+    dirs = rng.normal(size=(40, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    coords = np.round(center + dirs * (6.5 + 0.4 * rng.uniform(-1, 1, size=(40, 1))), 3)
+    residues = [names[i % 20] for i in range(40)]
+
+    def line(serial, rec, name, altloc, resname, chain, resseq, xyz):
+        return (f"{rec:<6}{serial:>5} {name:<4}{altloc}{resname:<3} {chain}{resseq:>4}    "
+                f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00")
+
+    lines = ["HEADER    SMOKE POCKET"]
+    for i, (xyz, res) in enumerate(zip(coords, residues)):
+        lines.append(line(i + 1, "ATOM", " CA ", " ", res, "A", i + 1, xyz))
+    lines.append(line(41, "ATOM", " CA ", "B", residues[0], "A", 1, coords[0] + 0.5))
+    lines.append(line(42, "ATOM", " CA ", " ", "VAL", "B", 1, center + 30.0))
+    for i in range(4):
+        lines.append(line(43 + i, "HETATM", " C  ", " ", "LIG", "A", 99, center + 0.4 * (i - 1.5)))
+    lines.append("END")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return coords.astype(np.float32), residues
+
+
+def check_pocket_samples(call, num_samples, kl, run_dir):
+    """One ``generate_ligands_in_pocket`` call of the sample CLI: finite
+    ligands, one ligand type a real atom, the pocket rows of ``joint_xh``
+    the input's bit for bit, ``pockets.json`` the input pockets."""
+    import numpy as np
+
+    pocket_x, pocket_aa, pocket_mask = call["args"][2:5]
+    out = call["result"]
+    nl = out["ligand_mask"].shape[1]
+    joint = out["joint_xh"]
+    kp = joint.shape[-1] - 3 - kl
+    if len(joint) != num_samples or not np.isfinite(joint).all():
+        raise AssertionError(f"pocket samples: {len(joint)} graphs, finite {np.isfinite(joint).all()}")
+    if not np.array_equal(out["ligand_one_hot"].sum(-1), out["ligand_mask"]):
+        raise AssertionError("pocket samples: not one ligand type a real ligand atom")
+    if not np.array_equal(joint[:, nl:, :3], pocket_x * pocket_mask[..., None]) or not np.array_equal(
+            joint[:, nl:, 3 + kl:], np.eye(kp, dtype=np.float32)[pocket_aa] * pocket_mask[..., None]):
+        raise AssertionError("pocket samples: the pocket rows of joint_xh differ from the input")
+    with open(os.path.join(run_dir, "pockets.json")) as f:
+        saved = json.load(f)
+    if not np.array_equal(np.asarray(saved["coords"], np.float32), pocket_x) \
+            or saved["residue_index"] != pocket_aa.tolist():
+        raise AssertionError("pockets.json does not hold the input pockets")
+    return nl, joint.shape[1]
+
+
+def drive_pocket_path(torch):
+    """Pocket-conditional generation at the ``pocket_mol_gen_ddpm`` width
+    (4 layers, S=256, V=32, Se=16, Ve=8; 30 atom types, no charge channel;
+    batch 32 in the buckets [48, 64, 96, 128, 144]) in float32, weights
+    drawn from a seed: B1 and B2 at the pocket training shape; (a)
+    ``cli.train.main`` on the synthetic joint graphs (4 train batches, 2 EMA
+    validation batches, no sampling evaluation) and 2 timed Trainer steps
+    on its 32 largest graphs; (b) ``cli.mol_gen_sample.main`` with
+    ``ddpm_mode=pocket`` from (a)'s checkpoint into 8 synthetic pockets at
+    T=1000; (c) the same into the binding site of a PDB file the smoke
+    writes, T=100 with 2 resamplings and jumps of 10; (d) the QM9
+    ``inpainting`` mode, 8 molecules of 19 atoms at T=1000.  Every launch
+    count is read around the call that makes it and held exactly -> (launches
+    by path of the forward and backward kernels, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_sample, train
+    from bio_diffusion_torch.cli.common import load_model
+    from bio_diffusion_torch.data.batch import select_bucket
+    from bio_diffusion_torch.data.pocket import load_pocket_pdb
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    root = os.path.join(REPO, "outputs", "pocket_path")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    evd = load_model(pocket_experiment("fp32"), None, torch.device("cuda"), seed=0)
+    numbers, row_floats = check_pocket_kernels(torch, evd)
+    del evd
+    torch.cuda.empty_cache()
+    print(f"pocket path kernel checks: {time.perf_counter() - t0:.3f} s")
+    plan = {n: bwd_plan_chunks(ml, row_floats, 32, n) for n in POCKET_BUCKETS}
+    if plan != POCKET_PLAN:
+        raise AssertionError(f"the backward's plan by bucket at B=32 is {plan}, not {POCKET_PLAN}")
+    out = {"fwd": {}, "bwd": {}}
+
+    def run(fn):
+        ml.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, dict(ml.launch_counts)
+
+    # (a) the joint model's training on synthetic joint graphs
+    args = ["experiment=pocket_mol_gen_ddpm", "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1",
+            "trainer.limit_train_batches=4", "trainer.limit_val_batches=2",
+            "model.diffusion_cfg.sample_during_training=false", "--device=cuda", "--max-epochs=1",
+            f"--workdir={root}/train"]
+    torch.cuda.reset_peak_memory_stats()
+    with step_batches() as seen:
+        trainer, sec, counts = run(lambda: train.main(args))
+    peak = torch.cuda.max_memory_allocated()
+    exp, st = trainer.exp, trainer.stats
+    layers, T = exp.model_cfg.num_encoder_layers, exp.diffusion_cfg.num_timesteps
+    dl, mc = exp.dataloader_cfg, exp.model_cfg
+    if (layers, mc.h_hidden_dim, mc.chi_hidden_dim, mc.e_hidden_dim, mc.xi_hidden_dim, dl.batch_size,
+            tuple(dl.bucket_sizes), dl.num_atom_types, dl.include_charges, T) \
+            != (4, 256, 32, 16, 8, 32, POCKET_BUCKETS, 30, False, 1000):
+        raise AssertionError("the pocket run is not the pocket_mol_gen_ddpm configuration")
+    need_fwd = layers * (st["micro_batches"] + 2 * st["eval_batches"])
+    bwd_need = [layers * POCKET_PLAN[shape[1]] for shape, _ in seen["train"]]
+    buckets_ok = all(shape[1] == select_bucket(largest, POCKET_BUCKETS) for split in ("train", "valid")
+                     for shape, largest in seen[split])
+    print(f"pocket train: {st['steps']} steps, {st['eval_batches']} EMA validation batches, {sec:.3f} s with "
+          f"set-up; train batches (B, padded N; largest) {seen['train']}, validation batches {seen['valid']}; "
+          f"launches fwd {counts['message_layer']} (need {need_fwd}), bwd {counts['message_layer_bwd']} by train "
+          f"batch {seen['train_bwd']} (need layers x planned chunks: {bwd_need}); peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    if (st["steps"], st["eval_batches"]) != (4, 2) or counts["message_layer"] != need_fwd \
+            or seen["train_bwd"] != bwd_need or counts["message_layer_bwd"] != sum(bwd_need) or not buckets_ok \
+            or len(seen["train"]) != 4 or any(shape[0] != 32 for shape, _ in seen["train"]):
+        raise AssertionError("the pocket training run's batches or launch counts are not exact")
+    losses = [r["train/loss"] for r in trainer.loggers.loggers[0].rows if "train/loss" in r]
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError("the pocket run logged a non-finite loss")
+    out["fwd"]["pocket_train"] = counts["message_layer"]
+    out["bwd"]["pocket_train"] = counts["message_layer_bwd"]
+    # copies: the trainer's step stays wrapped, so the steps below record too
+    numbers.update(train_s=sec, train_batches=list(seen["train"]), valid_batches=list(seen["valid"]),
+                   train_bwd_launches=list(seen["train_bwd"]), train_peak_bytes=peak)
+    ckpt = trainer.ckpt_dir
+    numbers["largest_step"] = pocket_largest_step(torch, trainer, layers)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) ligands into 8 synthetic pockets from (a)'s checkpoint, T=1000
+    cli = ["experiment=pocket_mol_gen_ddpm", f"ckpt_path={ckpt}", "device=cuda", "precision=fp32",
+           "ddpm_mode=pocket", "num_samples=8"]
+    with spy(torch, mol_gen_sample, "generate_ligands_in_pocket") as calls:
+        metrics, sec, counts = run(lambda: mol_gen_sample.main(cli + [
+            "num_resamplings=1", "jump_length=1", f"output_dir={root}/synthetic"]))
+    if len(calls) != 1 or counts["message_layer"] != layers * (T + 1) or calls[0]["launches"] != layers * (T + 1):
+        raise AssertionError(f"pocket sampling launched {counts} in {len(calls)} call(s), need {layers * (T + 1)}")
+    run_dir = os.path.join(root, "synthetic", os.listdir(os.path.join(root, "synthetic"))[0])
+    nl, n = check_pocket_samples(calls[0], 8, 10, run_dir)
+    s = calls[0]["s"]
+    numbers["synthetic"] = {"n": n, "ligand_n": nl, "s": s, "s_per_step": s / (T + 1), "cli_s": sec,
+                            "metrics": metrics}
+    out["fwd"]["pocket_sample_cli"] = counts["message_layer"]
+    print(f"pocket mol_gen_sample (8 synthetic pockets, T={T}): padded N={n} ({nl} ligand rows); "
+          f"generate_ligands_in_pocket {s:.3f} s = {s / (T + 1):.6f} s per reverse step (card synchronized); "
+          f"the CLI {sec:.3f} s with set-up; launches {counts['message_layer']}; ligands finite, one type a real "
+          f"atom, pocket rows bit-exact, pockets.json written; metrics (printed, not judged) {metrics}")
+
+    # (c) into the binding site of a PDB file: T=100, 2 resamplings, jumps of 10
+    pdb = os.path.join(root, "site.pdb")
+    coords, _ = write_pocket_pdb(pdb)
+    site_x, site_aa = load_pocket_pdb(pdb, ligand_resname="LIG")
+    if not np.array_equal(site_x, coords):
+        raise AssertionError(f"the PDB pocket has {len(site_x)} CAs, not the 40 written")
+    steps = 190 + 1
+    with spy(torch, mol_gen_sample, "generate_ligands_in_pocket") as calls:
+        metrics, sec, counts = run(lambda: mol_gen_sample.main(cli + [
+            f"pocket_file={pdb}", "pocket_ligand=LIG", "num_timesteps=100", "num_resamplings=2",
+            "jump_length=10", f"output_dir={root}/pdb"]))
+    if len(calls) != 1 or counts["message_layer"] != layers * steps:
+        raise AssertionError(f"PDB pocket sampling launched {counts}, need {layers * steps}")
+    run_dir = os.path.join(root, "pdb", os.listdir(os.path.join(root, "pdb"))[0])
+    nl, n = check_pocket_samples(calls[0], 8, 10, run_dir)
+    if not np.array_equal(calls[0]["args"][2][0], site_x) or not np.array_equal(calls[0]["args"][3][0], site_aa):
+        raise AssertionError("the PDB pocket sampled from is not the binding site")
+    s = calls[0]["s"]
+    numbers["pdb"] = {"n": n, "ligand_n": nl, "s": s, "s_per_step": s / steps, "cli_s": sec, "metrics": metrics}
+    out["fwd"]["pocket_pdb_cli"] = counts["message_layer"]
+    print(f"pocket mol_gen_sample (PDB binding site, 40 CAs; T=100, 2 resamplings, jumps of 10: 190 steps and "
+          f"a decode): padded N={n}; {s:.3f} s = {s / steps:.6f} s per denoiser call; launches "
+          f"{counts['message_layer']}; checks as above; metrics (printed, not judged) {metrics}")
+
+    # (d) the QM9 inpainting mode: 8 molecules of 19 atoms, T=1000, seed weights
+    with spy(torch, mol_gen_sample, "inpaint_first_node") as calls:
+        metrics, sec, counts = run(lambda: mol_gen_sample.main([
+            "device=cuda", "precision=fp32", "ddpm_mode=inpainting", "num_samples=8", "num_nodes=19",
+            f"output_dir={root}/inpainting"]))
+    qm9_layers = 9
+    if len(calls) != 1 or counts["message_layer"] != qm9_layers * (T + 1):
+        raise AssertionError(f"inpainting launched {counts}, need {qm9_layers * (T + 1)}")
+    xh, mask = calls[0]["result"]
+    x = xh[..., :3] - xh[:, :1, :3]  # centred on the fixed part, the first node
+    if xh.shape != (8, 19, 3 + 5 + 1) or not np.isfinite(xh).all() or np.any(x[:, 0] != 0) \
+            or not np.array_equal(xh[..., 3:8].sum(-1), mask):
+        raise AssertionError("inpainting: non-finite values, a moved fixed node or not one type an atom")
+    s = calls[0]["s"]
+    numbers["inpainting"] = {"n": 19, "s": s, "s_per_step": s / (T + 1), "cli_s": sec, "metrics": metrics}
+    out["fwd"]["inpainting_cli"] = counts["message_layer"]
+    print(f"QM9 inpainting (8 molecules of 19, first node fixed at the origin, T={T}): {s:.3f} s = "
+          f"{s / (T + 1):.6f} s per reverse step; launches {counts['message_layer']}; finite, the fixed node at "
+          f"the origin after centring on it, one type an atom; metrics (printed, not judged) {metrics}")
+    return out, numbers
+
 def check_molecules(mols, num_samples):
     import numpy as np
 
@@ -1643,6 +1995,10 @@ def main() -> int:
     geom_launches, geom_fwd, geom_bwd = drive_geom_path(torch)
     geom_fwd["phase_s"] = time.perf_counter() - t0
     print(f"GEOM path phase: {geom_fwd['phase_s']:.3f} s")
+    t0 = time.perf_counter()
+    pocket_launches, pocket_numbers = drive_pocket_path(torch)
+    pocket_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"pocket path phase: {pocket_numbers['phase_s']:.3f} s")
     passes_err, passes_launches, probe = check_passes(torch)
 
     # the chain row: bf16 at the training shape's E, float32 and the serving
@@ -1659,9 +2015,10 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
         "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values())
-        + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values()),
+        + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
+        + sum(pocket_launches["fwd"].values()),
         "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"],
-                             **cond_launches["fwd"], **geom_launches["fwd"]},
+                             **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"]},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -1677,6 +2034,7 @@ def main() -> int:
         "user_path": user_numbers,
         "conditional_path": cond_numbers,
         "geom": geom_fwd,
+        "pocket": pocket_numbers,
         "smem_bytes_blocks_per_sm": occupancy["message_layer"],
     }, {
         "name": "message_layer_bwd",
@@ -1684,9 +2042,9 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
         "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
-        + sum(geom_launches["bwd"].values()),
+        + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()),
         "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **cond_launches["bwd"],
-                             **geom_launches["bwd"]},
+                             **geom_launches["bwd"], **pocket_launches["bwd"]},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],
         "max_abs_err_bf16": kernel_bwd["max_abs_err_bf16"],

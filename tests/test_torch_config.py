@@ -86,5 +86,5 @@ def test_port_imports_nothing_of_the_jax_package():
             else:
                 continue
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}" for m in names
-                          if m.split(".")[0] == "bio_diffusion_tpu"]
+                          if m.split(".")[0] in ("bio_diffusion_tpu", "jax", "flax", "optax")]
     assert not offenders, offenders

@@ -188,6 +188,19 @@ def test_bwd_chunk_plan_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,plan", [(48, (32, 1)), (64, (32, 1)), (96, (19, 2)), (128, (10, 4)), (144, (8, 4))])
+def test_pocket_bwd_chunk_plan_on_card(n, plan):
+    """The pocket model (GEOM widths) trains at B=32 in the buckets [48,
+    64, 96, 128, 144]: the wrapper walks a micro-batch in 1 / 1 / 2 / 4 / 4
+    chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel's workspace query")
+    (s, v, epack), g1, chain, ve = make_layer(GEOM, torch.float32, "cuda", 1, n)
+    s, v, epack = (t.expand(32, *t.shape[1:]).contiguous() for t in (s, v, epack))
+    assert ml.bwd_chunks(s, v, epack, g1, chain, ve_dim=ve)[:2] == plan
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims,e", [(TINY, 70), (QM9, 1000), (QM9, 4001)])
 def test_chain_kernel_matches_plain_on_card(dtype, dims, e):
