@@ -30,6 +30,18 @@ def get_bond_length_arrays(atom_mapping: Dict[str, int]) -> List[np.ndarray]:
     return bond_arrays
 
 
+def get_bond_order(atom1: str, atom2: str, distance: float) -> int:
+    """Single-pair bond order; distance in Angstrom."""
+    distance = 100 * distance  # Angstrom -> pm
+    if C.BONDS3.get(atom1, {}).get(atom2) is not None and distance < C.BONDS3[atom1][atom2] + C.MARGIN3:
+        return 3
+    if C.BONDS2.get(atom1, {}).get(atom2) is not None and distance < C.BONDS2[atom1][atom2] + C.MARGIN2:
+        return 2
+    if C.BONDS1.get(atom1, {}).get(atom2) is not None and distance < C.BONDS1[atom1][atom2] + C.MARGIN1:
+        return 1
+    return 0
+
+
 def get_bond_order_batch(
     atoms1: np.ndarray,
     atoms2: np.ndarray,

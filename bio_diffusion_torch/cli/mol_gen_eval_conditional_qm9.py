@@ -15,6 +15,7 @@ Usage:
       generator_model_filepath=<ckpt> classifier_model_dir=<dir> property=alpha \\
       [iterations=100] [batch_size=100] [num_timesteps=T] [single_bucket=false] \\
       [save_molecules=false] [device=cuda|cpu] [precision=fp32|bf16] \\
+      [task=edm|qualitative] [num_sweeps=10] [sweep_n_frames=100] \\
       [output_dir=DIR] [k=v ...]
 
 ``generator_model_filepath`` (or ``ckpt_path``) takes what
@@ -26,8 +27,14 @@ without the key a classifier drawn from seed 0 scores the molecules, for
 smoke runs only.  Sizes for all iterations are drawn up
 front and sorted, and each batch pads to its own multiple of 2
 (``single_bucket=true``: every batch to the dataset's largest molecule).
-``task=qualitative`` (the property sweep rendered as a chain) is not ported.
-``device`` defaults to ``cuda``; there is no fallback to the CPU.
+``task=qualitative`` (or ``sweep_property_values=true``) runs the
+fixed-noise property sweep instead: ``num_sweeps`` (default 10) batches of
+``sweep_n_frames`` (default 100) molecules of 19 atoms that share one noise
+draw, conditioned on a ``linspace`` over the property's range at 19 atoms;
+each sweep's molecules go to ``<output_dir>/<property>/sweep_<i>`` as
+``conditional_*.xyz`` files, rendered to ``output.gif`` where matplotlib
+and imageio are installed.  ``device`` defaults to ``cuda``; there is no
+fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -106,9 +113,6 @@ def classify(classifier: EGNNClassifier, one_hot, x, node_mask, device) -> np.nd
 def main(argv=None):
     cfg, _ = parse_cli(list(sys.argv[1:] if argv is None else argv), "mol_gen_eval_conditional_qm9", __doc__)
     prop = str(cfg.get("property", "alpha"))
-    if str(cfg.get("task", "edm")) == "qualitative" or bool(cfg.get("sweep_property_values", False)):
-        raise NotImplementedError("task=qualitative (the property sweep rendered as a chain; "
-                                  "chem/visualization.py) is not ported yet (ROADMAP A8, open)")
     cfg = apply_conditional_surgery(cfg, prop)
     exp = build_experiment(with_precision(cfg, precision_of(cfg)))
     device = device_of(cfg)
@@ -118,13 +122,15 @@ def main(argv=None):
 
     norms, props_distr = property_normalizers(build_datasets(exp), (prop,), exp.dataloader_cfg.dataset)
     mean, mad = norms[prop]["mean"], norms[prop]["mad"]
+    generator = torch.Generator(device=device).manual_seed(exp.seed)
+    if str(cfg.get("task", "edm")) == "qualitative" or bool(cfg.get("sweep_property_values", False)):
+        return run_sweeps(cfg, exp, sampler, generator, props_distr, prop, mean, mad)
     classifier, cls_meta = load_classifier(cfg.get("classifier_model_dir"), prop, device)
     # predictions decode with the classifier's own training-time normalizer
     # when its directory carries one; targets with the generator's
     cls_mean, cls_mad = float(cls_meta.get("mean", mean)), float(cls_meta.get("mad", mad))
 
     rng = np.random.default_rng(exp.seed)
-    generator = torch.Generator(device=device).manual_seed(exp.seed)
     batch_size = int(cfg.get("batch_size", 100))
     iterations = int(cfg.get("iterations", 100))
     num_timesteps = cfg.get("num_timesteps")
@@ -161,6 +167,48 @@ def main(argv=None):
     with open(os.path.join(out_dir, f"conditional_eval_{prop}.json"), "w") as f:
         json.dump(result, f, indent=2)
     print(json.dumps({"property": prop, "mae": result["mae"]}))
+    return result
+
+
+SWEEP_NODES = 19
+
+
+def property_sweep(sampler: SegmentedSampler, generator, props_distr, prop: str, mean: float, mad: float,
+                   num_frames: int, noises=None) -> Tuple[np.ndarray, np.ndarray]:
+    """One fixed-noise sweep: ``num_frames`` molecules of 19 atoms sharing
+    one noise draw, conditioned on ``linspace`` over the property's range at
+    19 atoms (normalized by ``mean``, ``mad``) -> ``(xh, node_mask)``.
+    ``noises``: the raw draws (``[1, N, F]`` each) instead of drawing from
+    ``generator``."""
+    lo, hi = props_distr.distributions[prop][SWEEP_NODES]["params"]
+    ctx_vals = (np.linspace(lo, hi, num_frames) - mean) / mad
+    node_mask = make_node_mask(np.full(num_frames, SWEEP_NODES), SWEEP_NODES)
+    context = np.broadcast_to(ctx_vals[:, None, None], (num_frames, SWEEP_NODES, 1)).astype(np.float32)
+    xh = sampler.run(node_mask, generator, context=context, fix_noise=True, noises=noises)
+    return xh, node_mask
+
+
+def run_sweeps(cfg, exp, sampler, generator, props_distr, prop: str, mean: float, mad: float):
+    """``task=qualitative``: ``num_sweeps`` property sweeps written as xyz
+    files (and a GIF each where it can be rendered) -> ``{"property",
+    "sweeps"}``."""
+    from bio_diffusion_torch.chem.molecule import save_xyz_files
+    from bio_diffusion_torch.chem.visualization import can_render, visualize_chain
+
+    dataset_info = get_dataset_info_for(exp)
+    num_frames = int(cfg.get("sweep_n_frames", 100))
+    num_sweeps = int(cfg.get("num_sweeps", 10))
+    out_root = str(cfg.get("output_dir", "outputs/conditional_sweeps"))
+    for sweep in range(num_sweeps):
+        xh, node_mask = property_sweep(sampler, generator, props_distr, prop, mean, mad, num_frames)
+        out_dir = os.path.join(out_root, prop, f"sweep_{sweep}")
+        # QM9 with hydrogens: the five type columns, as in the JAX package
+        save_xyz_files(out_dir, xh[..., :3], xh[..., 3:8], node_mask, dataset_info, name="conditional")
+        if can_render():
+            visualize_chain(out_dir, dataset_info)
+        log.info("sweep %d/%d written to %s", sweep + 1, num_sweeps, out_dir)
+    result = {"property": prop, "sweeps": num_sweeps}
+    print(json.dumps(result))
     return result
 
 

@@ -1,15 +1,15 @@
 """Molecule sampling entry point (PyTorch).
 
 Port of ``bio_diffusion_tpu/cli/mol_gen_sample.py`` (``ddpm_mode=
-unconditional``, ``inpainting`` and ``pocket``).  Composes
+unconditional``, ``inpainting``, ``pocket`` and ``chain``).  Composes
 ``configs/mol_gen_sample.yaml`` with the port's config loader.
 
 Usage:
   python -m bio_diffusion_torch.cli.mol_gen_sample ckpt_path=<ckpt> \\
       [experiment=geom_mol_gen_ddpm|pocket_mol_gen_ddpm] [device=cuda|cpu] [num_samples=250] \\
       [num_nodes=19] [sampling_batch_size=100] [num_timesteps=1000] [precision=fp32|bf16] \\
-      [ddpm_mode=unconditional|inpainting|pocket] [num_resamplings=1] [jump_length=1] \\
-      [output_dir=DIR] [k=v ...]
+      [ddpm_mode=unconditional|inpainting|pocket|chain] [num_resamplings=1] [jump_length=1] \\
+      [keep_frames=100] [output_dir=DIR] [k=v ...]
 
 ``ckpt_path`` is a reference ``.ckpt``, a checkpoint directory of the port's
 Trainer (its EMA weights) or a params file; ``null`` samples from weights
@@ -35,7 +35,15 @@ histogram of ``pocket_dataset`` given each pocket's size, or
 space, adds ``lig_nn_dist`` and ``lig_center_rms``, and writes the pockets
 to ``pockets.json`` beside the xyz files.  Sizes and pockets come from
 ``np.random.default_rng(seed)`` in the JAX package's order, so they equal
-its own for the same seed.  ``ddpm_mode=chain`` is not ported yet.
+its own for the same seed.
+
+``ddpm_mode=chain`` samples one molecule (``num_nodes`` atoms, or a size
+drawn from the dataset's distribution) and keeps its denoising chain: the
+states after every ``max(1, T // keep_frames)``-th reverse step (default
+``keep_frames=100``) are gathered on the device, written as
+``<out>/chain/chain_*.xyz`` with the last kept frame repeated 10 times, and
+rendered to ``<out>/chain/output.gif`` where matplotlib and imageio are
+installed (otherwise the run logs why no GIF was made and goes on).
 
 Writes one .xyz per molecule (and one .sdf when RDKit imports) under
 ``<output_dir>/<timestamp>`` and prints the stability metrics of the
@@ -81,14 +89,12 @@ from bio_diffusion_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-MODES = ("unconditional", "inpainting", "pocket")
+MODES = ("unconditional", "inpainting", "pocket", "chain")
 
 
 def main(argv=None):
     cfg, _ = parse_cli(list(sys.argv[1:] if argv is None else argv), "mol_gen_sample", __doc__)
     ddpm_mode = cfg.get("ddpm_mode", "unconditional")
-    if ddpm_mode == "chain":
-        raise NotImplementedError("ddpm_mode=chain is not ported yet (ROADMAP A4)")
     if ddpm_mode not in MODES:
         raise ValueError(f"unknown ddpm_mode {ddpm_mode!r}")
     # reference arg names accepted as aliases (ref mol_gen_sample.py:173-177)
@@ -120,6 +126,11 @@ def main(argv=None):
     elif ddpm_mode == "pocket":
         xh, node_mask, dataset_info, extra_metrics = sample_in_pockets(
             evd, cfg, exp, num_samples, num_nodes, num_timesteps, rng, generator, out_dir)
+    elif ddpm_mode == "chain":
+        sizes = np.full(1, int(num_nodes)) if num_nodes else nodes_dist.sample(1, rng)
+        node_mask = make_node_mask(sizes, int(sizes.max()))
+        xh = sample_chain(SegmentedSampler(evd, device), node_mask, generator, num_timesteps or evd.T,
+                          int(cfg.get("keep_frames", 100)), dataset_info, os.path.join(out_dir, "chain"))
     elif num_nodes:
         node_mask = make_node_mask(np.full(num_samples, int(num_nodes)), int(num_nodes))
         xh = SegmentedSampler(evd, device).run(node_mask, generator, num_timesteps=num_timesteps)
@@ -158,6 +169,23 @@ def main(argv=None):
     log.info("Sample metrics: %s", metrics)
     print(metrics)
     return metrics
+
+
+def sample_chain(sampler: SegmentedSampler, node_mask, generator, num_timesteps: int, keep_frames: int,
+                 dataset_info, chain_dir: str, noises=None):
+    """One batch sampled with its denoising chain kept: the frames that
+    ``save_chain_frames`` selects for molecule 0 go to ``chain_dir`` as xyz
+    files, and a GIF where it can be rendered -> the decoded ``xh``."""
+    from bio_diffusion_torch.chem.visualization import (
+        can_render, chain_frame_steps, save_chain_frames, visualize_chain,
+    )
+
+    steps = chain_frame_steps(num_timesteps, keep_frames)
+    xh, frames = sampler.run(node_mask, generator, num_timesteps, noises=noises, frame_steps=steps)
+    save_chain_frames(frames[:, 0], node_mask[0], dataset_info, chain_dir, keep_frames=len(steps))
+    if can_render():
+        visualize_chain(chain_dir, dataset_info)
+    return xh
 
 
 def inpaint_first_node(evd, cfg, sizes, num_atom_types: int, num_timesteps, generator):

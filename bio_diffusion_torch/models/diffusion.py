@@ -34,6 +34,7 @@ from torch import nn
 from bio_diffusion_torch.config.schema import DataloaderConfig, DiffusionConfig, compute_num_atom_types
 from bio_diffusion_torch.ops.geometry import centralize
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
+from bio_diffusion_torch.utils.debug import check_correctly_masked, check_finite, check_mean_zero_with_mask
 
 Tensor = torch.Tensor
 
@@ -149,6 +150,12 @@ class EquivariantVariationalDiffusion(nn.Module):
             h_int = h_int * m
         return x, h_cat, h_int
 
+    def unnormalize_z(self, z: Tensor, node_mask: Tensor) -> Tensor:
+        """A packed state ``[x | h_cat | h_int]`` on the data scale."""
+        nx, na = self.num_x_dims, self.num_atom_types
+        x, h_cat, h_int = self.unnormalize(z[..., :nx], node_mask, z[..., nx: nx + na], z[..., nx + na:])
+        return torch.cat([x, h_cat, h_int], dim=-1)
+
     # -- noise -------------------------------------------------------------------
 
     def sample_noise(self, node_mask: Tensor, generator: Optional[torch.Generator] = None,
@@ -248,12 +255,19 @@ class EquivariantVariationalDiffusion(nn.Module):
         timesteps, as floats), ``eps_t`` and (evaluation) ``eps_0``, raw normal
         draws ``[B, N, 3+F]``.  As in the reference, the L2 error sums the h
         residual over all node rows, padded ones included (eps is 0 there, so
-        they contribute ||net_h||^2)."""
+        they contribute ||net_h||^2).  With ``debug_invariants`` the inputs,
+        z_t and the denoiser's output are checked at the JAX package's sites
+        (``utils/debug.py``)."""
         dc = self.diffusion_cfg
         if dc.self_condition:
             raise NotImplementedError("self-conditioning is not ported yet")
         b = node_mask.shape[0]
         num_nodes = node_mask.to(x.dtype).sum(dim=-1)
+        dbg = dc.debug_invariants
+        check_mean_zero_with_mask(dbg, x, node_mask, "input x")
+        check_correctly_masked(dbg, x, node_mask, "input x")
+        check_correctly_masked(dbg, h_cat, node_mask, "input h_cat")
+        check_correctly_masked(dbg, h_int, node_mask, "input h_int")
         x, h_cat, h_int = self.normalize(x, h_cat, h_int, node_mask)
         xh = self.pack_xh(x, h_cat, h_int)
         l2_train = training and dc.loss_type == "l2"
@@ -271,7 +285,10 @@ class EquivariantVariationalDiffusion(nn.Module):
         gamma_s, gamma_t = self.gamma(s), self.gamma(t)
 
         z_t, eps_t = self.compute_noised_representation(xh, node_mask, gamma_t, generator, eps_t)
+        check_mean_zero_with_mask(dbg, z_t[..., :self.num_x_dims], node_mask, "z_t positions")
         net_out = self.dynamics_network(z_t, t, node_mask, context)
+        check_correctly_masked(dbg, net_out[..., :self.num_x_dims], node_mask, "net_out vel")
+        check_finite(dbg, net_out, "net_out")
         error_t = sum_except_batch((eps_t - net_out) ** 2)
         snr_weight = (torch.ones_like(error_t) if l2_train
                       else (self.snr(gamma_s - gamma_t) - 1.0)[..., 0])
@@ -378,10 +395,16 @@ class EquivariantVariationalDiffusion(nn.Module):
     def reverse_segment(self, z: Tensor, s_values: Sequence[float], t_values: Sequence[float],
                         node_mask: Tensor, generator: Optional[torch.Generator] = None,
                         fix_noise: bool = False, noises: Optional[Sequence[Tensor]] = None,
-                        context: Optional[Tensor] = None) -> Tensor:
+                        context: Optional[Tensor] = None, frames: Optional[Tensor] = None,
+                        frame_steps: Optional[Sequence[int]] = None) -> Tensor:
         """Run reverse steps at the given normalized (s, t) pairs.  ``noises``:
-        one raw draw per step instead of drawing from ``generator``."""
+        one raw draw per step instead of drawing from ``generator``.
+        ``frames [len(frame_steps), B, N, 3+F]``: a preallocated tensor on
+        the state's device that receives ``unnormalize_z`` of the state
+        after each step listed in ``frame_steps`` (in order; nothing is read
+        back to the host here)."""
         b = node_mask.shape[0]
+        slot = {} if frames is None else {int(k): i for i, k in enumerate(frame_steps)}
         for k, (s_val, t_val) in enumerate(zip(s_values, t_values)):
             s_arr = torch.full((b, 1), float(s_val), dtype=z.dtype, device=z.device)
             t_arr = torch.full((b, 1), float(t_val), dtype=z.dtype, device=z.device)
@@ -389,6 +412,8 @@ class EquivariantVariationalDiffusion(nn.Module):
                 s_arr, t_arr, z, node_mask, generator, fix_noise,
                 None if noises is None else noises[k], context,
             )
+            if k in slot:
+                frames[slot[k]].copy_(self.unnormalize_z(z, node_mask))
         return z
 
     def decode_sample(self, z: Tensor, node_mask: Tensor,

@@ -250,7 +250,8 @@ class Trainer:
         ``eval_batch_size`` batches, log their stability and atom-type KL
         under ``val/``, and every ``visualize_sample_epochs`` epochs write the
         first ``num_visualization_samples`` as xyz files under
-        ``<workdir>/media/epoch_<epoch>``."""
+        ``<workdir>/media/epoch_<epoch>``, with a PNG each where matplotlib
+        is installed."""
         exp = self.exp
         dc = exp.diffusion_cfg
         num_samples = num_samples or dc.num_eval_samples
@@ -267,11 +268,18 @@ class Trainer:
         viz_every = dc.visualize_sample_epochs
         if viz_every and epoch % viz_every == 0:
             from bio_diffusion_torch.chem.molecule import save_xyz_files
+            from bio_diffusion_torch.chem.visualization import can_render, visualize_mols
 
             n_viz = min(dc.num_visualization_samples, len(xh))
             k = len(self.dataset_info["atom_decoder"])
-            save_xyz_files(os.path.join(self.workdir, "media", f"epoch_{epoch}"), xh[:n_viz, :, :3],
-                           xh[:n_viz, :, 3:3 + k], node_mask[:n_viz], self.dataset_info)
+            media_dir = os.path.join(self.workdir, "media", f"epoch_{epoch}")
+            save_xyz_files(media_dir, xh[:n_viz, :, :3], xh[:n_viz, :, 3:3 + k], node_mask[:n_viz],
+                           self.dataset_info)
+            if can_render():
+                try:
+                    visualize_mols(media_dir, self.dataset_info, max_num=n_viz)
+                except Exception as e:  # noqa: BLE001 — renderings are best-effort, as in the JAX Trainer
+                    log.warning("sample visualization failed: %s", e)
         return metrics
 
     # -- fit --------------------------------------------------------------------

@@ -35,21 +35,35 @@ class SegmentedSampler:
 
     @torch.inference_mode()
     def run(self, node_mask, generator: torch.Generator, num_timesteps: Optional[int] = None,
-            fix_noise: bool = False, context=None) -> np.ndarray:
+            fix_noise: bool = False, context=None, noises: Optional[Sequence[torch.Tensor]] = None,
+            frame_steps: Optional[Sequence[int]] = None):
         """Sample xh ``[B, N, 3+F]`` on the data scale (numpy, float32);
-        ``context [B, N, C]`` for a property-conditioned model."""
+        ``context [B, N, C]`` for a property-conditioned model; ``noises``:
+        the raw draws instead of drawing from ``generator``, one for the
+        prior, one a reverse step, one for the decode.  With ``frame_steps``
+        the denoising chain is kept too -> ``(xh, frames)``: ``frames
+        [len(frame_steps), B, N, 3+F]`` (numpy) are the data-scale states
+        after the reverse steps ``frame_steps`` (0 = the first step),
+        gathered on the device and copied to the host once."""
         evd = self.evd
         T_s = evd.T if num_timesteps is None else int(num_timesteps)
+        if noises is not None and len(noises) != T_s + 2:
+            raise ValueError(f"noises: need {T_s + 2} draws, got {len(noises)}")
         node_mask = torch.as_tensor(np.asarray(node_mask), dtype=torch.float32, device=self.device)
         if context is not None:
             context = torch.as_tensor(np.asarray(context), dtype=torch.float32, device=self.device)
-        z = evd.init_sample_noise(node_mask, generator, fix_noise)
+        z = evd.init_sample_noise(node_mask, generator, fix_noise, None if noises is None else noises[0])
+        frames = None
+        if frame_steps is not None:
+            frames = torch.empty((len(frame_steps),) + z.shape, dtype=z.dtype, device=z.device)
         s_values = np.arange(T_s - 1, -1, -1, dtype=np.float32)
         z = evd.reverse_segment(z, s_values / T_s, (s_values + 1) / T_s, node_mask,
-                                generator, fix_noise, context=context)
-        xh = evd.decode_sample(z, node_mask, generator, fix_noise, context=context)
+                                generator, fix_noise, None if noises is None else noises[1:-1],
+                                context=context, frames=frames, frame_steps=frame_steps)
+        xh = evd.decode_sample(z, node_mask, generator, fix_noise, None if noises is None else noises[-1],
+                               context=context).cpu().numpy()
         self.runs += 1
-        return xh.cpu().numpy()
+        return xh if frames is None else (xh, frames.cpu().numpy())
 
 
 def make_node_mask(num_nodes: Sequence[int], pad_to: Optional[int] = None) -> np.ndarray:

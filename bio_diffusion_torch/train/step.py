@@ -5,6 +5,12 @@ to end and returns its metrics as device tensors: nothing is read back to
 the host per step.  Draws come from a ``torch.Generator`` unless given as
 tensors (``draws``: ``t_int [B, 1]``, ``eps_t`` and, for evaluation, ``eps_0``),
 which is how the tests feed in the JAX package's draws.
+
+With ``diffusion_cfg.debug_invariants`` (``trainer.detect_anomaly`` or
+``debug=default``) the loss's invariant checks (``utils/debug.py``) are
+recorded on the device over the whole step, every micro-batch included,
+and read back once after it: a failed check raises ``InvariantError``.
+Off, the steps run no check and read nothing back.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from bio_diffusion_torch.data.batch import DenseMolBatch
 from bio_diffusion_torch.models.diffusion import assemble_nll
 from bio_diffusion_torch.ops.geometry import centralize
 from bio_diffusion_torch.train.state import TrainState, adaptive_clip
+from bio_diffusion_torch.utils.debug import checked_call
 
 Tensor = torch.Tensor
 Draws = Optional[Dict[str, Tensor]]
@@ -90,6 +97,8 @@ def make_train_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloa
         metrics["max_grad_norm"] = max_norm
         return metrics
 
+    if diffusion_cfg.debug_invariants:
+        return lambda *args, **kwargs: checked_call(train_step, *args, **kwargs)
     return train_step
 
 
@@ -104,4 +113,6 @@ def make_eval_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataload
             _, info = loss_fn(batch, generator, draws)
         return info
 
+    if diffusion_cfg.debug_invariants:
+        return lambda *args, **kwargs: checked_call(eval_step, *args, **kwargs)
     return eval_step

@@ -23,9 +23,14 @@
    B=64, N=29 the forward kernel is held against its plain version too, and
    both pairs are timed on the same inputs, and the backward's four kernels
    (row kernel, node-side sums, weight grads, their reduction) are timed by
-   name under ``torch.profiler``, each beside its own bound.  The kernels
-   line reports the backward's errors and times at B=64, N=29 (float32,
-   bfloat16 beside) and its split by kernel.
+   name under ``torch.profiler``, each beside its own bound; the three
+   after the row kernel also beside their library calls, the PyTorch calls
+   that compute the same function on a scratch of the row kernel's layout
+   (``torch.mm`` of each weight grad's column slices and ``sum(0)`` of each
+   bias's, ``torch.sum`` of GCP1's cotangent columns over either node,
+   ``sum(0)`` of the split partials), timed before and after them.  The
+   kernels line reports the backward's errors and times at B=64, N=29
+   (float32, bfloat16 beside) and its split by kernel.
 5. Checks the full-width denoiser on the card (kernels) against the same
    weights on the CPU (plain versions), float32, on a small batch: the
    output, then the gradient of every parameter.
@@ -131,6 +136,34 @@
    T=100, 2 resamplings, jumps of 10: 4 x 191 launches), (d) the QM9
    ``inpainting`` mode (8 molecules of 19 atoms, the first fixed at the
    origin, T=1000: 9 x 1,001 launches).
+15. Drives the chain mode (after the pocket path): ``cli.mol_gen_sample.main
+   ddpm_mode=chain`` at full QM9 width, fp32, seed weights, one molecule of
+   19 atoms, T=1000, ``keep_frames=100``: 9 x 1,001 launches, 110 frame
+   files, the kept states finite, CoM-free and 0 on padded rows (none at
+   N=19); prints seconds per reverse step at B=1 and whether a GIF was
+   written (matplotlib and imageio may be absent).
+16. Drives the property sweep: ``cli.mol_gen_eval_conditional_qm9.main
+   task=qualitative`` on the conditional path's model and files, one sweep
+   of 100 molecules of 19 atoms at T=1000 (9 x 1,001 launches, 100 xyz
+   files); then its sampler at T=50 on contexts [c0, c0, c1, c1] with one
+   noise draw: equal contexts give bit-identical molecules, different ones
+   different molecules.
+17. Drives ``cli.bench_serve`` in this process at full width, bf16: QM9 at
+   a fixed size (batch 250, N=19, 100 steps, 4 requests, 2 clients), the
+   QM9 size mix (batch 32, 100 steps, 8 requests of 32, 4 clients) and
+   GEOM-Drugs serving (``SERVE_EXPERIMENT=geom_mol_gen_ddpm``, batch 8,
+   sizes drawn, buckets up to 181 all warmed, 50 steps, 4 requests of 8);
+   prints each JSON result; the launch count must be 9 (QM9) or 4 (GEOM) a
+   denoiser call of every executed batch and warm-up; every request's
+   molecules pass the serving checks (GEOM's without charges).
+18. Drives the debug and profile switches of ``cli.train.main`` at full
+   QM9 width, fp32, synthetic data: 2 steps with
+   ``trainer.detect_anomaly=true`` (exact launch counts), a step on a batch
+   with a corrupted padded row that must raise the masked-input check, 2
+   steps with ``--profile`` and ``--dump-graph`` (the trace names the
+   forward and backward row kernels; ``exec_time.log`` and
+   ``graph/dynamics.ops.txt`` written); prints the ms of further steps with
+   the checks on and off, in 8 turns of 6 further steps of the debug trainer.
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -144,6 +177,7 @@ import contextlib
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -299,6 +333,108 @@ def bwd_sub_bounds(args, ct, ve, name):
         raise AssertionError("the backward kernel refuses the QM9 widths")
     out["reduce_kernel"] = bound(sizes[1], 4.0 * (sizes[1] + grads), "float32")
     return out
+
+
+def bwd_row_layout(s_dim, v_dim, se, ve, h1, hc, g):
+    """Column offsets of the backward's per-edge-row scratch: a copy of
+    ``RowLayout`` in ``csrc/message_layer_bwd.cu`` (the ``stage`` offsets
+    are relative to ``stage0 + g * stage_w``)."""
+    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
+    first = [("xi", 3 * ve), ("cat1", se + h1 + 9), ("silu1", s_dim), ("dvhd1", w1), ("ds2_1", s_dim),
+             ("dvu1", v3), ("dzg1", v_dim), ("vhd1", w1), ("root1", h1), ("s2_1", s_dim), ("gate1", v_dim),
+             ("vu1", v3)]
+    stage = [("vin", v3), ("merged", s_dim + hc + 9), ("silu", s_dim), ("dvhd", wc), ("ds2", s_dim), ("dvu", v3),
+             ("dzg", v_dim), ("vhd", wc), ("root", hc), ("s2", s_dim), ("gate", v_dim), ("vu", v3)]
+    out, o = {}, 0
+    for name, w in first:
+        out[name], o = o, o + w
+    q = 0
+    for name, w in stage:
+        out["stage_" + name], q = q, q + w
+    out["stage0"], out["stage_w"] = o, q
+    o += g * q
+    for name, w in (("sfin", s_dim), ("attn", 1), ("dzattn", 1)):
+        out[name], o = o, o + w
+    out["width"] = -(-o // 4) * 4
+    return out
+
+
+def bwd_library_calls(torch, args, ve):
+    """One PyTorch call a product for each of the backward's three
+    sub-kernels after the row kernel, on a scratch of the row kernel's
+    layout at these inputs' shape (values from a seed; no call's time
+    depends on them): ``weight_grad_kernel`` -> ``torch.mm`` of each weight
+    grad's column slices (X^T dY) and ``Tensor.sum(0)`` of each bias's;
+    ``proj_sum_kernel`` -> ``torch.sum`` of GCP1's cotangent columns over
+    the target and over the source node; ``reduce_kernel`` -> ``Tensor.sum(0)``
+    of the split partials -> {kernel: fn}."""
+    import ctypes
+
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    s_node, v_node, epack, g1, chain = args
+    b, n, s_dim = s_node.shape
+    v_dim = v_node.shape[-1] // 3
+    h1 = g1["wu_bd"].shape[0] // 3
+    se = g1["wsx"].shape[0] - h1 - 9
+    g, hc = chain[0].shape[0], (chain[0].shape[2] - 27) // 3
+    rl = bwd_row_layout(s_dim, v_dim, se, ve, h1, hc, g)
+    rows_n = b * n * n
+    dims = (ctypes.c_int * 10)(b, n, epack.shape[-1], s_dim, v_dim, se, ve, h1, hc, g)
+    sizes = (ctypes.c_longlong * 3)()
+    if ml._bwd_library().message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes)) != 0 \
+            or sizes[0] != rows_n * rl["width"]:
+        raise AssertionError(f"the scratch layout copy disagrees with the kernel's ({sizes[0]} floats)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = torch.randn((rows_n, rl["width"]), generator=gen, device="cuda")
+    splits = min(32, max(1, -(-rows_n // 2048)))
+    partials = torch.randn((splits, sizes[1] // splits), generator=gen, device="cuda")
+    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
+
+    def cols(off, k):
+        return rows[:, off: off + k]
+
+    # (x offset, K, dY offset, Nn, has a bias): the kernel's problem list
+    products = [(rl["xi"], 3 * ve, rl["dvhd1"], w1, False), (rl["cat1"], se + h1 + 9, rl["ds2_1"], s_dim, True),
+                (rl["vhd1"], 3 * h1, rl["dvu1"], v3, False), (rl["silu1"], s_dim, rl["dzg1"], v_dim, True)]
+    for k in range(g):
+        sb = rl["stage0"] + k * rl["stage_w"]
+        products += [(sb + rl["stage_vin"], v3, sb + rl["stage_dvhd"], wc, False),
+                     (sb + rl["stage_merged"], s_dim + hc + 9, sb + rl["stage_ds2"], s_dim, True),
+                     (sb + rl["stage_vhd"], 3 * hc, sb + rl["stage_dvu"], v3, False),
+                     (sb + rl["stage_silu"], s_dim, sb + rl["stage_dzg"], v_dim, True)]
+    products.append((rl["sfin"], s_dim, rl["dzattn"], 1, True))  # the attention weight and its bias
+
+    def weight_grads():
+        for xo, k, yo, nn, bias in products:
+            torch.mm(cols(xo, k).t(), cols(yo, nn))
+            if bias:
+                cols(yo, nn).sum(0)
+
+    edge = rows.view(b, n, n, rl["width"])[..., rl["dvhd1"]: rl["ds2_1"] + s_dim]
+
+    def proj_sums():
+        edge.sum(2)
+        edge.sum(1)
+
+    return {"weight_grad_kernel": weight_grads, "proj_sum_kernel": proj_sums,
+            "reduce_kernel": lambda: partials.sum(0)}
+
+
+def device_ms_per_call(torch, fn, reps):
+    """Device ms per call of ``fn`` (every kernel it launches, summed) over
+    ``reps`` calls under ``torch.profiler``, after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bio_diffusion_torch.cli.profile_train import device_times
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(v[0] for v in device_times(prof.events(), reps).values())
 
 
 def time_ms(torch, fn, reps=20):
@@ -552,14 +688,24 @@ def check_bwd_kernel(torch, evd):
             timings[(what, name)] = (kernel_ms, plain_ms) + bounds[what]
             print(f"timing {what} {name} B=64 N=29: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bounds[what][0]:.4f} ms ({bounds[what][1]}) (runs {runs})")
-        # the backward's four kernels by name (torch.profiler), each beside its bound
+        # the backward's four kernels by name (torch.profiler), each beside its
+        # bound and, for the three after the row kernel, beside the PyTorch
+        # calls of the same function on a scratch of the same layout (timed
+        # before and after the kernels, the better of the two kept)
+        library = bwd_library_calls(torch, args, ve)
+        lib_runs = {k: [device_ms_per_call(torch, fn, 5)] for k, fn in library.items()}
         sub_ms = group_kernel_ms(torch, pairs["bwd"][0], 5, "message_layer_bwd")
+        for k, fn in library.items():
+            lib_runs[k].append(device_ms_per_call(torch, fn, 5))
+        del library
         sub_bounds = bwd_sub_bounds(args, ct, ve, name)
-        result[f"sub_kernels_{name}"] = {k: {"ms": ms, "bound_ms": sub_bounds[k][0], "bound_by": sub_bounds[k][1]}
+        result[f"sub_kernels_{name}"] = {k: {"ms": ms, "bound_ms": sub_bounds[k][0], "bound_by": sub_bounds[k][1],
+                                             "library_ms": min(lib_runs[k]) if k in lib_runs else None}
                                          for k, ms in sub_ms.items()}
         for k, ms in sub_ms.items():
+            lib = f", library calls {min(lib_runs[k]):.4f} ms (runs {lib_runs[k]})" if k in lib_runs else ""
             print(f"timing bwd {name} B=64 N=29 {k}: {ms:.4f} ms per launch (profiler), "
-                  f"bound {sub_bounds[k][0]:.4f} ms ({sub_bounds[k][1]})")
+                  f"bound {sub_bounds[k][0]:.4f} ms ({sub_bounds[k][1]}){lib}")
         if not sub_ms["bwd_rows_kernel"] > 0 or not sub_ms["weight_grad_kernel"] > 0:
             raise AssertionError(f"the profiler saw no backward kernel ({name}): {sub_ms}")
     # the kernels line reports the backward at the training path's shape and
@@ -1666,7 +1812,270 @@ def drive_pocket_path(torch):
           f"the origin after centring on it, one type an atom; metrics (printed, not judged) {metrics}")
     return out, numbers
 
-def check_molecules(mols, num_samples):
+def count_run(torch, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after -> (result, seconds, counts)."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    ml.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, dict(ml.launch_counts)
+
+
+def check_frames(frames, mask, what):
+    """Chain states ``[K, B, N, 3+F]`` on the data scale: finite, CoM-free
+    positions, padded rows 0."""
+    import numpy as np
+
+    m = mask > 0
+    x = frames[..., :3]
+    com = (x * m[None, ..., None]).sum(-2) / m.sum(-1)[None, :, None]
+    if not np.isfinite(frames).all() or np.abs(com).max() > 1e-3 * max(1.0, np.abs(x).max()) \
+            or np.any(frames[:, ~m] != 0):
+        raise AssertionError(f"{what}: non-finite states, positions off their CoM or nonzero padded rows")
+
+
+def drive_chain_path(torch):
+    """``cli.mol_gen_sample.main ddpm_mode=chain`` on ``qm9_mol_gen_ddpm`` at
+    full width, fp32, seed weights: one molecule of 19 atoms, T=1000,
+    ``keep_frames=100`` -> 100 kept states (every 10th step from the first)
+    written with the last one repeated 10 times = 110 xyz files, 9 x 1,001
+    launches; the kept states finite, CoM-free, padded rows 0 (none at
+    N=19) -> (launches by path, numbers)."""
+    from bio_diffusion_torch.cli import mol_gen_sample
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    root = os.path.join(REPO, "outputs", "chain_path")
+    shutil.rmtree(root, ignore_errors=True)
+    with spy(torch, SegmentedSampler, "run") as calls:
+        metrics, sec, counts = count_run(torch, lambda: mol_gen_sample.main([
+            "device=cuda", "precision=fp32", "ddpm_mode=chain", "num_nodes=19", "keep_frames=100",
+            f"output_dir={root}"]))
+    layers, T = 9, 1000
+    if len(calls) != 1 or counts["message_layer"] != layers * (T + 1) or counts["message_layer_bwd"]:
+        raise AssertionError(f"the chain mode launched {counts} in {len(calls)} run(s), need {layers * (T + 1)}")
+    xh, frames = calls[0]["result"]
+    mask = calls[0]["args"][1]
+    if frames.shape != (100, 1, 19, 9) or xh.shape != (1, 19, 9):
+        raise AssertionError(f"chain frames {frames.shape}, xh {xh.shape}")
+    check_frames(frames, mask, "chain")
+    chain_dir = os.path.join(root, os.listdir(root)[0], "chain")
+    files = sorted(f for f in os.listdir(chain_dir) if f.startswith("chain_") and f.endswith(".xyz"))
+    gif = os.path.exists(os.path.join(chain_dir, "output.gif"))
+    if len(files) != 110:
+        raise AssertionError(f"{len(files)} chain frame files, need 110")
+    s = calls[0]["s"]
+    print(f"chain path: mol_gen_sample ddpm_mode=chain, 1 molecule of 19 atoms, T={T}, fp32: {s:.3f} s = "
+          f"{s / (T + 1):.6f} s per reverse step at B=1 (card synchronized); the CLI {sec:.3f} s with set-up; "
+          f"launches {counts['message_layer']}; {len(files)} frame files (100 kept states + 10 repeats of the "
+          f"last kept one, the state after step 990); frames finite, CoM-free, no padded row at N=19; GIF "
+          f"written: {gif}; metrics (printed, not judged) {metrics}")
+    return {"fwd": {"chain_cli": counts["message_layer"]}}, {"s_per_step": s / (T + 1), "cli_s": sec, "gif": gif}
+
+
+def drive_sweep_path(torch, data_dir, ckpt_dir):
+    """``cli.mol_gen_eval_conditional_qm9.main task=qualitative`` on the
+    conditional model of ``ckpt_dir`` and the QM9-layout files of
+    ``data_dir``: one sweep of 100 molecules of 19 atoms at T=1000 (9 x
+    1,001 launches, 100 xyz files); then the sweep's sampler again at T=50
+    on contexts ``[c0, c0, c1, c1]``: the molecules of equal context must be
+    bit-identical and those of different context differ (they share one
+    noise draw) -> (launches by path, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_eval_conditional_qm9
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    root = os.path.join(REPO, "outputs", "sweep_path")
+    shutil.rmtree(root, ignore_errors=True)
+    with spy(torch, SegmentedSampler, "run") as calls:
+        result, sec, counts = count_run(torch, lambda: mol_gen_eval_conditional_qm9.main([
+            f"datamodule.dataloader_cfg.data_dir={data_dir}", f"generator_model_filepath={ckpt_dir}",
+            "task=qualitative", "num_sweeps=1", "sweep_n_frames=100", "device=cuda", "precision=fp32",
+            f"output_dir={root}"]))
+    layers, T = 9, 1000
+    if result != {"property": "alpha", "sweeps": 1} or len(calls) != 1 \
+            or counts["message_layer"] != layers * (T + 1):
+        raise AssertionError(f"the sweep returned {result}, launched {counts} in {len(calls)} run(s)")
+    sweep_dir = os.path.join(root, "alpha", "sweep_0")
+    files = [f for f in os.listdir(sweep_dir) if f.startswith("conditional_") and f.endswith(".xyz")]
+    xh = calls[0]["result"]
+    sampler, mask = calls[0]["args"][0], calls[0]["args"][1]
+    context = calls[0]["kwargs"]["context"]
+    if len(files) != 100 or xh.shape != (100, 19, 8) or not np.isfinite(xh).all() \
+            or not calls[0]["kwargs"]["fix_noise"] or not np.all(np.diff(context[:, 0, 0]) > 0):
+        raise AssertionError(f"the sweep wrote {len(files)} files; shape {xh.shape}, increasing contexts, "
+                             "fixed noise expected")
+    s = calls[0]["s"]
+    equal = context[[0, 0, 99, 99]]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs = sampler.run(mask[:4], gen, num_timesteps=50, fix_noise=True, context=equal)
+    if not (np.array_equal(xs[0], xs[1]) and np.array_equal(xs[2], xs[3])) or np.array_equal(xs[1], xs[2]):
+        raise AssertionError("molecules of one noise draw: equal contexts must give bit-identical molecules, "
+                             "different ones different molecules")
+    print(f"sweep path: mol_gen_eval_conditional_qm9 task=qualitative, 100 molecules of 19 atoms sharing one "
+          f"noise draw, T={T}, fp32: {s:.3f} s = {s / (T + 1):.6f} s per reverse step at B=100 (card "
+          f"synchronized); the CLI {sec:.3f} s with set-up; launches {counts['message_layer']}; 100 xyz files; "
+          f"equal contexts (T=50, 4 molecules) bit-identical, different contexts different: ok")
+    return {"fwd": {"sweep_cli": counts["message_layer"]}}, {"s_per_step": s / (T + 1), "cli_s": sec}
+
+
+def drive_bench_serve(torch, name, env, layers, charges=True):
+    """``cli.bench_serve.main`` in this process with the ``SERVE_*`` knobs
+    of ``env``: the launch count must be ``layers`` per denoiser call of
+    every executed batch (the warm-up's one step and decode a bucket, then
+    each batch's T steps and decode); every request's molecules pass
+    ``check_molecules`` -> (launches, result)."""
+    from bio_diffusion_torch.cli import bench_serve
+    from bio_diffusion_torch.serve import MoleculeServer
+
+    steps = int(env["SERVE_STEPS"])
+    with spy(torch, MoleculeServer, "generate") as requests, spy(torch, MoleculeServer, "warmup") as warm:
+        result, sec, counts = count_run(torch, lambda: bench_serve.main([], env=env))
+    buckets = warm[0]["result"]
+    batches = result["stats"]["batches"]
+    need = layers * (2 * len(buckets) + (steps + 1) * batches)
+    for call in requests:
+        check_molecules(call["result"]["molecules"], call["args"][1], charges=charges)
+    print(f"bench_serve {name}: {json.dumps(result)}")
+    print(f"bench_serve {name}: {sec:.3f} s in all; {len(buckets)} bucket(s) warmed (largest {max(buckets)}), "
+          f"{batches} batches {result['stats']['bucket_batches']}; launches {counts['message_layer']} (need "
+          f"{need}: {layers} a denoiser call); {len(requests)} requests' molecules checked")
+    if counts["message_layer"] != need or counts["message_layer_bwd"] or len(requests) != int(env["SERVE_REQUESTS"]):
+        raise AssertionError(f"bench_serve {name}: launches {counts}, need {need}")
+    return counts["message_layer"], result
+
+
+def drive_serving_benchmarks(torch):
+    """``cli.bench_serve`` at full width in bf16: QM9 at a fixed size
+    (batch 250, N=19, 100 steps, 4 requests, 2 clients), the QM9 size mix
+    (batch 32, sizes drawn over the bucket ladder, 100 steps, 8 requests of
+    32, 4 clients) and GEOM-Drugs (``SERVE_EXPERIMENT=geom_mol_gen_ddpm``,
+    bf16, batch 8, sizes drawn, buckets up to 181, 50 steps, 4 requests of
+    8: no charges) -> (launches by path, numbers)."""
+    base = {"SERVE_PRECISION": "bf16"}
+    runs = {
+        "bench_serve_fixed": (dict(base, SERVE_NODES="19", SERVE_BATCH="250", SERVE_STEPS="100",
+                                   SERVE_REQUESTS="4", SERVE_CONCURRENCY="2"), 9, True),
+        "bench_serve_mix": (dict(base, SERVE_NODES="dist", SERVE_BATCH="32", SERVE_STEPS="100",
+                                 SERVE_REQUESTS="8", SERVE_REQ_MOLS="32", SERVE_CONCURRENCY="4"), 9, True),
+        "geom_serve": (dict(base, SERVE_EXPERIMENT="geom_mol_gen_ddpm", SERVE_NODES="dist", SERVE_BATCH="8",
+                            SERVE_STEPS="50", SERVE_REQUESTS="4", SERVE_REQ_MOLS="8", SERVE_CONCURRENCY="4"),
+                       4, False),
+    }
+    out, numbers = {"fwd": {}}, {}
+    for name, (env, layers, charges) in runs.items():
+        launches, result = drive_bench_serve(torch, name, env, layers, charges)
+        stats = result["stats"]
+        out["fwd"][name] = launches
+        numbers[name] = {"molecules_per_s": result["value"], "denoiser_evals_per_s": result["denoiser_evals_per_s"],
+                         "latency_s": result["latency_s"], "batches": stats["batches"],
+                         "s_per_denoiser_call": stats["device_s"] / (stats["batches"] * (int(env["SERVE_STEPS"]) + 1))}
+    return out, numbers
+
+
+def corrupt_padding(batch):
+    """A copy of ``batch`` with garbage in one padded row of x."""
+    import dataclasses
+
+    import numpy as np
+
+    x = np.asarray(batch.x).copy()
+    bi, ni = np.argwhere(np.asarray(batch.node_mask) == 0)[0]
+    x[bi, ni] = 7.7
+    return dataclasses.replace(batch, x=x)
+
+
+def timed_steps(torch, trainer, steps):
+    """ms per step of ``steps`` further Trainer steps (CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    first = trainer.state.count
+    start.record()
+    trainer.train_epoch(epoch=first, max_steps=first + steps)
+    end.record()
+    torch.cuda.synchronize()
+    if trainer.state.count != first + steps:
+        raise AssertionError(f"{trainer.state.count - first} steps ran, not {steps}")
+    return start.elapsed_time(end) / steps
+
+
+def drive_debug_and_profile(torch):
+    """``cli.train.main`` at QM9 full width on the synthetic data (fp32, B=64):
+    2 steps with ``trainer.detect_anomaly=true`` (the invariants pass), one
+    step on a batch with a corrupted padded row (must raise the masked-input
+    check), then 2 steps with ``--profile`` and ``--dump-graph`` (checks
+    off): the trace names the forward and backward row kernels,
+    ``exec_time.log`` and ``graph/dynamics.ops.txt`` exist.  Each run's
+    launch counts are held exactly; further steps of the debug trainer are
+    timed with its checks switched on and off, in 8 turns of 6 steps (on,
+    off, off, on, on, off, off, on) -> (launches by path, numbers)."""
+    from bio_diffusion_torch.cli.train import main
+    from bio_diffusion_torch.utils.debug import InvariantError
+
+    root = os.path.join(REPO, "outputs", "debug_profile")
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=synthetic", "trainer.precision=fp32",
+            "trainer.check_val_every_n_epoch=1", "--device=cuda", "--max-steps=2"]
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+    runs = {"debug_train": ["trainer.detect_anomaly=true", f"--workdir={root}/debug"],
+            "profile_train": [f"--profile={root}/trace", "--dump-graph", f"--workdir={root}/profile"]}
+    trainers = {}
+    for name, extra in runs.items():
+        trainer, sec, counts = count_run(torch, lambda: main(args + extra))
+        layers, st = trainer.exp.model_cfg.num_encoder_layers, trainer.stats
+        need = {"message_layer": layers * (st["micro_batches"] + 2 * st["eval_batches"]),
+                "message_layer_bwd": layers * st["micro_batches"]}
+        # the graph dump's one denoiser call at B=2
+        need["message_layer"] += layers if name == "profile_train" else 0
+        print(f"{name}: cli.train.main {st['steps']} steps (B=64, N=29), {st['eval_batches']} EMA validation "
+              f"batches, {sec:.3f} s with set-up; launches {counts} (need {need})")
+        if st["steps"] != 2 or {k: counts[k] for k in need} != need:
+            raise AssertionError(f"{name}: the launch counts are not exact")
+        out["fwd"][name], out["bwd"][name] = counts["message_layer"], counts["message_layer_bwd"]
+        trainers[name] = trainer
+    dbg = trainers["debug_train"]
+    if not dbg.exp.diffusion_cfg.debug_invariants or trainers["profile_train"].exp.diffusion_cfg.debug_invariants:
+        raise AssertionError("trainer.detect_anomaly did not switch the invariants on (or they are on by default)")
+    # one trainer's steps with its checks on and off in turns; its step reads
+    # the switch at every call
+    dc, turns = dbg.evd.diffusion_cfg, {"on": [], "off": []}
+    for label in ("on", "off", "off", "on") * 2:
+        dc.debug_invariants = label == "on"
+        turns[label].append(timed_steps(torch, dbg, 6))
+    dc.debug_invariants = True
+    for label, ms in turns.items():
+        numbers[f"ms_per_step_checks_{label}"] = statistics.median(ms)
+    numbers["turns_ms"] = turns
+    bad = corrupt_padding(next(dbg._batch_iter("train"))).to(dbg.device)
+    try:
+        dbg.train_step(dbg.state, bad, dbg.generator)
+    except InvariantError as e:
+        if not str(e).startswith("input x is not correctly masked (max |pad| = 7.69999"):
+            raise
+        print(f"debug_train: a corrupted padded row raised InvariantError: {e}")
+    else:
+        raise AssertionError("a corrupted padded row did not raise the masked-input check")
+    with open(os.path.join(root, "trace", "trace.json")) as f:
+        trace = f.read()
+    exec_log = os.path.join(root, "profile", "exec_time.log")
+    ops = os.path.join(root, "profile", "graph", "dynamics.ops.txt")
+    if "message_layer_kernel" not in trace or "bwd_rows_kernel" not in trace or not os.path.exists(exec_log) \
+            or not os.path.exists(ops) or not os.path.exists(os.path.join(root, "debug", "exec_time.log")):
+        raise AssertionError("the profile run's trace, exec_time.log or graph dump is missing or incomplete")
+    numbers["trace_mb"] = len(trace) / 2**20
+    with open(exec_log) as f:
+        numbers["profile_exec_time"] = f.read().strip()
+    print(f"debug and profile: {numbers['ms_per_step_checks_on']:.3f} ms/step with the checks on, "
+          f"{numbers['ms_per_step_checks_off']:.3f} ms/step off (CUDA events, the median of 4 turns of 6 "
+          f"further steps of one trainer each: {turns}); the trace "
+          f"({numbers['trace_mb']:.1f} MiB) names message_layer_kernel and bwd_rows_kernel; exec_time.log "
+          f"{numbers['profile_exec_time']}; graph/dynamics.ops.txt written")
+    return out, numbers
+
+
+def check_molecules(mols, num_samples, charges=True):
     import numpy as np
 
     if len(mols) != num_samples:
@@ -1679,8 +2088,10 @@ def check_molecules(mols, num_samples):
             raise AssertionError("non-finite positions")
         if np.abs(pos.mean(axis=0)).max() > 1e-3 * max(1.0, np.abs(pos).max()):
             raise AssertionError("positions are not CoM-free")
-        if len(mol["charges"]) != mol["size"]:
+        if charges and len(mol["charges"]) != mol["size"]:
             raise AssertionError("charges missing")
+        if not charges and "charges" in mol:
+            raise AssertionError("charges from a model without a charge channel")
 
 
 def drive_main_path(torch, b1_ms_b250):
@@ -1999,6 +2410,21 @@ def main() -> int:
     pocket_launches, pocket_numbers = drive_pocket_path(torch)
     pocket_numbers["phase_s"] = time.perf_counter() - t0
     print(f"pocket path phase: {pocket_numbers['phase_s']:.3f} s")
+    new_paths = {}
+    for name, drive in (
+            ("chain path", drive_chain_path),
+            ("sweep path", lambda t: drive_sweep_path(t, os.path.join(REPO, "outputs", "user_path", "data"),
+                                                      os.path.join(REPO, "outputs", "conditional_path", "train",
+                                                                   "checkpoints"))),
+            ("serving benchmarks", drive_serving_benchmarks),
+            ("debug and profile", drive_debug_and_profile)):
+        t0 = time.perf_counter()
+        launches, numbers = drive(torch)
+        numbers["phase_s"] = time.perf_counter() - t0
+        print(f"{name} phase: {numbers['phase_s']:.3f} s")
+        new_paths[name] = (launches, numbers)
+    new_fwd = {k: v for launches, _ in new_paths.values() for k, v in launches["fwd"].items()}
+    new_bwd = {k: v for launches, _ in new_paths.values() for k, v in launches.get("bwd", {}).items()}
     passes_err, passes_launches, probe = check_passes(torch)
 
     # the chain row: bf16 at the training shape's E, float32 and the serving
@@ -2016,9 +2442,9 @@ def main() -> int:
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
         "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values())
         + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
-        + sum(pocket_launches["fwd"].values()),
+        + sum(pocket_launches["fwd"].values()) + sum(new_fwd.values()),
         "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"],
-                             **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"]},
+                             **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"], **new_fwd},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -2035,6 +2461,7 @@ def main() -> int:
         "conditional_path": cond_numbers,
         "geom": geom_fwd,
         "pocket": pocket_numbers,
+        **{name.replace(" ", "_"): numbers for name, (_, numbers) in new_paths.items()},
         "smem_bytes_blocks_per_sm": occupancy["message_layer"],
     }, {
         "name": "message_layer_bwd",
@@ -2042,9 +2469,9 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
         "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
-        + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()),
+        + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()) + sum(new_bwd.values()),
         "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **cond_launches["bwd"],
-                             **geom_launches["bwd"], **pocket_launches["bwd"]},
+                             **geom_launches["bwd"], **pocket_launches["bwd"], **new_bwd},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],
         "max_abs_err_bf16": kernel_bwd["max_abs_err_bf16"],

@@ -7,8 +7,8 @@ and ``cli.serve`` from the checkpoint directory.
 * ``cli.mol_gen_sample.main`` draws the same molecule sizes as the JAX
   package's ``sample_molecules`` for the same seed, writes one xyz file per
   molecule and returns the JAX package's metric keys; ``save_xyz_files``
-  writes byte-identical files to the JAX package's on the same arrays; the
-  modes that are not ported raise.
+  writes byte-identical files to the JAX package's on the same arrays; every
+  mode of the JAX CLI is ported, and a mode neither package has raises.
 * ``cli.mol_gen_eval.main`` writes ``eval_results.json`` with the JAX
   package's keys and ``num_test_passes`` finite NLLs.
 * Trainer behaviour as the JAX package's tests have it: early stopping after
@@ -164,10 +164,13 @@ def test_xyz_files_byte_identical_to_jax(tmp_path):
 
 @pytest.mark.parametrize("mode", ["chain"])
 def test_mol_gen_sample_unported_modes_raise(mode, tmp_path):
-    from bio_diffusion_torch.cli.mol_gen_sample import main
+    """Every mode of the JAX CLI is ported (``chain`` last; it runs in
+    ``test_torch_visualization.py``): a mode that neither package has raises."""
+    from bio_diffusion_torch.cli.mol_gen_sample import MODES, main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        main(TINY_QM9 + [f"ddpm_mode={mode}", "device=cpu", f"output_dir={tmp_path}"])
+    assert mode in MODES
+    with pytest.raises(ValueError, match="unknown ddpm_mode"):
+        main(TINY_QM9 + [f"ddpm_mode={mode}_gif", "device=cpu", f"output_dir={tmp_path}"])
 
 
 @pytest.mark.parametrize("fast_nll", [False, True])

@@ -11,7 +11,9 @@ QM9-layout files -> ``cli.train experiment=qm9_mol_gen_conditional_ddpm``
 * The conditional evaluation writes ``conditional_eval_<prop>.json``; its
   drawn sizes and contexts are those of the JAX package's CLI for the same
   seed (the JAX CLI runs with its model loading and sampler replaced by a
-  recorder); ``task=qualitative`` raises.
+  recorder).
+* ``task=qualitative`` (or ``sweep_property_values=true``) writes the
+  property sweep's xyz files and GIF, as the JAX CLI's test counts them.
 * ``sample_molecules`` with a ``PropertiesDistribution`` draws the JAX
   package's sizes and contexts in the JAX package's order.
 * The optimization CLI generates the starting molecules
@@ -99,9 +101,9 @@ def record_port_runs(monkeypatch):
 
     calls, orig = [], SegmentedSampler.run
 
-    def run(self, node_mask, generator, num_timesteps=None, fix_noise=False, context=None):
+    def run(self, node_mask, generator, num_timesteps=None, fix_noise=False, context=None, noises=None):
         calls.append((np.array(node_mask), None if context is None else np.array(context)))
-        return orig(self, node_mask, generator, num_timesteps, fix_noise, context)
+        return orig(self, node_mask, generator, num_timesteps, fix_noise, context, noises)
 
     monkeypatch.setattr(SegmentedSampler, "run", run)
     return calls
@@ -144,8 +146,31 @@ def test_conditional_eval_cli_draws_match_jax(run, tmp_path, monkeypatch):
     sizes = np.concatenate([m.sum(1) for m, _ in ours])
     assert list(sizes) == sorted(sizes, reverse=True)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cli.main(args + ["task=qualitative", "device=cpu"])
+
+@pytest.mark.parametrize("switch", ["task=qualitative", "sweep_property_values=true"])
+def test_conditional_sweep_cli(run, tmp_path, monkeypatch, switch):
+    """JAX ``test_eval_clis.py::test_conditional_sweep_mode``'s case: one
+    sweep of 4 frames writes 4 xyz files and a GIF and returns the same
+    dict; the sweep's contexts are JAX's linspace over the property's range
+    at 19 atoms, and its molecules share one noise draw."""
+    from bio_diffusion_torch.cli import mol_gen_eval_conditional_qm9 as cli
+
+    root, data_dir, trainer, _ = run
+    ours = record_port_runs(monkeypatch)
+    res = cli.main([*TINY, f"datamodule.dataloader_cfg.data_dir={data_dir}", switch, "num_sweeps=1",
+                    "sweep_n_frames=4", f"generator_model_filepath={trainer.ckpt_dir}", "device=cpu",
+                    f"output_dir={tmp_path}"])
+    assert res == {"property": "alpha", "sweeps": 1}
+    files = [f for _, _, fs in os.walk(tmp_path) for f in fs]
+    assert len([f for f in files if f.startswith("conditional_") and f.endswith(".xyz")]) == 4
+    assert len([f for f in files if f.endswith(".gif")]) == 1
+    assert os.path.isdir(tmp_path / "alpha" / "sweep_0")
+    (mask, context), = ours
+    assert mask.shape == (4, 19) and mask.all()
+    lo, hi = trainer.props_distr.distributions["alpha"][19]["params"]
+    norms = trainer.props_norms["alpha"]
+    np.testing.assert_allclose(context[:, 0, 0], (np.linspace(lo, hi, 4) - norms["mean"]) / norms["mad"],
+                               rtol=1e-6)
 
 
 def test_sample_molecules_contexts_match_jax():

@@ -16,7 +16,9 @@ the port.  Float32, CPU (the port's plain message layer).
   atol 1e-6 (the KL prior); the full loss's gradients at the tolerance of
   ``test_torch_train_step.py``.
 * 5 reverse steps and the decode with a context: atol 1e-4, decoded types
-  identical; ``mol_gen_optimize`` over 5 steps: atol 1e-4.
+  identical; ``mol_gen_optimize`` over 5 steps: atol 1e-4; the fixed-noise
+  property sweep of ``task=qualitative`` against the JAX sampler: atol
+  1e-4, types identical.
 * ``PropertiesDistribution``, ``compute_mean_mad`` and the batch contexts
   exactly equal to the JAX package's for the same seed.
 * One conditional train step against JAX's ``make_train_step``.
@@ -25,6 +27,7 @@ the port.  Float32, CPU (the port's plain message layer).
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -233,6 +236,47 @@ def test_reverse_steps_with_context_match_jax(setup):
     assert xh.shape == (b, n, 3 + NUM_FEATURES)  # no charge column
     np.testing.assert_allclose(xh[..., :3], xh_j[..., :3], atol=ATOL, rtol=0)
     np.testing.assert_array_equal(xh[..., 3:], xh_j[..., 3:])
+
+
+def test_property_sweep_matches_jax(setup):
+    """``task=qualitative``'s sweep (``cli.mol_gen_eval_conditional_qm9.
+    property_sweep``) against the JAX CLI's: JAX ``SegmentedSampler.run(key,
+    mask, context=linspace contexts, fix_noise=True)`` at 4 frames of 19
+    atoms, its draws (one ``[1, N, F]`` row each, shared by the batch) passed
+    to the port: positions within 1e-4, types identical; two frames of equal
+    context give bit-identical molecules, two of different context differ."""
+    from bio_diffusion_tpu.train.sampling import SegmentedSampler as JaxSampler
+    from bio_diffusion_torch.cli.mol_gen_eval_conditional_qm9 import SWEEP_NODES, property_sweep
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    *_, evd_j, params, evd, _ = setup
+    frames, n, T = 4, SWEEP_NODES, evd.T
+    lo, hi, mean, mad = 10.0, 90.0, 75.0, 6.0
+    props = types.SimpleNamespace(distributions={"alpha": {n: {"params": (lo, hi)}}})
+    ctx = ((np.linspace(lo, hi, frames) - mean) / mad).astype(np.float32)
+    jm = jnp.ones((frames, n))
+    key = jax.random.PRNGKey(4)
+    xh_j = JaxSampler(evd_j, params, fast="off").run(
+        key, jm, context=jnp.asarray(np.broadcast_to(ctx[:, None, None], (frames, n, 1)).copy()), fix_noise=True)
+    key, k_init = jax.random.split(key)
+    key, k_seg = jax.random.split(key)
+    draws, carry = [raw_noise(k_init, 1, n)], k_seg
+    for _ in range(T):
+        carry, k1, _ = jax.random.split(carry, 3)
+        draws.append(raw_noise(k1, 1, n))
+    key, k_dec = jax.random.split(key)
+    draws.append(raw_noise(k_dec, 1, n))
+
+    sampler = SegmentedSampler(evd, "cpu")
+    xh, mask = property_sweep(sampler, None, props, "alpha", mean, mad, frames, noises=draws)
+    assert mask.shape == (frames, n) and mask.all()
+    np.testing.assert_allclose(xh[..., :3], xh_j[..., :3], atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(xh[..., 3:], xh_j[..., 3:])
+    # one noise draw for all frames: equal contexts, equal molecules
+    same = np.broadcast_to(ctx[[1, 1, 2, 2]][:, None, None], (frames, n, 1)).copy()
+    xs = sampler.run(mask, None, context=same, fix_noise=True, noises=draws)
+    assert np.array_equal(xs[0], xs[1]) and np.array_equal(xs[2], xs[3]) and not np.array_equal(xs[1], xs[2])
+    np.testing.assert_array_equal(xs[1], xh[1])
 
 
 def test_mol_gen_optimize_matches_jax(setup):

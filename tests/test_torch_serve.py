@@ -5,6 +5,13 @@
   repeats exactly; the HTTP front end round-trips.
 * Bucketed sampling runs through the port's sampler, and the port's numpy
   copies (size distribution, stability analysis) match the JAX package's.
+* GEOM-Drugs serving: ``build_server`` with ``experiment=geom_mol_gen_ddpm``
+  (the override the JAX package's ``build_server`` takes) holds the GEOM
+  dataset info, size distribution and bucket ladder up to 181 that the JAX
+  server holds, serves molecules without charges, and its size draws and
+  stability analysis equal the JAX package's.
+* ``cli.bench_serve`` at the tiny width prints the JAX script's keys, for
+  QM9 and with ``SERVE_EXPERIMENT=geom_mol_gen_ddpm``.
 * Importing the port (serving modules and `chip_smoke.py` included) loads
   neither jax, flax or optax nor anything of the JAX package.
 """
@@ -91,6 +98,80 @@ def test_sample_molecules_and_analysis_match_jax(server):
         k: v for k, v in jax_analyze(xh, mask, server.dataset_info).items()
         if k in ("mol_stable", "atm_stable", "kl_div_atom_types")
     }
+
+
+GEOM_TINY = ["experiment=geom_mol_gen_ddpm", "model.model_cfg.h_hidden_dim=16", "model.model_cfg.chi_hidden_dim=8",
+             "model.model_cfg.e_hidden_dim=4", "model.model_cfg.xi_hidden_dim=2",
+             "model.model_cfg.num_encoder_layers=1", "model.diffusion_cfg.num_timesteps=4", "precision=fp32",
+             "serving_batch_size=2", "max_wait_ms=50"]
+
+
+def test_geom_serving_matches_jax(monkeypatch):
+    import jax
+    import torch
+
+    from bio_diffusion_tpu.cli import common as jax_common
+    from bio_diffusion_tpu.cli.serve import build_server as jax_build_server
+    from bio_diffusion_tpu.config.loader import load_config as jax_load_config
+    from bio_diffusion_tpu.train.sampling import analyze_samples as jax_analyze
+    from bio_diffusion_torch.cli.serve import build_server
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.train.sampling import analyze_samples, sample_molecules
+
+    # the JAX server's config decisions, with a zeros template for its weights
+    # (its eager init is not what is compared)
+    init = jax_common.init_params
+    monkeypatch.setattr(jax_common, "init_params", lambda exp, evd: jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype), jax.eval_shape(lambda: init(exp, evd))))
+    theirs = jax_build_server(jax_load_config(default_config_dir(), "serve", GEOM_TINY + ["use_mesh=false"]))
+    ours = build_server(load_config(default_config_dir(), "serve", GEOM_TINY + ["device=cpu"]))
+    try:
+        assert ours.buckets == theirs.buckets and ours.buckets[-1] == 181 and len(ours.buckets) == 91
+        assert not ours.include_charges and not theirs.include_charges
+        for key in ("atom_decoder", "n_nodes", "max_n_nodes"):
+            assert ours.dataset_info[key] == theirs.dataset_info[key]
+        assert len(ours.dataset_info["atom_decoder"]) == 16
+        np.testing.assert_array_equal(ours.nodes_dist.sample(64, np.random.default_rng(5)),
+                                      theirs.nodes_dist.sample(64, np.random.default_rng(5)))
+        out = ours.generate(3, num_nodes=6)
+        decoder = set(ours.dataset_info["atom_decoder"])
+        for mol in out["molecules"]:
+            assert "charges" not in mol and set(mol["atoms"]) <= decoder and mol["size"] == 6
+            assert np.isfinite(np.asarray(mol["positions"])).all()
+        small = type(ours.nodes_dist)({5: 1, 7: 2, 9: 1})
+        xh, mask, _ = sample_molecules(ours.sampler, torch.Generator().manual_seed(0), 4, small,
+                                       np.random.default_rng(1), batch_size=2, num_timesteps=2)
+        assert xh.shape[-1] == 3 + 16 and np.all(xh[mask == 0] == 0)
+        assert analyze_samples(xh, mask, ours.dataset_info, include_charges=False) == {
+            k: v for k, v in jax_analyze(xh, mask, theirs.dataset_info, include_charges=False).items()
+            if k in ("mol_stable", "atm_stable", "kl_div_atom_types")}
+    finally:
+        ours.close()
+        theirs.close()
+
+
+@pytest.mark.parametrize("experiment", [None, "geom_mol_gen_ddpm"])
+def test_bench_serve_prints_the_jax_keys(experiment, capsys):
+    from bio_diffusion_torch.cli import bench_serve
+
+    env = {"SERVE_BATCH": "2", "SERVE_STEPS": "2", "SERVE_REQUESTS": "4",
+           "SERVE_CONCURRENCY": "2", "SERVE_PRECISION": "fp32", "SERVE_REQ_MOLS": "3"}
+    argv = [o for o in TINY_OVERRIDES if "dataset=" not in o] + ["device=cpu"]
+    if experiment:
+        env.update(SERVE_EXPERIMENT=experiment, SERVE_NODES="dist", SERVE_BUCKETS="8,12,16")
+        argv = GEOM_TINY[1:5] + ["device=cpu"]
+    result = bench_serve.main(argv, env=env)
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == json.loads(json.dumps(result))
+    assert {"metric", "value", "denoiser_evals_per_s", "latency_s", "unit", "vs_baseline", "stats"} <= set(result)
+    assert set(result["latency_s"]) == {"p50", "p95", "max"} and result["value"] > 0
+    assert result["stats"]["molecules"] == 12 and result["stats"]["requests"] == 4
+    assert result["card"] is None  # no card here
+    assert result["unit"] == ("molecules/s (12 mols x 2 steps, "
+                              + ("dist-sampled sizes" if experiment else "19 atoms")
+                              + ", 2 concurrent clients, batch 2)")
+    if experiment:
+        assert set(result["stats"]["bucket_batches"]) <= {8, 12, 16}
 
 
 def test_http_roundtrip():
