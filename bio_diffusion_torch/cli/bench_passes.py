@@ -116,15 +116,17 @@ def _time_ms(torch, fn, reps: int) -> float:
     return best
 
 
-def layer_inputs(torch, b: int, n: int, dtype, seed: int = 0):
-    """``(s, v, epack, g1, chain)`` of one full-width layer on the card:
-    weights and inputs drawn from ``seed``."""
+def layer_inputs(torch, b: int, n: int, dtype, seed: int = 0, widths=None):
+    """``(s, v, epack, g1, chain)`` of one full-width layer on the card
+    (``widths``: a dict of ``s_dim``, ``v_dim``, ``se``, ``ve``, QM9's by
+    default): weights and inputs drawn from ``seed``."""
     from bio_diffusion_torch.config.schema import LayerConfig, ModuleConfig
     from bio_diffusion_torch.models.gcpnet import GCPMessagePassing
     from bio_diffusion_torch.ops import message_layer as ml
     from bio_diffusion_torch.train.torch_import import init_random_weights
 
-    s_dim, v_dim, se, ve = QM9["s_dim"], QM9["v_dim"], QM9["se"], QM9["ve"]
+    widths = widths or QM9
+    s_dim, v_dim, se, ve = widths["s_dim"], widths["v_dim"], widths["se"], widths["ve"]
     mp = GCPMessagePassing((s_dim, v_dim), (se, ve), ModuleConfig(), LayerConfig())
     init_random_weights(mp, seed)
     g1, chain = ml.detached(ml.pack_message_stack(mp.to("cuda"), s_dim, v_dim, ve, dtype))

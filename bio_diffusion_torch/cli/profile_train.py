@@ -26,10 +26,10 @@ from typing import Dict, List
 
 WARMUP, STEPS = 3, 4
 # device kernels of each hand-written wrapper (``csrc/*.cu``, whose kernels
-# sit in an anonymous namespace; PyTorch has a ``reduce_kernel`` of its own)
+# sit in an anonymous namespace, apart from PyTorch's of the same names)
 KERNEL_GROUPS = {
     "message_layer": ("message_layer_kernel",),
-    "message_layer_bwd": ("bwd_rows_kernel", "proj_sum_kernel", "weight_grad_kernel", "reduce_kernel"),
+    "message_layer_bwd": ("bwd_rows_kernel", "proj_sum_kernel", "weight_grad_kernel"),
 }
 
 
@@ -43,10 +43,10 @@ def group_times(kernels: Dict[str, List[float]]) -> Dict[str, List[float]]:
     return out
 
 
-def group_kernel_ms(torch, fn, reps: int, group: str) -> Dict[str, float]:
-    """Device ms per call of each kernel of one wrapper (``KERNEL_GROUPS[group]``)
-    over ``reps`` calls of ``fn`` under ``torch.profiler``, after one warm-up
-    call."""
+def group_kernel_ms(torch, fn, reps: int, group: str, names=None) -> Dict[str, float]:
+    """Device ms per call of each kernel of one wrapper (``names``, by
+    default ``KERNEL_GROUPS[group]``) over ``reps`` calls of ``fn`` under
+    ``torch.profiler``, after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -57,7 +57,7 @@ def group_kernel_ms(torch, fn, reps: int, group: str) -> Dict[str, float]:
         torch.cuda.synchronize()
     kernels = device_times(prof.events(), reps)
     return {n: sum(v[0] for k, v in kernels.items() if f"(anonymous namespace)::{n}" in k)
-            for n in KERNEL_GROUPS[group]}
+            for n in (names or KERNEL_GROUPS[group])}
 
 
 def _timed_steps(torch, trainer, steps: int) -> float:

@@ -48,9 +48,7 @@
 //      that ran; its own products stay f32.  Registers (128 a thread) and
 //      shared memory (~110 KB with the weight stage) hold it to 2 blocks per
 //      SM.
-//   2. proj_sum_kernel: d_proj_i and d_proj_j as fixed-order sums over the
-//      scratch rows (bytes: ~74 MB per layer).
-//   3. weight_grad_kernel (0.48 ms of f32 FMA work, ~0.9 GB of scratch
+//   2. weight_grad_kernel (0.48 ms of f32 FMA work, ~0.9 GB of scratch
 //      columns): X^T dY for every weight at once, a list of problems in one
 //      launch, rows split into fixed chunks, one partial per chunk.  A
 //      register-tiled SGEMM: each problem's output tile shape is chosen from
@@ -59,8 +57,24 @@
 //      bias sums folded into the first row of tiles); the next 16-row block
 //      of X and dY is loaded into registers while the current one is
 //      multiplied out of shared memory; the one-column attention weight and
-//      its bias are column sums of their own.
-//   4. reduce_kernel: the chunk partials summed in a fixed order.
+//      its bias are column sums of their own.  The chunks' partials are
+//      summed in the same launch: a tile's chunks run side by side (grid
+//      x), each block takes an integer ticket after its partial (fenced),
+//      and the last one sums the tile's partials in chunk order from L2 and
+//      writes the grads, or adds them onto a previous chunk of molecules'.
+//      No second launch and no second pass over the partials.  The sums
+//      read everything afresh after the ticket, so the GEMM loop keeps its
+//      80 registers (3 blocks an SM); written inside the tile's code they
+//      took 101 (2 an SM, ~10% slower).
+//   3. proj_sum_kernel: d_proj_i and d_proj_j as fixed-order sums over
+//      GCP1's cotangent columns of the scratch (~79 MB per layer at B=64,
+//      N=29, bytes-bound).  One pass: a block per (molecule, slab of
+//      columns) walks the source nodes in groups, each group's tiles of N
+//      target rows coming in by 16-byte cp.async with the next two groups in
+//      flight, summed over the targets for d_proj_i (128 threads, one a
+//      (tile, column)) and added into d_proj_j kept in shared memory, so
+//      every element crosses HBM once, not once for each of the two sums.
+//      It runs last, when the row kernel's dirty lines have left L2.
 // No float atomics: two runs give bit-identical results.
 //
 // Numerics follow the TPU kernel: the recompute rounds to the compute dtype
@@ -586,21 +600,121 @@ bwd_rows_kernel(const BwdParams<T> p) {
   }
 }
 
-// d_proj_i[b, i, c] = sum_j D[b, i, j, c] (side 0) and d_proj_j[b, j, c] =
-// sum_i D[b, i, j, c] (side 1), where D is d_s2 | d_vhd of GCP1 in the row
-// scratch.  Fixed summation order.
-__global__ void proj_sum_kernel(const float* __restrict__ rows, int width, int off_s, int off_v,
-                                int S, int W1, int N, float* d_proj_i, float* d_proj_j) {
-  const int node = blockIdx.x, b = blockIdx.y, side = blockIdx.z;
-  float* out = (side == 0 ? d_proj_i : d_proj_j) + ((size_t)b * N + node) * (S + W1);
-  for (int c = threadIdx.x; c < S + W1; c += blockDim.x) {
-    const int col = c < S ? off_s + c : off_v + c - S;
-    float s = 0.f;
-    for (int o = 0; o < N; ++o) {
-      const size_t r = side == 0 ? ((size_t)b * N + node) * N + o : ((size_t)b * N + o) * N + node;
-      s += rows[r * width + col];
+// d_proj_i[b, i, c] = sum_j D[b, i, j, c] and d_proj_j[b, j, c] = sum_i
+// D[b, i, j, c], where D is GCP1's cotangent columns in the row scratch
+// (dvhd1 | ds2_1, W1 + S columns, one contiguous range) and the outputs take
+// them as ds2_1 | dvhd1; every sum in index order from 0.f.  One block per
+// (slab of columns, molecule b) walks the source nodes i in order, a group
+// of G at a time: the tiles D[b, i, 0..N, slab] of a group come into shared
+// memory by 16-byte cp.async, the next PS_STAGES - 1 groups in flight.  The
+// first PS_CHAIN threads sum each tile over j (one thread a (tile, column),
+// j ascending) into d_proj_i; the others add the group's tiles, i
+// ascending, into the running d_proj_j[b, 0..N, slab], written once at the
+// end.  So each element of the scratch crosses HBM once.  The slabs tile
+// the aligned columns [a0, a0 + cols) (see ProjSumPlan); a slab column
+// outside the cotangent range is loaded (or zero-filled past `cols`) and
+// never written.
+constexpr int PS_THREADS = 256;
+constexpr int PS_CHAIN = 128;          // threads of the d_proj_i sums
+constexpr int PS_STAGES = 3;           // groups in shared memory: two in flight
+constexpr int PS_GROUP_BYTES = 65536;  // at most (or one tile) a group
+
+struct ProjSumPlan {
+  int a0;     // first scratch column of the slabs: dvhd1 rounded down to 8 (32-byte sectors)
+  int shift;  // dvhd1 - a0
+  int cols;   // round4(shift + W1 + S): the aligned columns the slabs read
+  int sw;     // columns a slab, a multiple of 4, <= PS_CHAIN
+  int slabs;  // ceil(cols / sw)
+  int group;  // source nodes a group: G <= PS_CHAIN / sw tiles of N x sw floats
+  size_t smem;
+};
+
+// The slab width: 32 columns where B x slabs gives at least two blocks an SM,
+// else 16, else 8 (at B=64, N=29 QM9 takes 32: 704 blocks; a GEOM chunk of 19
+// molecules at N=96 takes 16: 418; 4 molecules at N=192 take 8: 172).  The
+// group: as many tiles as PS_CHAIN threads sum and PS_GROUP_BYTES hold (QM9
+// at N=29: 4).
+ProjSumPlan proj_sum_plan(const Dims& d, const RowLayout& RL, int sms) {
+  ProjSumPlan ps;
+  ps.a0 = RL.dvhd1 & ~7;
+  ps.shift = RL.dvhd1 - ps.a0;
+  ps.cols = round4(ps.shift + 3 * d.H1 + 27 + d.S);
+  ps.sw = 32;
+  while (ps.sw > 8 && (long long)d.B * ((ps.cols + ps.sw - 1) / ps.sw) < 2LL * sms) ps.sw /= 2;
+  ps.slabs = (ps.cols + ps.sw - 1) / ps.sw;
+  const int tile_bytes = (int)sizeof(float) * d.N * ps.sw;
+  ps.group = PS_CHAIN / ps.sw;
+  if (ps.group * tile_bytes > PS_GROUP_BYTES) ps.group = PS_GROUP_BYTES / tile_bytes > 1 ? PS_GROUP_BYTES / tile_bytes : 1;
+  ps.smem = (size_t)tile_bytes * (PS_STAGES * ps.group + 1);
+  return ps;
+}
+
+__global__ void __launch_bounds__(PS_THREADS) proj_sum_kernel(const float* __restrict__ rows, int width,
+                                                              int N, int S, int W1, const ProjSumPlan ps,
+                                                              float* __restrict__ d_proj_i,
+                                                              float* __restrict__ d_proj_j) {
+  extern __shared__ float4 ps_smem[];
+  const int sw = ps.sw, q4 = sw / 4, tile = N * sw, G = ps.group, C = S + W1;
+  float* tiles = reinterpret_cast<float*>(ps_smem);  // [PS_STAGES][G][N][sw]
+  float* acc = tiles + PS_STAGES * G * tile;          // [N][sw]: d_proj_j so far
+  const int c0 = blockIdx.x * sw, b = blockIdx.y, steps = (N + G - 1) / G;
+  const float* src0 = rows + (size_t)b * N * N * width + ps.a0 + c0;
+  auto load = [&](int s) {  // group s into its buffer; one commit group a call
+    if (s < steps) {
+      const int i0 = s * G, ng = min(G, N - i0);
+      float* dst = tiles + (s % PS_STAGES) * G * tile;
+      const float* src = src0 + (size_t)i0 * N * width;
+      for (int e = threadIdx.x; e < ng * N * q4; e += PS_THREADS) {
+        const int r = e / q4, q = 4 * (e % q4);  // row r = g * N + j of the group
+        cp_async16(dst + r * sw + q, src + (size_t)r * width + q, c0 + q < ps.cols ? 16 : 0);
+      }
     }
-    out[c] = s;
+    cp_async_commit();
+  };
+  // slab column t holds cotangent column k = c0 + t - shift (dvhd1 first):
+  // output column S + k (k < W1) or k - W1, -1 outside the range
+  auto out_col = [&](int t) {
+    const int k = c0 + t - ps.shift;
+    return k < 0 || k >= C ? -1 : (k < W1 ? S + k : k - W1);
+  };
+  for (int e = threadIdx.x; e < tile; e += PS_THREADS) acc[e] = 0.f;
+  for (int s = 0; s < PS_STAGES - 1; ++s) load(s);
+  for (int s = 0; s < steps; ++s) {
+    load(s + PS_STAGES - 1);  // into the buffer that group s - 1 left
+    cp_async_wait<PS_STAGES - 1>();
+    __syncthreads();
+    const float* t = tiles + (s % PS_STAGES) * G * tile;
+    const int i0 = s * G, ng = min(G, N - i0);
+    if (threadIdx.x < PS_CHAIN) {
+      for (int u = threadIdx.x; u < ng * sw; u += PS_CHAIN) {
+        const int g = u / sw, c = u % sw, col = out_col(c);
+        if (col < 0) continue;
+        const float* x = t + g * tile + c;
+        float sum = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < N; ++j) sum += x[j * sw];
+        d_proj_i[((size_t)b * N + i0 + g) * C + col] = sum;
+      }
+    } else {
+      const float4* t4 = reinterpret_cast<const float4*>(t);
+      float4* a4 = reinterpret_cast<float4*>(acc);
+      for (int e = threadIdx.x - PS_CHAIN; e < N * q4; e += PS_THREADS - PS_CHAIN) {
+        float4 a = a4[e];
+        for (int g = 0; g < ng; ++g) {
+          const float4 x = t4[g * (tile / 4) + e];
+          a.x += x.x;
+          a.y += x.y;
+          a.z += x.z;
+          a.w += x.w;
+        }
+        a4[e] = a;
+      }
+    }
+    __syncthreads();  // group s's buffer is free for group s + PS_STAGES
+  }
+  for (int e = threadIdx.x; e < tile; e += PS_THREADS) {
+    const int c = out_col(e % sw);
+    if (c >= 0) d_proj_j[((size_t)b * N + e / sw) * C + c] = acc[e];
   }
 }
 
@@ -611,9 +725,10 @@ __global__ void proj_sum_kernel(const float* __restrict__ rows, int width, int o
 // A column sum C[c] = sum_r X[r, xoff + c] * (yoff >= 0 ? Y[r, yoff] : 1)
 // (c < K, Nn = 1: the attention weight's one column and its bias) is cut into
 // tiles of 32 columns (WG_SUM).  A problem writes out[0 .. K*Nn) row-major
-// and its bias to out_b[0 .. Nn).
+// and its bias to out_b[0 .. Nn).  Each tile's split partials lie together
+// from partials[splits * (part0 + local * tile floats)], split by split.
 struct WgProblem {
-  int shape, xoff, K, hb, yoff, Nn, tile0, ntn, elem0;
+  int shape, xoff, K, hb, yoff, Nn, tile0, ntn, part0;
   float* out;
   float* out_b;
 };
@@ -622,7 +737,9 @@ struct WgParams {
   const float* rows;
   size_t R;
   int width, splits, chunk, np;
+  int accumulate;  // 1: out += the sums (a later chunk of molecules), 0: out = the sums
   float* partials;
+  int* tickets;    // one counter a tile, 0 between launches
   WgProblem prob[MAXP];
 };
 
@@ -636,11 +753,44 @@ constexpr int WG_NSHAPES = sizeof(WG_SHAPES) / sizeof(WG_SHAPES[0]);
 constexpr int WG_SUM = WG_NSHAPES;                  // shape code of a column sum
 constexpr int WG_SMEM = 2 * WG_RB * (128 + 64);     // floats: two row blocks of the largest tile
 
-__device__ __forceinline__ int find_problem(const WgParams& p, int t, bool by_tile) {
+// Floats of one split's partial of a tile: a product tile's TK x TN sums
+// (thread-major: thread t's at t * TK * TN / 256) and TN bias sums; a column
+// sum's 32.
+int wg_tile_floats(int shape) {
+  return shape == WG_SUM ? 32 : WG_SHAPES[shape].tk * WG_SHAPES[shape].tn + WG_SHAPES[shape].tn;
+}
+
+// The problem of tile t: one scan of the list a block.
+__device__ __forceinline__ int find_problem(const WgParams& p, int t) {
   int q = 0;
   for (int k = 1; k < p.np; ++k)
-    if ((by_tile ? p.prob[k].tile0 : p.prob[k].elem0) <= t) q = k;
+    if (p.prob[k].tile0 <= t) q = k;
   return q;
+}
+
+// Whether this block is the last of its tile's splits to finish.  Every
+// thread's partial is fenced before one thread takes the tile's ticket (an
+// int counter); the block that draws the last one resets the counter to 0
+// for the next launch and, after a second fence, reads every split's
+// partial (at L2, __ldcg: another SM wrote them).
+__device__ __forceinline__ bool last_split(const WgParams& p) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ticket = p.tickets + blockIdx.y;
+    last = atomicAdd(ticket, 1) == p.splits - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The final write of a sum: in place for a later chunk of molecules (the
+// same f32 addition as the wrapper's add_ of a chunk's grads).
+__device__ __forceinline__ void put(float* out, float s, int accumulate) {
+  *out = accumulate ? *out + s : s;
 }
 
 // Index in a TK- (or TN-) wide row block of a thread's a-th row (column),
@@ -670,15 +820,17 @@ __device__ __forceinline__ void load_frag(const float* row, int t, float (&v)[M]
 // One TK x TN tile of a product over this block's chunk of rows: row blocks
 // of WG_RB rows, the next one loaded into registers while the current one is
 // multiplied out of shared memory (two buffers, one barrier a block).  Rows
-// past the chunk, k >= K and n >= Nn read as zero.
+// past the chunk, k >= K and n >= Nn read as zero.  The block stores its
+// split's partial.
 template <int TK, int TN, bool BIAS>
 __device__ __forceinline__ void wg_tile(const WgParams& p, const WgProblem& q, int local, float* sm) {
-  constexpr int MK = TK / 16, MN = TN / 16;
+  constexpr int MK = TK / 16, MN = TN / 16, ME = MK * MN, TF = TK * TN + TN;
   constexpr int XE = WG_RB * TK / 256, YE = WG_RB * TN / 256;  // loads a thread makes a row block
   static_assert(XE * 256 == WG_RB * TK && YE * 256 == WG_RB * TN, "row blocks split evenly");
   static_assert(2 * WG_RB * (TK + TN) <= WG_SMEM, "two row blocks fit");
+  static_assert(ME % 4 == 0, "a thread's sums go as float4");
   const int k0 = (local / q.ntn) * TK, n0 = (local % q.ntn) * TN;
-  const size_t r_begin = (size_t)blockIdx.y * p.chunk;
+  const size_t r_begin = (size_t)blockIdx.x * p.chunk;
   const size_t r_end = r_begin + p.chunk < p.R ? r_begin + p.chunk : p.R;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float* Xs = sm;                  // [2][WG_RB][TK]
@@ -742,12 +894,42 @@ __device__ __forceinline__ void wg_tile(const WgParams& p, const WgProblem& q, i
     __syncthreads();
     buf ^= 1;
   }
-  float* part = p.partials + (size_t)p.splits * q.elem0 + (size_t)blockIdx.y * (q.K + q.hb) * q.Nn;
+  // this split's partial: thread t's sums at t * ME (a-major), the bias sums
+  // of thread column tx at TK * TN + tx * MN
+  float* part = p.partials + (size_t)p.splits * (q.part0 + (size_t)local * TF);
+  float4* mine = reinterpret_cast<float4*>(part + (size_t)blockIdx.x * TF + threadIdx.x * ME);
+#pragma unroll
+  for (int e = 0; e < ME; e += 4)
+    mine[e / 4] = make_float4(acc[e / MN][e % MN], acc[(e + 1) / MN][(e + 1) % MN],
+                              acc[(e + 2) / MN][(e + 2) % MN], acc[(e + 3) / MN][(e + 3) % MN]);
   if (bias) {
 #pragma unroll
-    for (int c = 0; c < MN; ++c) {
-      const int n = n0 + frag_at<MN, TN>(tx, c);
-      if (n < q.Nn) part[(size_t)q.K * q.Nn + n] = bsum[c];
+    for (int c = 0; c < MN; ++c) part[(size_t)blockIdx.x * TF + TK * TN + tx * MN + c] = bsum[c];
+  }
+}
+
+// The last split of a product tile: every split's partial of the tile in
+// split order from 0.f (at L2), written as the grads (and the bias) or added
+// onto them.  It reads all it needs afresh, so that nothing of the GEMM's
+// stays live across its loop for it.
+template <int TK, int TN>
+__device__ __forceinline__ void wg_reduce(const WgParams& p, const WgProblem& q, int local) {
+  constexpr int MK = TK / 16, MN = TN / 16, ME = MK * MN, TF = TK * TN + TN;
+  const int k0 = (local / q.ntn) * TK, n0 = (local % q.ntn) * TN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* part = p.partials + (size_t)p.splits * (q.part0 + (size_t)local * TF);
+  float s[ME];
+#pragma unroll
+  for (int e = 0; e < ME; ++e) s[e] = 0.f;
+  for (int sp = 0; sp < p.splits; ++sp) {
+    const float4* src = reinterpret_cast<const float4*>(part + (size_t)sp * TF + threadIdx.x * ME);
+#pragma unroll
+    for (int e = 0; e < ME; e += 4) {
+      const float4 v = __ldcg(src + e / 4);
+      s[e] += v.x;
+      s[e + 1] += v.y;
+      s[e + 2] += v.z;
+      s[e + 3] += v.w;
     }
   }
 #pragma unroll
@@ -756,7 +938,16 @@ __device__ __forceinline__ void wg_tile(const WgParams& p, const WgProblem& q, i
 #pragma unroll
     for (int c = 0; c < MN; ++c) {
       const int n = n0 + frag_at<MN, TN>(tx, c);
-      if (k < q.K && n < q.Nn) part[(size_t)k * q.Nn + n] = acc[a][c];
+      if (k < q.K && n < q.Nn) put(q.out + (size_t)k * q.Nn + n, s[a * MN + c], p.accumulate);
+    }
+  }
+  if (q.hb && local < q.ntn && ty == 0) {
+#pragma unroll
+    for (int c = 0; c < MN; ++c) {
+      const int n = n0 + frag_at<MN, TN>(tx, c);
+      float t = 0.f;
+      for (int sp = 0; sp < p.splits; ++sp) t += __ldcg(part + (size_t)sp * TF + TK * TN + tx * MN + c);
+      if (n < q.Nn) put(q.out_b + n, t, p.accumulate);
     }
   }
 }
@@ -774,10 +965,11 @@ __device__ __forceinline__ void wg_shape(const WgParams& p, const WgProblem& q, 
 }
 
 // 32 columns of a column sum over this block's chunk: warp w takes rows w,
-// w + 8, ..., lane l column l; the 8 warps' sums are added in warp order.
+// w + 8, ..., lane l column l; the 8 warps' sums are added in warp order
+// into this split's partial.
 __device__ __forceinline__ void wg_sum(const WgParams& p, const WgProblem& q, int local, float* sm) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = local * 32 + lane;
-  const size_t r_begin = (size_t)blockIdx.y * p.chunk;
+  const size_t r_begin = (size_t)blockIdx.x * p.chunk;
   const size_t r_end = r_begin + p.chunk < p.R ? r_begin + p.chunk : p.R;
   float acc = 0.f;
   if (c < q.K) {
@@ -789,43 +981,56 @@ __device__ __forceinline__ void wg_sum(const WgParams& p, const WgProblem& q, in
   }
   sm[threadIdx.x] = acc;
   __syncthreads();
-  if (warp == 0 && c < q.K) {
+  if (warp == 0) {
     float s = 0.f;
     for (int w = 0; w < 8; ++w) s += sm[w * 32 + lane];
-    p.partials[(size_t)p.splits * q.elem0 + (size_t)blockIdx.y * q.K + c] = s;
+    p.partials[(size_t)p.splits * (q.part0 + (size_t)local * 32) + blockIdx.x * 32 + lane] = s;
   }
 }
 
-// grid (tiles over all problems, splits): one tile of one problem over one
-// chunk of rows -> partials[splits * elem0 + split * K * Nn + k * Nn + n].
+// The last split of a column-sum tile: the splits' partials in split order.
+__device__ __forceinline__ void wg_sum_reduce(const WgParams& p, const WgProblem& q, int local) {
+  const int c = local * 32 + threadIdx.x;
+  if (threadIdx.x >= 32 || c >= q.K) return;
+  const float* part = p.partials + (size_t)p.splits * (q.part0 + (size_t)local * 32) + threadIdx.x;
+  float s = 0.f;
+  for (int sp = 0; sp < p.splits; ++sp) s += __ldcg(part + sp * 32);
+  put(q.out + c, s, p.accumulate);
+}
+
+// grid (splits, tiles over all problems): one tile of one problem over one
+// chunk of rows into its partial.  A tile's splits are neighbours in the
+// launch order, so the last of them to finish reduces the tile while later
+// tiles' blocks run.
 __global__ void __launch_bounds__(256) weight_grad_kernel(const WgParams p) {
   __shared__ __align__(16) float sm[WG_SMEM];
-  const WgProblem& q = p.prob[find_problem(p, blockIdx.x, true)];
-  const int local = blockIdx.x - q.tile0;
-  switch (q.shape) {  // uniform across the block
-    case 0: wg_shape<0>(p, q, local, sm); break;
-    case 1: wg_shape<1>(p, q, local, sm); break;
-    case 2: wg_shape<2>(p, q, local, sm); break;
-    case 3: wg_shape<3>(p, q, local, sm); break;
-    case 4: wg_shape<4>(p, q, local, sm); break;
-    case 5: wg_shape<5>(p, q, local, sm); break;
-    default: wg_sum(p, q, local, sm);
+  {
+    const WgProblem& q = p.prob[find_problem(p, blockIdx.y)];
+    const int local = blockIdx.y - q.tile0;
+    switch (q.shape) {  // uniform across the block
+      case 0: wg_shape<0>(p, q, local, sm); break;
+      case 1: wg_shape<1>(p, q, local, sm); break;
+      case 2: wg_shape<2>(p, q, local, sm); break;
+      case 3: wg_shape<3>(p, q, local, sm); break;
+      case 4: wg_shape<4>(p, q, local, sm); break;
+      case 5: wg_shape<5>(p, q, local, sm); break;
+      default: wg_sum(p, q, local, sm);
+    }
+  }
+  if (!last_split(p)) return;
+  const WgProblem& q = p.prob[find_problem(p, blockIdx.y)];
+  const int local = blockIdx.y - q.tile0;
+  switch (q.shape) {
+    case 0: wg_reduce<WG_SHAPES[0].tk, WG_SHAPES[0].tn>(p, q, local); break;
+    case 1: wg_reduce<WG_SHAPES[1].tk, WG_SHAPES[1].tn>(p, q, local); break;
+    case 2: wg_reduce<WG_SHAPES[2].tk, WG_SHAPES[2].tn>(p, q, local); break;
+    case 3: wg_reduce<WG_SHAPES[3].tk, WG_SHAPES[3].tn>(p, q, local); break;
+    case 4: wg_reduce<WG_SHAPES[4].tk, WG_SHAPES[4].tn>(p, q, local); break;
+    case 5: wg_reduce<WG_SHAPES[5].tk, WG_SHAPES[5].tn>(p, q, local); break;
+    default: wg_sum_reduce(p, q, local);
   }
 }
 static_assert(WG_NSHAPES == 6, "weight_grad_kernel dispatches six tile shapes");
-
-// Sum of the chunk partials in chunk order -> the f32 weight and bias grads.
-__global__ void reduce_kernel(const WgParams p, int total) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const WgProblem& q = p.prob[find_problem(p, e, false)];
-  const int local = e - q.elem0, body = q.K * q.Nn;
-  const float* part = p.partials + (size_t)p.splits * q.elem0 + local;
-  float s = 0.f;
-  for (int sp = 0; sp < p.splits; ++sp) s += part[(size_t)sp * (body + q.hb * q.Nn)];
-  if (local < body) q.out[local] = s;
-  else q.out_b[local - body] = s;
-}
 
 size_t edge_rows(const Dims& d) { return (size_t)d.B * d.N * d.N; }
 
@@ -855,9 +1060,11 @@ int wg_best(int K, int N, double* cost) {
 
 // The weight-grad problems; returns their count (-1 past MAXP).  Problems
 // are listed by the work of one tile, largest first, so that the longest
-// blocks start first; tile0 and elem0 follow that order.
-int make_problems(const Dims& d, const RowLayout& RL, float* const* out, WgProblem* prob,
-                  int* tiles, int* elems) {
+// blocks start first; tile0 and part0 follow that order.  *tiles: their
+// tiles; *floats: the floats of one split's partials of all tiles.  grad:
+// wve, wsx, bs, wu1, wg, bg, wcomb, wsc, bsc, wubd, wgc, bgc, wattn, battn.
+int make_problems(const Dims& d, const RowLayout& RL, float* const* grad, WgProblem* prob,
+                  int* tiles, long long* floats) {
   const int S = d.S, V = d.V, V3 = 3 * d.V, W1 = 3 * d.H1 + 27, Wc = 3 * d.Hc + 27;
   const int M1 = S + d.Hc + 9;
   WgProblem list[MAXP];
@@ -882,26 +1089,25 @@ int make_problems(const Dims& d, const RowLayout& RL, float* const* out, WgProbl
     add(s, xoff, K, yoff, Nn, o, ob);
   };
   auto colsum = [&](int xoff, int C, int yoff, float* o) { add(WG_SUM, xoff, C, yoff, 1, o, nullptr); };
-  // out: d_epack, d_proj_i, d_proj_j, wve, wsx, bs, wu1, wg, bg, wcomb, wsc, bsc, wubd, wgc, bgc,
-  // wattn, battn
-  gemm(RL.xi, 3 * d.Ve, RL.dvhd1, W1, out[3], nullptr);
-  gemm(RL.cat1, d.Se + d.H1 + 9, RL.ds2_1, S, out[4], out[5]);
-  gemm(RL.vhd1, 3 * d.H1, RL.dvu1, V3, out[6], nullptr);
-  gemm(RL.silu1, S, RL.dzg1, V, out[7], out[8]);
+  gemm(RL.xi, 3 * d.Ve, RL.dvhd1, W1, grad[0], nullptr);
+  gemm(RL.cat1, d.Se + d.H1 + 9, RL.ds2_1, S, grad[1], grad[2]);
+  gemm(RL.vhd1, 3 * d.H1, RL.dvu1, V3, grad[3], nullptr);
+  gemm(RL.silu1, S, RL.dzg1, V, grad[4], grad[5]);
   for (int g = 0; g < d.G; ++g) {
     const int sb = RL.stage0 + g * RL.stage_w;
-    gemm(sb + RL.vin, V3, sb + RL.dvhd, Wc, out[9] + (size_t)g * V3 * Wc, nullptr);
-    gemm(sb + RL.merged, M1, sb + RL.ds2, S, out[10] + (size_t)g * M1 * S, out[11] + (size_t)g * S);
-    gemm(sb + RL.vhd, 3 * d.Hc, sb + RL.dvu, V3, out[12] + (size_t)g * 3 * d.Hc * V3, nullptr);
-    gemm(sb + RL.silu, S, sb + RL.dzg, V, out[13] + (size_t)g * S * V, out[14] + (size_t)g * V);
+    gemm(sb + RL.vin, V3, sb + RL.dvhd, Wc, grad[6] + (size_t)g * V3 * Wc, nullptr);
+    gemm(sb + RL.merged, M1, sb + RL.ds2, S, grad[7] + (size_t)g * M1 * S, grad[8] + (size_t)g * S);
+    gemm(sb + RL.vhd, 3 * d.Hc, sb + RL.dvu, V3, grad[9] + (size_t)g * 3 * d.Hc * V3, nullptr);
+    gemm(sb + RL.silu, S, sb + RL.dzg, V, grad[10] + (size_t)g * S * V, grad[11] + (size_t)g * V);
   }
-  colsum(RL.sfin, S, RL.dzattn, out[15]);
-  colsum(RL.dzattn, 1, -1, out[16]);
+  colsum(RL.sfin, S, RL.dzattn, grad[12]);
+  colsum(RL.dzattn, 1, -1, grad[13]);
   if (np > MAXP) return -1;
   auto tile_work = [](const WgProblem& q) {
     return q.shape == WG_SUM ? 0 : WG_SHAPES[q.shape].tk * WG_SHAPES[q.shape].tn;
   };
-  int n = 0, t = 0, e = 0;
+  int n = 0, t = 0;
+  long long f = 0;
   bool taken[MAXP] = {};
   while (n < np) {  // stable selection by tile work, largest first
     int pick = -1;
@@ -910,15 +1116,20 @@ int make_problems(const Dims& d, const RowLayout& RL, float* const* out, WgProbl
     taken[pick] = true;
     WgProblem q = list[pick];
     q.ntn = q.shape == WG_SUM ? 1 : (q.Nn + WG_SHAPES[q.shape].tn - 1) / WG_SHAPES[q.shape].tn;
+    const int nt = q.shape == WG_SUM ? (q.K + 31) / 32 : wg_tiles(q.K, q.Nn, q.shape);
     q.tile0 = t;
-    t += q.shape == WG_SUM ? (q.K + 31) / 32 : wg_tiles(q.K, q.Nn, q.shape);
-    q.elem0 = e;
-    e += (q.K + q.hb) * q.Nn;
+    q.part0 = (int)f;
+    t += nt;
+    f += (long long)nt * wg_tile_floats(q.shape);
     prob[n++] = q;
   }
   *tiles = t;
-  *elems = e;
+  *floats = f;
   return np;
+}
+
+Dims dims_of(const int* dims) {
+  return Dims{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7], dims[8], dims[9]};
 }
 
 bool dims_ok(const Dims& d) {
@@ -926,11 +1137,49 @@ bool dims_ok(const Dims& d) {
          d.P == d.Se + 3 * d.Ve + 10;
 }
 
+// The node sums over a scratch of d's rows.
+cudaError_t launch_proj_sum(const Dims& d, const RowLayout& RL, const float* rows, float* d_proj_i,
+                            float* d_proj_j, cudaStream_t stream) {
+  int device = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const ProjSumPlan ps = proj_sum_plan(d, RL, sms);
+  if (ps.smem > (size_t)optin) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(proj_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ps.smem);
+  if (err != cudaSuccess) return err;
+  proj_sum_kernel<<<dim3(ps.slabs, d.B), PS_THREADS, ps.smem, stream>>>(rows, RL.width, d.N, d.S, 3 * d.H1 + 27,
+                                                                        ps, d_proj_i, d_proj_j);
+  return cudaGetLastError();
+}
+
+// The weight grads (and biases) over a scratch of d's rows, written or, with
+// accumulate, added onto `grad`'s (see make_problems).  `tickets`: one int a
+// tile, all 0 (and left so).
+cudaError_t launch_weight_grads(const Dims& d, const RowLayout& RL, const float* rows, float* const* grad,
+                                float* partials, int* tickets, int accumulate, cudaStream_t stream) {
+  WgParams w;
+  w.rows = rows;
+  w.R = edge_rows(d);
+  w.width = RL.width;
+  w.splits = splits_for(w.R);
+  w.chunk = (int)((w.R + w.splits - 1) / w.splits + WG_RB - 1) / WG_RB * WG_RB;
+  w.accumulate = accumulate;
+  w.partials = partials;
+  w.tickets = tickets;
+  int tiles = 0;
+  long long floats = 0;
+  w.np = make_problems(d, RL, grad, w.prob, &tiles, &floats);
+  if (w.np < 0 || tiles > 65535) return cudaErrorInvalidValue;
+  weight_grad_kernel<<<dim3(w.splits, tiles), 256, 0, stream>>>(w);
+  return cudaGetLastError();
+}
+
 template <typename T>
-int launch_bwd(const void* const* ins, void* const* outs, float* rows, float* partials,
-               const int* dims, void* stream_ptr) {
-  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7], dims[8],
-               dims[9]};
+int launch_bwd(const void* const* ins, void* const* outs, float* rows, float* partials, int* tickets,
+               const int* dims, int accumulate, void* stream_ptr) {
+  const Dims d = dims_of(dims);
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const RowLayout RL(d);
@@ -962,27 +1211,11 @@ int launch_bwd(const void* const* ins, void* const* outs, float* rows, float* pa
   if (err != cudaSuccess) return (int)err;
   bwd_rows_kernel<T><<<dim3(d.N, d.B), THREADS, smem, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int W1 = 3 * d.H1 + 27;
-  proj_sum_kernel<<<dim3(d.N, d.B, 2), 128, 0, stream>>>(
-      rows, RL.width, RL.ds2_1, RL.dvhd1, d.S, W1, d.N, static_cast<float*>(outs[1]),
-      static_cast<float*>(outs[2]));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  WgParams w;
-  w.rows = rows;
-  w.R = edge_rows(d);
-  w.width = RL.width;
-  w.splits = splits_for(w.R);
-  w.chunk = (int)((w.R + w.splits - 1) / w.splits + WG_RB - 1) / WG_RB * WG_RB;
-  w.partials = partials;
-  int tiles = 0, elems = 0;
-  w.np = make_problems(d, RL, reinterpret_cast<float* const*>(outs), w.prob, &tiles, &elems);
-  if (w.np < 0) return (int)cudaErrorInvalidValue;
-  weight_grad_kernel<<<dim3(tiles, w.splits), 256, 0, stream>>>(w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_kernel<<<(elems + 255) / 256, 256, 0, stream>>>(w, elems);
-  return (int)cudaGetLastError();
+  err = launch_weight_grads(d, RL, rows, reinterpret_cast<float* const*>(outs + 3), partials, tickets, accumulate,
+                            stream);
+  if (err != cudaSuccess) return (int)err;
+  // the node sums last: by then the row kernel's dirty lines have left L2
+  return (int)launch_proj_sum(d, RL, rows, static_cast<float*>(outs[1]), static_cast<float*>(outs[2]), stream);
 }
 
 }  // namespace
@@ -991,19 +1224,21 @@ extern "C" {
 
 // sizes[0]: floats of the per-row scratch, sizes[1]: floats of the
 // weight-grad partials, sizes[2]: bytes of dynamic shared memory per block
-// of the row kernel.  Returns non-zero for widths the kernel does not take.
+// of the row kernel, sizes[3]: the weight-grad tiles (int tile counters).
+// Returns non-zero for widths the kernel does not take.
 int message_layer_bwd_workspace(const int* dims, long long* sizes) {
-  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7], dims[8],
-               dims[9]};
+  const Dims d = dims_of(dims);
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
   const RowLayout RL(d);
   WgProblem prob[MAXP];
-  float* outs[17] = {};
-  int tiles = 0, elems = 0;
-  if (make_problems(d, RL, outs, prob, &tiles, &elems) < 0) return (int)cudaErrorInvalidValue;
+  float* grad[14] = {};
+  int tiles = 0;
+  long long floats = 0;
+  if (make_problems(d, RL, grad, prob, &tiles, &floats) < 0) return (int)cudaErrorInvalidValue;
   sizes[0] = (long long)edge_rows(d) * RL.width;
-  sizes[1] = (long long)splits_for(edge_rows(d)) * elems;
+  sizes[1] = (long long)splits_for(edge_rows(d)) * floats;
   sizes[2] = (long long)(sizeof(float) * (size_t)SmemLayout(d).floats(d));
+  sizes[3] = tiles;
   return 0;
 }
 
@@ -1034,14 +1269,35 @@ int message_layer_bwd_kernel_attrs(int kernel, int bf16, int* out) {
   return 0;
 }
 
+// The backward over d's rows: the row kernel into `rows`, then the weight
+// grads and the node sums; outs: d_epack, d_proj_i, d_proj_j, then the 14
+// grads of make_problems, written (accumulate 0) or added onto (accumulate 1).
 int message_layer_bwd_f32(const void* const* ins, void* const* outs, float* rows, float* partials,
-                          const int* dims, void* stream) {
-  return launch_bwd<float>(ins, outs, rows, partials, dims, stream);
+                          int* tickets, const int* dims, int accumulate, void* stream) {
+  return launch_bwd<float>(ins, outs, rows, partials, tickets, dims, accumulate, stream);
 }
 
-int message_layer_bwd_bf16(const void* const* ins, void* const* outs, float* rows,
-                           float* partials, const int* dims, void* stream) {
-  return launch_bwd<__nv_bfloat16>(ins, outs, rows, partials, dims, stream);
+int message_layer_bwd_bf16(const void* const* ins, void* const* outs, float* rows, float* partials,
+                           int* tickets, const int* dims, int accumulate, void* stream) {
+  return launch_bwd<__nv_bfloat16>(ins, outs, rows, partials, tickets, dims, accumulate, stream);
+}
+
+// proj_sum_kernel alone on a scratch of d's layout (edge_rows x width floats).
+int message_layer_bwd_proj_sums(const float* rows, const int* dims, float* d_proj_i, float* d_proj_j,
+                                void* stream) {
+  const Dims d = dims_of(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  return (int)launch_proj_sum(d, RowLayout(d), rows, d_proj_i, d_proj_j, static_cast<cudaStream_t>(stream));
+}
+
+// weight_grad_kernel alone on a scratch of d's layout: the 14 grads written
+// or, with accumulate, added onto.
+int message_layer_bwd_weight_grads(const float* rows, const int* dims, void* const* grads, float* partials,
+                                   int* tickets, int accumulate, void* stream) {
+  const Dims d = dims_of(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  return (int)launch_weight_grads(d, RowLayout(d), rows, reinterpret_cast<float* const*>(grads), partials,
+                                  tickets, accumulate, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef PHASE_PROBE

@@ -22,7 +22,10 @@ the CUDA kernel (``csrc/message_layer.cu``) for tensors on a CUDA device; it
 raises for anything else.  :func:`fused_message_layer_bwd` does the same
 with the backward kernel (``csrc/message_layer_bwd.cu``), which it runs over
 a large batch in chunks of whole molecules to bound the kernel's per-row
-scratch (``BWD_SCRATCH_BUDGET``).
+scratch (``BWD_SCRATCH_BUDGET``).  Two of the backward kernel's reductions
+also run alone on a scratch of its layout (:func:`bwd_row_layout`), for
+comparison with their plain twins: :func:`bwd_proj_sums` and
+:func:`bwd_weight_grads`.
 """
 
 from __future__ import annotations
@@ -262,13 +265,110 @@ def bwd_outputs(out) -> list:
 
 
 # The backward kernel keeps a per-edge-row scratch in device memory
-# (``RowLayout::width`` floats a row, csrc/message_layer_bwd.cu: 6,040 at
-# GEOM width).  A batch whose scratch would outgrow this budget is walked in
+# (``RowLayout::width`` floats a row, csrc/message_layer_bwd.cu, and
+# :func:`bwd_row_layout`: 6,040 at GEOM width).  A batch whose scratch would outgrow this budget is walked in
 # chunks of whole molecules, one call of the kernel a chunk, with the scratch
 # and the weight-grad partials allocated once at the chunk's size.  4 GiB
 # keeps QM9's training shape (B=64, N=29: 1.3 GB) one chunk and GEOM's
 # largest bucket (B=64, N=192: 57 GB whole) to 16 chunks of 4 molecules.
 BWD_SCRATCH_BUDGET = 4 << 30  # bytes
+
+
+def bwd_row_layout(s_dim: int, v_dim: int, se: int, ve: int, h1: int, hc: int, g: int) -> Dict[str, int]:
+    """Column offsets of the backward kernel's per-edge-row scratch, a copy
+    of ``RowLayout`` in ``csrc/message_layer_bwd.cu`` (the ``stage_*``
+    offsets are relative to ``stage0 + k * stage_w`` for chain stage k), and
+    its ``width``."""
+    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
+    first = [("xi", 3 * ve), ("cat1", se + h1 + 9), ("silu1", s_dim), ("dvhd1", w1), ("ds2_1", s_dim),
+             ("dvu1", v3), ("dzg1", v_dim), ("vhd1", w1), ("root1", h1), ("s2_1", s_dim), ("gate1", v_dim),
+             ("vu1", v3)]
+    stage = [("vin", v3), ("merged", s_dim + hc + 9), ("silu", s_dim), ("dvhd", wc), ("ds2", s_dim), ("dvu", v3),
+             ("dzg", v_dim), ("vhd", wc), ("root", hc), ("s2", s_dim), ("gate", v_dim), ("vu", v3)]
+    out, o = {}, 0
+    for name, w in first:
+        out[name], o = o, o + w
+    q = 0
+    for name, w in stage:
+        out["stage_" + name], q = q, q + w
+    out["stage0"], out["stage_w"] = o, q
+    o += g * q
+    for name, w in (("sfin", s_dim), ("attn", 1), ("dzattn", 1)):
+        out[name], o = o, o + w
+    out["width"] = -(-o // 4) * 4
+    return out
+
+
+def bwd_widths(g1: Dict[str, Tensor], chain: tuple, ve_dim: int) -> Tuple[int, ...]:
+    """``(s_dim, v_dim, se, ve, h1, hc, g)`` of a layer's packed weights: the
+    widths that fix the backward's scratch layout and weight grads."""
+    s_dim, v_dim = g1["wg"].shape
+    h1 = g1["wu_bd"].shape[0] // 3
+    return (s_dim, v_dim, g1["wsx"].shape[0] - h1 - 9, ve_dim, h1, (chain[0].shape[2] - 27) // 3,
+            chain[0].shape[0])
+
+
+def bwd_grad_shapes(widths: Sequence[int]) -> list:
+    """Shapes of the 14 edge-row weight grads the backward kernel writes, in
+    its order: GCP1 wve, wsx, bs, wu_bd, wg, bg; the chain's w_comb, wsc, bsc,
+    wu_bd, wgc, bgc; wattn, battn."""
+    s_dim, v_dim, se, ve, h1, hc, g = widths
+    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
+    return [(3 * ve, w1), (se + h1 + 9, s_dim), (s_dim,), (3 * h1, v3), (s_dim, v_dim), (v_dim,),
+            (g, v3, wc), (g, s_dim + hc + 9, s_dim), (g, s_dim), (g, 3 * hc, v3), (g, s_dim, v_dim), (g, v_dim),
+            (s_dim, 1), (1,)]
+
+
+def bwd_weight_grad_products(widths: Sequence[int]) -> list:
+    """The weight grads as products over the scratch's edge rows, one entry
+    per product: ``(grad, bias grad or None, chain stage or None, x offset,
+    K, dY offset, Nn)`` -> grad[stage] = X[:, x:x+K]^T dY[:, y:y+Nn] and
+    bias[stage] = dY[:, y:y+Nn].sum(0), indices into :func:`bwd_grad_shapes`
+    (the kernel's problem list)."""
+    s_dim, v_dim, se, ve, h1, hc, g = widths
+    rl = bwd_row_layout(*widths)
+    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
+    out = [(0, None, None, rl["xi"], 3 * ve, rl["dvhd1"], w1), (1, 2, None, rl["cat1"], se + h1 + 9, rl["ds2_1"], s_dim),
+           (3, None, None, rl["vhd1"], 3 * h1, rl["dvu1"], v3), (4, 5, None, rl["silu1"], s_dim, rl["dzg1"], v_dim)]
+    for k in range(g):
+        sb = rl["stage0"] + k * rl["stage_w"]
+        out += [(6, None, k, sb + rl["stage_vin"], v3, sb + rl["stage_dvhd"], wc),
+                (7, 8, k, sb + rl["stage_merged"], s_dim + hc + 9, sb + rl["stage_ds2"], s_dim),
+                (9, None, k, sb + rl["stage_vhd"], 3 * hc, sb + rl["stage_dvu"], v3),
+                (10, 11, k, sb + rl["stage_silu"], s_dim, sb + rl["stage_dzg"], v_dim)]
+    out.append((12, 13, None, rl["sfin"], s_dim, rl["dzattn"], 1))  # the attention weight and its bias
+    return out
+
+
+def bwd_proj_sums_plain(rows: Tensor, b: int, n: int, widths: Sequence[int]) -> Tuple[Tensor, Tensor]:
+    """Plain twin of the backward's node sums on a scratch ``rows [b*n*n,
+    width]`` (edge row (b, i, j) at (b*n + i)*n + j): GCP1's cotangent columns
+    ``dvhd1 | ds2_1`` summed over the targets j (``d_proj_i``) and over the
+    sources i (``d_proj_j``) by ``torch.sum``, each ``[b, n, S + W1]`` in the
+    order ``ds2_1 | dvhd1``."""
+    s_dim, w1 = widths[0], 3 * widths[4] + 27
+    rl = bwd_row_layout(*widths)
+    edge = rows.view(b, n, n, rl["width"])[..., rl["dvhd1"]: rl["dvhd1"] + w1 + s_dim]
+    d_i, d_j = edge.sum(2), edge.sum(1)
+    return torch.cat([d_i[..., w1:], d_i[..., :w1]], -1), torch.cat([d_j[..., w1:], d_j[..., :w1]], -1)
+
+
+def bwd_weight_grads_plain(rows: Tensor, widths: Sequence[int], out=None) -> list:
+    """Plain twin of the backward's weight grads on a scratch ``rows``:
+    ``torch.mm`` of each product's column slices and ``sum(0)`` of each
+    bias's (:func:`bwd_weight_grad_products`) -> the 14 grads in float32,
+    written or, given ``out``, added onto it."""
+    grads = [torch.empty(s, dtype=torch.float32, device=rows.device) for s in bwd_grad_shapes(widths)]
+    for gi, bi, stage, xo, k, yo, nn in bwd_weight_grad_products(widths):
+        dy = rows[:, yo: yo + nn]
+        parts = [(gi, torch.mm(rows[:, xo: xo + k].t(), dy))] + ([(bi, dy.sum(0))] if bi is not None else [])
+        for idx, val in parts:
+            (grads[idx] if stage is None else grads[idx][stage]).copy_(val.reshape(grads[idx].shape[stage is not None:]))
+    if out is None:
+        return grads
+    for t, gr in zip(out, grads):
+        t.add_(gr)
+    return list(out)
 
 
 def bwd_chunk_molecules(n: int, row_floats: int, budget: int = BWD_SCRATCH_BUDGET) -> int:
@@ -406,22 +506,103 @@ def _bwd_library():
     if lib.message_layer_bwd_workspace.argtypes is None:
         lib.message_layer_bwd_workspace.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.message_layer_bwd_workspace.restype = ctypes.c_int
+        # (ins, outs, rows, partials, tile counters, dims, accumulate, stream)
         for name in _C_BWD_FUNCTIONS.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 6
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.message_layer_bwd_proj_sums.argtypes = [ctypes.c_void_p] * 5
+        lib.message_layer_bwd_proj_sums.restype = ctypes.c_int
+        lib.message_layer_bwd_weight_grads.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        lib.message_layer_bwd_weight_grads.restype = ctypes.c_int
     return lib
 
 
-def _bwd_workspace(lib, dims) -> Tuple[int, int, int]:
+def _bwd_workspace(lib, dims) -> Tuple[int, int, int, int]:
     """(scratch floats, weight-grad partial floats, shared-memory bytes a
-    block) of the backward kernel at ``dims``; raises for widths it does not
-    take."""
-    sizes = (ctypes.c_longlong * 3)()
+    block, weight-grad tiles) of the backward kernel at ``dims``; raises for
+    widths it does not take."""
+    sizes = (ctypes.c_longlong * 4)()
     err = lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes))
     if err != 0:
         raise ValueError(f"message-layer backward kernel does not take these widths (code {err})")
     return tuple(sizes)
+
+
+def _bwd_dims(b: int, n: int, widths: Sequence[int]):
+    s_dim, v_dim, se, ve, h1, hc, g = widths
+    return (ctypes.c_int * 10)(b, n, se + 3 * ve + 10, s_dim, v_dim, se, ve, h1, hc, g)
+
+
+# the weight-grad kernel's tile counters (int32, one a tile), by device and
+# stream: allocated zeroed once, and 0 again after every launch (the last
+# block of a tile resets its counter)
+_bwd_tickets: Dict[Tuple[int, int], Tensor] = {}
+
+
+def bwd_tickets(device: torch.device, stream: int, count: int) -> Tensor:
+    """At least ``count`` zeroed tile counters for launches on ``stream``."""
+    key = (device.index, stream)
+    t = _bwd_tickets.get(key)
+    if t is None or t.numel() < count:
+        t = _bwd_tickets[key] = torch.zeros(count, dtype=torch.int32, device=device)
+    return t
+
+
+def _check_scratch(rows: Tensor, b: int, n: int, widths: Sequence[int]) -> None:
+    rl = bwd_row_layout(*widths)
+    if rows.dtype != torch.float32 or tuple(rows.shape) != (b * n * n, rl["width"]) or not rows.is_contiguous():
+        raise ValueError(f"scratch: {rows.dtype} {tuple(rows.shape)}, expected contiguous float32 "
+                         f"({b * n * n}, {rl['width']})")
+
+
+def bwd_proj_sums(rows: Tensor, b: int, n: int, widths: Sequence[int]) -> Tuple[Tensor, Tensor]:
+    """The backward kernel's node sums alone (``proj_sum_kernel``) on a
+    scratch of its layout: ``(d_proj_i, d_proj_j)`` as
+    :func:`bwd_proj_sums_plain` gives them.  CUDA tensors go through the
+    kernel, CPU tensors through the plain twin.  For comparison and
+    measurement; not counted in ``launch_counts``."""
+    _check_scratch(rows, b, n, widths)
+    if rows.device.type == "cpu":
+        return bwd_proj_sums_plain(rows, b, n, widths)
+    c = widths[0] + 3 * widths[4] + 27
+    d_i, d_j = (torch.empty((b, n, c), dtype=torch.float32, device=rows.device) for _ in range(2))
+    dims = _bwd_dims(b, n, widths)
+    with torch.cuda.device(rows.device):
+        err = _bwd_library().message_layer_bwd_proj_sums(
+            rows.data_ptr(), ctypes.addressof(dims), d_i.data_ptr(), d_j.data_ptr(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"proj_sum_kernel launch failed with CUDA error {err}")
+    return d_i, d_j
+
+
+def bwd_weight_grads(rows: Tensor, b: int, n: int, widths: Sequence[int], out=None) -> list:
+    """The backward kernel's weight grads alone (``weight_grad_kernel`` with
+    its folded split reduction) on a scratch of its layout: the 14 grads of
+    :func:`bwd_grad_shapes` in float32, written or, given ``out``, added onto
+    it.  CUDA tensors go through the kernel, CPU tensors through the plain
+    twin.  For comparison and measurement; not counted in ``launch_counts``."""
+    _check_scratch(rows, b, n, widths)
+    if rows.device.type == "cpu":
+        return bwd_weight_grads_plain(rows, widths, out)
+    dev = rows.device
+    grads = list(out) if out is not None else [torch.empty(s, dtype=torch.float32, device=dev)
+                                                for s in bwd_grad_shapes(widths)]
+    lib = _bwd_library()
+    dims = _bwd_dims(b, n, widths)
+    _, partial_floats, _, tiles = _bwd_workspace(lib, dims)
+    partials = torch.empty(partial_floats, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = bwd_tickets(dev, stream, tiles)
+    ptrs = (ctypes.c_void_p * len(grads))(*[t.data_ptr() for t in grads])
+    with torch.cuda.device(dev):
+        err = lib.message_layer_bwd_weight_grads(rows.data_ptr(), ctypes.addressof(dims), ctypes.addressof(ptrs),
+                                                 partials.data_ptr(), tickets.data_ptr(), int(out is not None),
+                                                 stream)
+    if err != 0:
+        raise RuntimeError(f"weight_grad_kernel launch failed with CUDA error {err}")
+    return grads
 
 
 def bwd_chunks(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor], chain: tuple, *,
@@ -430,7 +611,7 @@ def bwd_chunks(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tens
     a chunk, chunks, scratch bytes a molecule)``.  For tests and
     measurement; the wrapper itself makes the same arithmetic."""
     b, n, s_dim, v_dim, se, h1, hc, num_gcps = _check_layer_inputs(s_node, v_node, epack, g1, chain, ve_dim)
-    dims = (ctypes.c_int * 10)(1, n, epack.shape[-1], s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
+    dims = _bwd_dims(1, n, (s_dim, v_dim, se, ve_dim, h1, hc, num_gcps))
     row_floats = _bwd_workspace(_bwd_library(), dims)[0] // (n * n)
     chunk = min(b, bwd_chunk_molecules(n, row_floats))
     return chunk, -(-b // chunk), 4 * n * n * row_floats
@@ -450,7 +631,7 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     lib = _bwd_library()
 
     def dims(molecules):
-        return (ctypes.c_int * 10)(molecules, n, p, s_dim, v_dim, se, ve_dim, h1, hc, num_gcps)
+        return _bwd_dims(molecules, n, (s_dim, v_dim, se, ve_dim, h1, hc, num_gcps))
 
     sizes = _bwd_workspace(lib, dims(b))
     if chunk_molecules is None:
@@ -458,7 +639,7 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     chunk = min(b, chunk_molecules)
     if chunk < b:
         sizes = _bwd_workspace(lib, dims(chunk))
-    row_floats, partial_floats, smem = sizes
+    row_floats, partial_floats, smem, tiles = sizes
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"message-layer backward needs {smem} B of shared memory per block; "
@@ -489,27 +670,25 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
     partials = torch.empty(partial_floats, **f32)
     fn = getattr(lib, _C_BWD_FUNCTIONS[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = bwd_tickets(dev, stream, tiles)
 
-    # the first chunk writes the weight grads, each later one a buffer that
-    # is then added on (chunk order, float32, no atomics: deterministic)
-    more = [torch.empty_like(t) for t in grads] if chunk < b else None
+    # the first chunk writes the weight grads, each later one adds its sums
+    # onto them in the kernel's final write (chunk order, float32, no
+    # atomics: deterministic)
     for b0 in range(0, b, chunk):
         b1 = min(b, b0 + chunk)
         ins = [proj_i[b0:b1], proj_j[b0:b1], epack[b0:b1], ds_agg[b0:b1], dv_agg[b0:b1]] + weights
-        outs = [d_epack[b0:b1], d_proj_i[b0:b1], d_proj_j[b0:b1]] + (grads if b0 == 0 else more)
+        outs = [d_epack[b0:b1], d_proj_i[b0:b1], d_proj_j[b0:b1]] + grads
         # the ctypes arrays stay referenced until the call returns
         ptrs_in = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
         ptrs_out = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
         chunk_dims = dims(b1 - b0)
         with torch.cuda.device(dev):
             err = fn(ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), rows.data_ptr(),
-                     partials.data_ptr(), ctypes.addressof(chunk_dims), stream)
+                     partials.data_ptr(), tickets.data_ptr(), ctypes.addressof(chunk_dims), int(b0 > 0), stream)
         if err != 0:
             raise RuntimeError(f"message-layer backward kernel launch failed with CUDA error {err}")
         launch_counts["message_layer_bwd"] += 1
-        if b0 > 0:
-            for t, m in zip(grads, more):
-                t.add_(m)
 
     # node-side products, O(B N S^2), in float32 as in the TPU kernel
     dpi_s, dpi_v = d_proj_i[..., :s_dim], d_proj_i[..., s_dim:]

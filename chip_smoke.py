@@ -21,16 +21,20 @@
    training path's B=64, N=29 with padded rows: every output (the node and
    edge cotangents and all 18 weight grads), two runs bit-identical.  At
    B=64, N=29 the forward kernel is held against its plain version too, and
-   both pairs are timed on the same inputs, and the backward's four kernels
-   (row kernel, node-side sums, weight grads, their reduction) are timed by
-   name under ``torch.profiler``, each beside its own bound; the three
-   after the row kernel also beside their library calls, the PyTorch calls
-   that compute the same function on a scratch of the row kernel's layout
-   (``torch.mm`` of each weight grad's column slices and ``sum(0)`` of each
-   bias's, ``torch.sum`` of GCP1's cotangent columns over either node,
-   ``sum(0)`` of the split partials), timed before and after them.  The
-   kernels line reports the backward's errors and times at B=64, N=29
-   (float32, bfloat16 beside) and its split by kernel.
+   both pairs are timed on the same inputs, and the backward's three kernels
+   (row kernel, node-side sums, weight grads with their split reduction
+   folded in) are timed by name under ``torch.profiler``, each beside its
+   own bound; the two after the row kernel also beside their library calls,
+   the PyTorch calls that compute the same function on a scratch of the row
+   kernel's layout (``torch.mm`` of each weight grad's column slices and
+   ``sum(0)`` of each bias's, ``torch.sum`` of GCP1's cotangent columns over
+   either node), timed before and after them; the folded reduction keeps
+   its entry (no time of its own) with its bound and ``sum(0)`` of split
+   partials.  Then the two reductions alone (their own C entries) on a
+   seeded scratch of that shape against their plain twins, the weight
+   grads' in-place write of a later chunk exact, the tile counters 0 after
+   the calls.  The kernels line reports the backward's errors and times at
+   B=64, N=29 (float32, bfloat16 beside) and its split by kernel.
 5. Checks the full-width denoiser on the card (kernels) against the same
    weights on the CPU (plain versions), float32, on a small batch: the
    output, then the gradient of every parameter.
@@ -103,7 +107,9 @@
    B=8/N=48, B=4/N=96 and B=2/N=181 with padded rows, backward at the last
    two), times the forward at B=16, N=96 and the backward at B=4, N=96
    beside their plain versions; holds the backward walked in 4 chunks of
-   molecules against one call at B=16, N=96 and times one backward at B=64,
+   molecules against one call at B=16, N=96, holds the backward's two
+   reductions alone against their plain twins at the plan's largest chunk
+   (4 molecules at N=192), and times one backward at B=64,
    N=96 in the wrapper's own chunks with its peak memory; runs 2 Trainer
    steps on the worst batch the config admits (B=64 padded to 192, a
    181-atom molecule: finite loss, 4 + 4 launches, ms and peak memory
@@ -197,6 +203,10 @@ TOL_BWD_REL = {"float32": 1e-4, "bfloat16": 5e-2}
 # every PyTorch op (its first GCP adds six rounded terms where the kernel sums
 # in f32), as the plain version does, so it gets the plain version's tolerance
 TOL_UNFUSED_REL = dict(TOL_REL)
+# the backward's reductions alone against their plain twins (torch.sum,
+# torch.mm), relative to max|twin| of each output: float32, summation order
+# only (the kernels add in index order from 0.f over up to 147,456 rows)
+TOL_SUMS_REL = 1e-4
 # the pass probe against its plain version, relative to max(1, max|plain|)
 # over the finite values (float32; only the sigmoid and silu forms and the
 # rsqrt approximation differ)
@@ -294,17 +304,16 @@ def layer_flops(args, ve) -> float:
 
 
 def bwd_sub_bounds(args, ct, ve, name):
-    """{kernel: (bound_ms, bound_by)} of the backward's four kernels on these
+    """{kernel: (bound_ms, bound_by)} of the backward's kernels on these
     inputs.  ``bwd_rows_kernel``: the recompute's and the input cotangents'
     products per edge row (in bfloat16 the recompute's four wide products at
     the bf16 rate: they run on the tensor cores), and the bytes of the layer's
     inputs, cotangents and d_epack.  ``weight_grad_kernel``: one multiply-add
     per edge row and weight-grad element, and the bytes of the scratch columns
-    it reads (each once) and of the grads.  ``proj_sum_kernel`` and
-    ``reduce_kernel``: the bytes of the columns or chunk partials they sum and
-    of their outputs."""
-    import ctypes
-
+    it reads (each once) and of the grads.  ``proj_sum_kernel``: the bytes of
+    the columns it sums and of its outputs.  ``reduce_kernel`` (folded into
+    ``weight_grad_kernel``, kept for the record): the bytes of the split
+    partials (one a chunk of rows and grad element) and of the grads."""
     from bio_diffusion_torch.ops import message_layer as ml
 
     s_node, v_node, epack, g1, chain = args
@@ -326,92 +335,51 @@ def bwd_sub_bounds(args, ct, ve, name):
             + num_gcps * (v3 + m1 + s_dim + wc + s_dim + v3 + v_dim + 3 * hc) + s_dim + 1)
     out["weight_grad_kernel"] = bound(2.0 * rows * grads, 4.0 * (rows * cols + grads), "float32")
     out["proj_sum_kernel"] = bound(rows * (s_dim + w1), 4.0 * (rows + 2 * b * n) * (s_dim + w1), "float32")
-    lib = ml._bwd_library()
-    dims = (ctypes.c_int * 10)(b, n, epack.shape[-1], s_dim, v_dim, se, ve, h1, hc, num_gcps)
-    sizes = (ctypes.c_longlong * 3)()
-    if lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes)) != 0:
-        raise AssertionError("the backward kernel refuses the QM9 widths")
-    out["reduce_kernel"] = bound(sizes[1], 4.0 * (sizes[1] + grads), "float32")
+    splits = bwd_splits(rows)
+    out["reduce_kernel"] = bound(splits * grads, 4.0 * (splits + 1) * grads, "float32")
     return out
 
 
-def bwd_row_layout(s_dim, v_dim, se, ve, h1, hc, g):
-    """Column offsets of the backward's per-edge-row scratch: a copy of
-    ``RowLayout`` in ``csrc/message_layer_bwd.cu`` (the ``stage`` offsets
-    are relative to ``stage0 + g * stage_w``)."""
-    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
-    first = [("xi", 3 * ve), ("cat1", se + h1 + 9), ("silu1", s_dim), ("dvhd1", w1), ("ds2_1", s_dim),
-             ("dvu1", v3), ("dzg1", v_dim), ("vhd1", w1), ("root1", h1), ("s2_1", s_dim), ("gate1", v_dim),
-             ("vu1", v3)]
-    stage = [("vin", v3), ("merged", s_dim + hc + 9), ("silu", s_dim), ("dvhd", wc), ("ds2", s_dim), ("dvu", v3),
-             ("dzg", v_dim), ("vhd", wc), ("root", hc), ("s2", s_dim), ("gate", v_dim), ("vu", v3)]
-    out, o = {}, 0
-    for name, w in first:
-        out[name], o = o, o + w
-    q = 0
-    for name, w in stage:
-        out["stage_" + name], q = q, q + w
-    out["stage0"], out["stage_w"] = o, q
-    o += g * q
-    for name, w in (("sfin", s_dim), ("attn", 1), ("dzattn", 1)):
-        out[name], o = o, o + w
-    out["width"] = -(-o // 4) * 4
-    return out
+def bwd_splits(rows):
+    """Row chunks of the backward's weight grads (``splits_for`` in
+    ``csrc/message_layer_bwd.cu``): about 2,048 rows each, at most 32."""
+    return min(32, max(1, -(-rows // 2048)))
 
 
 def bwd_library_calls(torch, args, ve):
-    """One PyTorch call a product for each of the backward's three
-    sub-kernels after the row kernel, on a scratch of the row kernel's
-    layout at these inputs' shape (values from a seed; no call's time
-    depends on them): ``weight_grad_kernel`` -> ``torch.mm`` of each weight
-    grad's column slices (X^T dY) and ``Tensor.sum(0)`` of each bias's;
-    ``proj_sum_kernel`` -> ``torch.sum`` of GCP1's cotangent columns over
-    the target and over the source node; ``reduce_kernel`` -> ``Tensor.sum(0)``
-    of the split partials -> {kernel: fn}."""
-    import ctypes
-
+    """One PyTorch call a product for each of the backward's functions after
+    the row kernel, on a scratch of the row kernel's layout at these inputs'
+    shape (values from a seed; no call's time depends on them):
+    ``weight_grad_kernel`` -> ``torch.mm`` of each weight grad's column
+    slices (X^T dY) and ``Tensor.sum(0)`` of each bias's; ``proj_sum_kernel``
+    -> ``torch.sum`` of GCP1's cotangent columns over the target and over
+    the source node; ``reduce_kernel`` (now inside ``weight_grad_kernel``)
+    -> ``Tensor.sum(0)`` of split partials, one a chunk of rows and grad
+    element -> {kernel: fn}."""
     from bio_diffusion_torch.ops import message_layer as ml
 
-    s_node, v_node, epack, g1, chain = args
-    b, n, s_dim = s_node.shape
-    v_dim = v_node.shape[-1] // 3
-    h1 = g1["wu_bd"].shape[0] // 3
-    se = g1["wsx"].shape[0] - h1 - 9
-    g, hc = chain[0].shape[0], (chain[0].shape[2] - 27) // 3
-    rl = bwd_row_layout(s_dim, v_dim, se, ve, h1, hc, g)
+    s_node, _, _, g1, chain = args
+    b, n, _ = s_node.shape
+    widths = ml.bwd_widths(g1, chain, ve)
+    rl = ml.bwd_row_layout(*widths)
     rows_n = b * n * n
-    dims = (ctypes.c_int * 10)(b, n, epack.shape[-1], s_dim, v_dim, se, ve, h1, hc, g)
-    sizes = (ctypes.c_longlong * 3)()
-    if ml._bwd_library().message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes)) != 0 \
-            or sizes[0] != rows_n * rl["width"]:
+    sizes = ml._bwd_workspace(ml._bwd_library(), ml._bwd_dims(b, n, widths))
+    if sizes[0] != rows_n * rl["width"]:
         raise AssertionError(f"the scratch layout copy disagrees with the kernel's ({sizes[0]} floats)")
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = torch.randn((rows_n, rl["width"]), generator=gen, device="cuda")
-    splits = min(32, max(1, -(-rows_n // 2048)))
-    partials = torch.randn((splits, sizes[1] // splits), generator=gen, device="cuda")
-    v3, w1, wc = 3 * v_dim, 3 * h1 + 27, 3 * hc + 27
-
-    def cols(off, k):
-        return rows[:, off: off + k]
-
-    # (x offset, K, dY offset, Nn, has a bias): the kernel's problem list
-    products = [(rl["xi"], 3 * ve, rl["dvhd1"], w1, False), (rl["cat1"], se + h1 + 9, rl["ds2_1"], s_dim, True),
-                (rl["vhd1"], 3 * h1, rl["dvu1"], v3, False), (rl["silu1"], s_dim, rl["dzg1"], v_dim, True)]
-    for k in range(g):
-        sb = rl["stage0"] + k * rl["stage_w"]
-        products += [(sb + rl["stage_vin"], v3, sb + rl["stage_dvhd"], wc, False),
-                     (sb + rl["stage_merged"], s_dim + hc + 9, sb + rl["stage_ds2"], s_dim, True),
-                     (sb + rl["stage_vhd"], 3 * hc, sb + rl["stage_dvu"], v3, False),
-                     (sb + rl["stage_silu"], s_dim, sb + rl["stage_dzg"], v_dim, True)]
-    products.append((rl["sfin"], s_dim, rl["dzattn"], 1, True))  # the attention weight and its bias
+    grads = sum(g1[k].numel() for k in ("wve", "wsx", "bs", "wu_bd", "wg", "bg")) + sum(c.numel() for c in chain)
+    partials = torch.randn((bwd_splits(rows_n), grads), generator=gen, device="cuda")
+    products = ml.bwd_weight_grad_products(widths)
 
     def weight_grads():
-        for xo, k, yo, nn, bias in products:
-            torch.mm(cols(xo, k).t(), cols(yo, nn))
-            if bias:
-                cols(yo, nn).sum(0)
+        for _, bias, _, xo, k, yo, nn in products:
+            torch.mm(rows[:, xo: xo + k].t(), rows[:, yo: yo + nn])
+            if bias is not None:
+                rows[:, yo: yo + nn].sum(0)
 
-    edge = rows.view(b, n, n, rl["width"])[..., rl["dvhd1"]: rl["ds2_1"] + s_dim]
+    w1 = 3 * widths[4] + 27
+    edge = rows.view(b, n, n, rl["width"])[..., rl["dvhd1"]: rl["dvhd1"] + w1 + widths[0]]
 
     def proj_sums():
         edge.sum(2)
@@ -419,6 +387,58 @@ def bwd_library_calls(torch, args, ve):
 
     return {"weight_grad_kernel": weight_grads, "proj_sum_kernel": proj_sums,
             "reduce_kernel": lambda: partials.sum(0)}
+
+
+def check_bwd_reductions(torch, args, ve, label):
+    """The backward's two reductions alone, each on a scratch of the row
+    kernel's layout drawn from a seed at these inputs' shape, against its
+    plain twin (``ops/message_layer.py``): ``proj_sum_kernel`` (both node
+    sums) against ``torch.sum`` over either node, ``weight_grad_kernel``
+    (with its folded split reduction) against ``torch.mm`` of the column
+    slices and the bias ``sum(0)``; each output within TOL_SUMS_REL of
+    max|twin| (float32, summation order only: the kernels add in index order
+    from 0.f, PyTorch in its own).  The weight grads again with ``out=``:
+    exactly twice the first (the in-place final write of a later chunk); the
+    tile counters all 0 after the calls -> each one's worst relative error."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    s_node, _, _, g1, chain = args
+    b, n, _ = s_node.shape
+    widths = ml.bwd_widths(g1, chain, ve)
+    width = ml.bwd_row_layout(*widths)["width"]
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
+    rows = torch.randn((b * n * n, width), generator=gen, device="cuda")
+    out = {}
+    pairs = {
+        "proj_sum_kernel": (lambda: ml.bwd_proj_sums(rows, b, n, widths),
+                            lambda: ml.bwd_proj_sums_plain(rows, b, n, widths)),
+        "weight_grad_kernel": (lambda: ml.bwd_weight_grads(rows, b, n, widths),
+                               lambda: ml.bwd_weight_grads_plain(rows, widths)),
+    }
+    for name, (kernel_fn, twin_fn) in pairs.items():
+        got, want = kernel_fn(), twin_fn()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, (a, w) in enumerate(zip(got, want)):
+            ref = w.abs().max().item()
+            rel = (a - w).abs().max().item() / ref if ref > 0 else 0.0
+            if a.shape != w.shape or not bool(torch.isfinite(a).all()) or rel > TOL_SUMS_REL:
+                raise AssertionError(f"{name} alone ({label}) disagrees with its twin in output {k}: {rel:.3g}")
+            worst = max(worst, rel)
+        if name == "weight_grad_kernel":
+            twice = ml.bwd_weight_grads(rows, b, n, widths, out=[t.clone() for t in got])
+            torch.cuda.synchronize()
+            if not all(torch.equal(t, 2 * g) for t, g in zip(twice, got)):
+                raise AssertionError(f"weight_grad_kernel ({label}): the accumulating write is not exact")
+        out[name] = dict(max_rel_err=worst)
+        print(f"{name} alone vs its twin {label}: max rel err {worst:.3g} (tol {TOL_SUMS_REL:g}): ok")
+    torch.cuda.synchronize()
+    dirty = [k for k, t in ml._bwd_tickets.items() if bool(t.any())]
+    if dirty:
+        raise AssertionError(f"weight-grad tile counters left non-zero on {dirty}")
+    out["tile_counters_zero"] = True
+    del rows
+    return out
 
 
 def device_ms_per_call(torch, fn, reps):
@@ -549,19 +569,13 @@ def bwd_occupancy(torch, evd):
 
     from bio_diffusion_torch.ops import message_layer as ml
 
-    mc = evd.dynamics_network.model_cfg
-    (_, _, epack, g1, chain), ve = kernel_inputs(torch, evd, 1, 2, torch.bfloat16, False, seed=0)
-    h1, hc = g1["wu_bd"].shape[0] // 3, (chain[0].shape[2] - 27) // 3
+    (_, _, _, g1, chain), ve = kernel_inputs(torch, evd, 1, 2, torch.bfloat16, False, seed=0)
     lib = ml._bwd_library()
     lib.message_layer_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     lib.message_layer_bwd_blocks_per_sm.restype = ctypes.c_int
     lib.message_layer_bwd_kernel_attrs.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.message_layer_bwd_kernel_attrs.restype = ctypes.c_int
-    dims = (ctypes.c_int * 10)(1, 2, epack.shape[-1], mc.h_hidden_dim, mc.chi_hidden_dim, mc.e_hidden_dim,
-                               ve, h1, hc, chain[0].shape[0])
-    sizes = (ctypes.c_longlong * 3)()
-    if lib.message_layer_bwd_workspace(ctypes.addressof(dims), ctypes.addressof(sizes)) != 0:
-        raise AssertionError("the backward kernel refuses the QM9 widths")
+    sizes = ml._bwd_workspace(lib, ml._bwd_dims(1, 2, ml.bwd_widths(g1, chain, ve)))
     kernels = {"bwd_rows_kernel float32": (0, 0), "bwd_rows_kernel bfloat16": (0, 1), "weight_grad_kernel": (1, 0)}
     out = {}
     for label, (kernel, bf16) in kernels.items():
@@ -688,10 +702,11 @@ def check_bwd_kernel(torch, evd):
             timings[(what, name)] = (kernel_ms, plain_ms) + bounds[what]
             print(f"timing {what} {name} B=64 N=29: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bounds[what][0]:.4f} ms ({bounds[what][1]}) (runs {runs})")
-        # the backward's four kernels by name (torch.profiler), each beside its
-        # bound and, for the three after the row kernel, beside the PyTorch
-        # calls of the same function on a scratch of the same layout (timed
-        # before and after the kernels, the better of the two kept)
+        # the backward's three kernels by name (torch.profiler), each beside
+        # its bound and, for the two after the row kernel and the reduction
+        # folded into the weight grads, beside the PyTorch calls of the same
+        # function on a scratch of the same layout (timed before and after
+        # the kernels, the better of the two kept)
         library = bwd_library_calls(torch, args, ve)
         lib_runs = {k: [device_ms_per_call(torch, fn, 5)] for k, fn in library.items()}
         sub_ms = group_kernel_ms(torch, pairs["bwd"][0], 5, "message_layer_bwd")
@@ -699,15 +714,22 @@ def check_bwd_kernel(torch, evd):
             lib_runs[k].append(device_ms_per_call(torch, fn, 5))
         del library
         sub_bounds = bwd_sub_bounds(args, ct, ve, name)
+        # the split partials' reduction runs inside weight_grad_kernel: no
+        # launch of its own, its bound and library call kept for the record
+        sub_ms["reduce_kernel"] = None
         result[f"sub_kernels_{name}"] = {k: {"ms": ms, "bound_ms": sub_bounds[k][0], "bound_by": sub_bounds[k][1],
                                              "library_ms": min(lib_runs[k]) if k in lib_runs else None}
                                          for k, ms in sub_ms.items()}
+        result[f"sub_kernels_{name}"]["reduce_kernel"]["folded_into"] = "weight_grad_kernel"
         for k, ms in sub_ms.items():
             lib = f", library calls {min(lib_runs[k]):.4f} ms (runs {lib_runs[k]})" if k in lib_runs else ""
-            print(f"timing bwd {name} B=64 N=29 {k}: {ms:.4f} ms per launch (profiler), "
+            when = "folded into weight_grad_kernel" if ms is None else f"{ms:.4f} ms per launch (profiler)"
+            print(f"timing bwd {name} B=64 N=29 {k}: {when}, "
                   f"bound {sub_bounds[k][0]:.4f} ms ({sub_bounds[k][1]}){lib}")
-        if not sub_ms["bwd_rows_kernel"] > 0 or not sub_ms["weight_grad_kernel"] > 0:
+        if not all(sub_ms[k] > 0 for k in ("bwd_rows_kernel", "proj_sum_kernel", "weight_grad_kernel")):
             raise AssertionError(f"the profiler saw no backward kernel ({name}): {sub_ms}")
+        if name == "float32":
+            result["reductions_alone"] = {"B=64, N=29": check_bwd_reductions(torch, args, ve, shape)}
     # the kernels line reports the backward at the training path's shape and
     # default precision (float32), with the bfloat16 numbers beside them
     result["max_abs_err"], result["max_rel_err"] = result["bwd_err_b64_float32"]
@@ -1227,6 +1249,12 @@ def check_geom_kernels(torch, evd):
           f"bit-identical; weight grads within {worst:.3g} of max (tol {TOL_CHUNK_REL:g}); two chunked "
           f"runs bit-identical: ok")
     del args, ct, whole, runs
+
+    # the two reductions alone at the largest chunk of the wrapper's plan
+    # (4 molecules at N=192)
+    args, ve = kernel_inputs(torch, evd, 4, 192, torch.float32, True, seed=192)
+    bwd["reductions_alone"] = {"B=4, N=192": check_bwd_reductions(torch, args, ve, "GEOM B=4 N=192")}
+    del args
 
     # one full-width backward at B=64, N=96 in the wrapper's own chunks
     args, ve = kernel_inputs(torch, evd, 64, 96, torch.float32, True, seed=64)
@@ -2486,6 +2514,7 @@ def main() -> int:
         "plain_ms_bf16": kernel_bwd["plain_ms_bf16"],
         "bound_ms_bf16": kernel_bwd["bound_ms_bf16"],
         "sub_kernels": {"fp32": kernel_bwd["sub_kernels_float32"], "bf16": kernel_bwd["sub_kernels_bfloat16"]},
+        "reductions_alone": kernel_bwd["reductions_alone"],
         "occupancy": occupancy_bwd,
         "geom": geom_bwd,
     }, {

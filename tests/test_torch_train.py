@@ -83,7 +83,7 @@ def test_profile_train_groups_only_the_port_kernels():
 
     kernels = {
         "void (anonymous namespace)::bwd_rows_kernel<float>((anonymous namespace)::BwdParams<float>)": [9.0, 9.0],
-        "(anonymous namespace)::reduce_kernel((anonymous namespace)::WgParams, int)": [0.5, 9.0],
+        "(anonymous namespace)::proj_sum_kernel(const float *, int, int, int, int, (anonymous namespace)::ProjSumPlan, float *, float *)": [0.5, 9.0],
         "void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float> >(...)": [1.5, 480.0],
         "void (anonymous namespace)::message_layer_kernel<float>((anonymous namespace)::Params<float>)": [2.5, 9.0],
     }
