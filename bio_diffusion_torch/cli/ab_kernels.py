@@ -1,19 +1,25 @@
-"""Time the message-layer kernels (B1 forward, B2 backward) and the flat-edge
-chain kernel (B3) of this checkout against another version of their sources,
-in one process on one CUDA card.
+"""Time the message-layer kernels (B1 forward, B2 backward), the flat-edge
+chain kernel (B3) and the pass probe (B4) of this checkout against another
+version of their sources, in one process on one CUDA card.
 
 Usage:
   python -m bio_diffusion_torch.cli.ab_kernels --other DIR [--reps 20]
+      [--kernels message_layer,message_layer_bwd,gcp2_chain,elementwise_passes]
+      [--other-defines NAME[=VALUE],...]
 
 DIR holds the other ``message_layer.cu``, ``message_layer_bwd.cu``,
-``gcp2_chain.cu`` and their header, for instance a parent commit's, unpacked
+``gcp2_chain.cu``, ``elementwise_passes.cu`` and their header, for instance a
+parent commit's, unpacked
 with ``git archive <commit> bio_diffusion_torch/csrc bio_diffusion_torch/ops
 | tar -x -C build/parent`` (DIR is then
 ``build/parent/bio_diffusion_torch/csrc``).  Both versions are built with
 the same nvcc flags, and the other is launched through its own tree's ops
 wrappers where DIR's sibling ``ops/`` holds them (their C interface may
 differ from this checkout's), else through this checkout's
-(``build.library_override`` either way).  On the same inputs (full QM9
+(``build.library_override`` either way).  ``--other-defines`` builds the
+other sources with those ``-D`` flags, so that DIR may be this checkout's
+own ``csrc`` to time a variant of a source; ``--kernels`` picks the kernels
+(all four by default).  On the same inputs (full QM9
 width, weights and inputs drawn from a seed) each pair's outputs are
 compared (max difference over max|this|) and timed in turns, other, this,
 this, other (CUDA events, best of two each): B1 in bf16 at B=8/N=19,
@@ -22,7 +28,10 @@ B=64/N=29 in both dtypes and at GEOM width (Se=16, Ve=8) at B=16/N=96 in
 float32, walked in chunks of 4 molecules, all 21 outputs, each also marked
 bit-identical or not, with each of its kernels' device times per launch
 (``torch.profiler``, in the same turns; an older tree's ``reduce_kernel``
-too); B3 at E=53,824 and 90,250 in both dtypes.  Prints one line per pair
+too); B3 at E=53,824 and 90,250 in both dtypes; B4, each of its nine ops
+at k = 1, 8 and 104 passes over a seeded [90250, 256] float32 array and over
+a ragged, misaligned view (77,077 elements from the second of a fresh
+tensor).  Prints one line per pair
 and, last, one JSON object.  Without a CUDA device it exits with an error.
 """
 
@@ -46,29 +55,33 @@ B1_SHAPES = (("bfloat16", 8, 19), ("bfloat16", 250, 19), ("bfloat16", 64, 29), (
 # (dtype, B, N, widths, molecules a chunk of the backward's walk or None)
 B2_SHAPES = (("float32", 64, 29, QM9, None), ("bfloat16", 64, 29, QM9, None), ("float32", 16, 96, GEOM, 4))
 B3_SHAPES = (("bfloat16", 53824), ("bfloat16", 90250), ("float32", 53824), ("float32", 90250))
-NAMES = ("message_layer", "message_layer_bwd", "gcp2_chain")
+NAMES = ("message_layer", "message_layer_bwd", "gcp2_chain", "elementwise_passes")
+PASS_KS = (1, 8, 104)
+PASS_SHAPE = (90250, 256)
+PASS_RAGGED = 1001 * 77
 # the backward's kernels by name, with an older tree's separate reduction of
 # the weight-grad partials
 BWD_KERNELS = KERNEL_GROUPS["message_layer_bwd"] + ("reduce_kernel",)
 
 
-def build_other(src_dir: Path) -> Dict[str, ctypes.CDLL]:
-    """Compile DIR's sources (one nvcc each, started together)."""
+def build_other(src_dir: Path, names=NAMES, defines=()) -> Dict[str, ctypes.CDLL]:
+    """Compile DIR's sources of ``names`` with ``defines`` (one nvcc each,
+    started together)."""
     from bio_diffusion_torch.ops import build
 
-    with ThreadPoolExecutor(len(NAMES)) as pool:
-        built = pool.map(lambda name: build.compile_source(src_dir / f"{name}.cu")[0], NAMES)
-        return {name: ctypes.CDLL(str(path)) for name, path in zip(NAMES, built)}
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = pool.map(lambda name: build.compile_source(src_dir / f"{name}.cu", defines)[0], names)
+        return {name: ctypes.CDLL(str(path)) for name, path in zip(names, built)}
 
 
 def other_wrappers(src_dir: Path) -> Dict[str, object]:
-    """The other tree's ops modules (``message_layer``, ``gcp2_chain``) from
-    DIR's sibling ``ops/``, each loaded under a name of its own; this
-    checkout's where the other tree has none."""
-    from bio_diffusion_torch.ops import gcp2_chain, message_layer
+    """The other tree's ops modules (``message_layer``, ``gcp2_chain``,
+    ``passes``) from DIR's sibling ``ops/``, each loaded under a name of its
+    own; this checkout's where the other tree has none."""
+    from bio_diffusion_torch.ops import gcp2_chain, message_layer, passes
 
     out = {}
-    for mod in (message_layer, gcp2_chain):
+    for mod in (message_layer, gcp2_chain, passes):
         name = mod.__name__.rsplit(".", 1)[1]
         path = src_dir.parent / "ops" / f"{name}.py"
         if path.is_file():
@@ -161,9 +174,10 @@ def main(argv=None) -> Dict[str, object]:
 
     from bio_diffusion_torch.ops import gcp2_chain as gc
     from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.ops import passes
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    opts = {"--other": None, "--reps": "20"}
+    opts = {"--other": None, "--reps": "20", "--kernels": ",".join(NAMES), "--other-defines": ""}
     while argv:
         flag = argv.pop(0)
         if flag not in opts or not argv:
@@ -175,22 +189,27 @@ def main(argv=None) -> Dict[str, object]:
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = [k for k in opts["--kernels"].split(",") if k]
+    if not kernels or set(kernels) - set(NAMES):
+        raise SystemExit(f"--kernels takes names of {NAMES}, not {opts['--kernels']!r}")
+    defines = [d for d in opts["--other-defines"].split(",") if d]
     reps = int(opts["--reps"])
-    other = build_other(Path(opts["--other"]))
+    other = build_other(Path(opts["--other"]), kernels, defines)
     wrappers = other_wrappers(Path(opts["--other"]))
-    mods = {"this": {"message_layer": ml, "gcp2_chain": gc}, "other": wrappers}
+    mods = {"this": {"message_layer": ml, "gcp2_chain": gc, "passes": passes}, "other": wrappers}
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     print(f"# {torch.cuda.get_device_name(0)}; this checkout's kernels (this) against {opts['--other']} "
+          f"{' built with ' + ' '.join('-D' + d for d in defines) if defines else ''} "
           f"(other, through {'its own' if wrappers['message_layer'] is not ml else 'this checkout'}'s wrappers), "
           f"in turns, best of two x {reps} launches (CUDA events)")
     results = {}
-    for dt, b, n in B1_SHAPES:
+    for dt, b, n in B1_SHAPES if "message_layer" in kernels else ():
         s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt])
         r = compare(torch, other["message_layer"], "message_layer",
                     lambda who: named(mods[who]["message_layer"].fused_message_layer(s, v, epack, g1, chain,
                                                                                       ve_dim=QM9["ve"])), reps)
         results[f"message_layer {dt} B={b} N={n}"] = r
-    for dt, b, n, widths, chunk in B2_SHAPES:
+    for dt, b, n, widths, chunk in B2_SHAPES if "message_layer_bwd" in kernels else ():
         s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt], widths=widths)
         gen = torch.Generator(device="cuda").manual_seed(1)
         ct = (torch.randn(s.shape, generator=gen, device="cuda").to(s.dtype),
@@ -205,11 +224,21 @@ def main(argv=None) -> Dict[str, object]:
                     sub_kernels=BWD_KERNELS)
         where = "GEOM " if widths is GEOM else ""
         results[f"message_layer_bwd {where}{dt} B={b} N={n}" + (f" chunks of {chunk}" if chunk else "")] = r
-    for dt, e in B3_SHAPES:
+    for dt, e in B3_SHAPES if "gcp2_chain" in kernels else ():
         args = chain_inputs(torch, e, dtypes[dt])
         results[f"gcp2_chain {dt} E={e}"] = compare(
             torch, other["gcp2_chain"], "gcp2_chain", lambda who: named(mods[who]["gcp2_chain"].fused_gcp2_chain(*args)),
             reps)
+    if "elementwise_passes" in kernels:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        inputs = {"": torch.randn(PASS_SHAPE, generator=gen, device="cuda"),
+                  " ragged misaligned": torch.randn(PASS_RAGGED + 1, generator=gen, device="cuda")[1:]}
+        for op in passes.OPS:
+            for where, x in inputs.items():
+                for k in PASS_KS:
+                    results[f"elementwise_passes {op} k={k}{where}"] = compare(
+                        torch, other["elementwise_passes"], "elementwise_passes",
+                        lambda who: [("out", mods[who]["passes"].repeat_op(x, op, k))], reps)
     for what, r in results.items():
         same = "all" if r["all_bit_identical"] else f"{len(r['bit_identical'])} of {len(r['rel_diff'])}"
         print(f"{what:>40}: this {r['this_ms']:.4f} ms, other {r['other_ms']:.4f} ms "

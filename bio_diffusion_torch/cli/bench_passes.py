@@ -6,11 +6,16 @@ Usage:
 
 Counterpart of ``scripts/bench_vpu_passes.py``.  For each of the nine ops of
 ``ops/passes.py`` it times the probe kernel (``csrc/elementwise_passes.cu``)
-over a seeded ``[rows, cols]`` float32 array at k=8 and k=104 passes with CUDA
-events and fits the slope: the cost of one pass over the array.  It prints ns
-per pass and Gelem/s per op, and beside each the slope of the plain version
-(one PyTorch call per pass, three for rsqrt and two for the bf16 round trip:
-the library yardstick).
+over a seeded ``[rows, cols]`` float32 array at k=1, 8 and 104 passes with
+CUDA events and fits the slope between 8 and 104: the cost of one pass over
+the array.  It prints ns per pass and Gelem/s per op, and beside each the
+slope of the plain version (one PyTorch call per pass, three for rsqrt and
+two for the bf16 round trip), the one PyTorch call that computes one pass
+where there is one (the library yardstick at k=1), and each op's bound
+(:func:`pass_bound_ms`) from the SASS counts in ``PASS_SASS``, which it
+checks against the built library's SASS wherever ``cuobjdump`` is found (a
+count that differs raises ``AssertionError``).  It samples the card's SM
+clock with ``nvidia-smi`` while it times.
 
 Then it accounts for the forward kernel (``csrc/message_layer.cu``) at QM9
 width, bf16, B=250, N=19 (90,250 edge rows): the passes one layer makes (the
@@ -26,18 +31,188 @@ with the numbers.  Without a CUDA device it exits with an error.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
+import subprocess
 import sys
-from typing import Dict, List, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 K_LO, K_HI = 8, 104
 QM9 = dict(s_dim=256, v_dim=32, se=64, ve=16, h1=20, hc=8, num_gcps=3)
 # the card's dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet), FLOP/s
 PEAK_BF16_FLOP_S = 989e12
+# the card's memory rate, B/s, and the SM clock its float32 peak (67 TFLOP/s:
+# 132 SMs x 128 FMA lanes x 2 FLOP) implies, Hz; an SM issues 4 warp
+# instructions a clock (128 lanes), and its special-function unit (MUFU,
+# which also runs the float conversions) takes 16 lanes a clock
+PEAK_BYTES_S = 3.35e12
+SMS = 132
+CLOCK_HZ = 67e12 / (2 * SMS * 128)
+SM_LANES_S = SMS * 128 * CLOCK_HZ
+XU_LANES_S = SMS * 16 * CLOCK_HZ
+# the ops with one PyTorch call for one pass (the library yardstick)
+ONE_CALL = ("tanh", "exp", "sigmoid_exp", "sigmoid_tanh", "silu_tanh", "add", "mul")
+# per op, read from ``cuobjdump -sass`` of the built csrc/elementwise_passes.cu
+# (sass_counts): the element passes of one trip of the kernel's main loop
+# (E registers x passes a trip), the SASS instructions that trip issues on
+# its common path without the loop's own counter, compare and branch, and of
+# them the instructions of the 16-lane unit (MUFU.*, F2F)
+PASS_SASS: Dict[str, Dict[str, int]] = {
+    "tanh": {"trip": 64, "sass": 1018, "xu": 128},
+    "exp": {"trip": 64, "sass": 514, "xu": 64},
+    "sigmoid_exp": {"trip": 64, "sass": 1223, "xu": 128},
+    "sigmoid_tanh": {"trip": 64, "sass": 1098, "xu": 128},
+    "silu_tanh": {"trip": 64, "sass": 1218, "xu": 128},
+    "add": {"trip": 64, "sass": 64, "xu": 0},
+    "mul": {"trip": 64, "sass": 64, "xu": 0},
+    "rsqrt": {"trip": 64, "sass": 128, "xu": 64},
+    "cast_roundtrip": {"trip": 64, "sass": 128, "xu": 64},
+}
 
 
 def slope(t_lo: float, t_hi: float, k_lo: int = K_LO, k_hi: int = K_HI) -> float:
     """Time of one pass from the times of launches with k_lo and k_hi passes."""
     return (t_hi - t_lo) / (k_hi - k_lo)
+
+
+def pass_bounds(op: str, elems: int, k: int, counts: Dict[str, Dict[str, int]] = None) -> Dict[str, float]:
+    """The three least times (ms) of one launch of ``k`` passes of ``op``
+    over ``elems`` float32 elements: ``bytes`` (each read and written once),
+    ``issue`` (its SASS instructions over the SMs' issue rate) and ``mufu``
+    (its 16-lane-unit instructions over that unit's rate)."""
+    c = (PASS_SASS if counts is None else counts)[op]
+    per_elem_pass = elems * k / c["trip"]
+    return {"bytes": 1e3 * 8 * elems / PEAK_BYTES_S,
+            "issue": 1e3 * c["sass"] * per_elem_pass / SM_LANES_S,
+            "mufu": 1e3 * c["xu"] * per_elem_pass / XU_LANES_S}
+
+
+def pass_bound_ms(op: str, elems: int, k: int, counts: Dict[str, Dict[str, int]] = None) -> float:
+    """The least time (ms) of one launch of ``k`` passes of ``op`` over
+    ``elems`` elements: the largest of :func:`pass_bounds`."""
+    return max(pass_bounds(op, elems, k, counts).values())
+
+
+_SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", re.M)
+_BRANCH = re.compile(r"^(@!?P\d\s+)?BRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)")
+
+
+def _main_loop_path(ins: List[Tuple[int, str]]) -> List[str]:
+    """The instructions one trip of a kernel's main pass loop issues: the
+    innermost loop (a backward branch enclosing no other) of the widest
+    span, walked from its head to its branch along the common path (a
+    forward branch is taken where the code it skips makes a call, the
+    arithmetic's slow path)."""
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (addr, txt) in enumerate(ins):
+        m = _BRANCH.match(txt)
+        if m and int(m.group(2), 16) < addr:
+            loops.append((at[int(m.group(2), 16)], i))
+    inner = [(h, e) for h, e in loops if not any((h2, e2) != (h, e) and h <= h2 and e2 <= e for h2, e2 in loops)]
+    head, end = max(inner, key=lambda l: l[1] - l[0])
+    path, i = [], head
+    while i <= end:
+        txt = ins[i][1]
+        path.append(txt)
+        m = _BRANCH.match(txt)
+        if m and i < end:
+            target = at[int(m.group(2), 16)]
+            if not m.group(1) or any("CALL" in t for _, t in ins[i + 1:target]):
+                i = target
+                continue
+        i += 1
+    return path
+
+
+def sass_counts(sass: str, trip: int) -> Dict[str, Dict[str, int]]:
+    """Per op, from ``cuobjdump -sass`` of the pass-probe library: ``trip``
+    (the library's element passes a trip), ``sass`` (the
+    instructions of a trip's common path less the loop's own: the backward
+    branch, its compare and the uniform-datapath counter) and ``xu`` (of
+    them, MUFU.* and F2F)."""
+    from bio_diffusion_torch.ops.passes import OPS
+
+    out = {}
+    for func in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        m = re.search(r"passes_kernelILi(\d+)E", func.split(None, 1)[0])
+        if not m:
+            continue
+        path = _main_loop_path([(int(a, 16), t) for a, t in _SASS_LINE.findall(func)])
+        pred = (_BRANCH.match(path[-1]).group(1) or "").strip().lstrip("@!")
+        control = 1 + sum(1 for t in path[:-1] if t.startswith("U") or
+                          (t.startswith("ISETP") and t.split()[1].rstrip(",") == pred))
+        op = OPS[int(m.group(1))]
+        out[op] = {"trip": trip, "sass": len(path) - control,
+                   "xu": sum(1 for t in path if re.match(r"(@!?P\d\s+)?(MUFU|F2F)\b", t))}
+    return {op: out[op] for op in OPS if op in out}
+
+
+def find_cuobjdump() -> Optional[str]:
+    """The toolkit's ``cuobjdump``, or the copy in Triton's package; None
+    where neither is installed."""
+    candidates = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
+                  shutil.which("cuobjdump")]
+    try:
+        import triton
+
+        candidates.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in candidates if c and os.path.isfile(c) and os.access(c, os.X_OK)), None)
+
+
+def check_sass() -> Optional[Dict[str, Dict[str, int]]]:
+    """The counts of the loaded pass-probe library's SASS, held against
+    ``PASS_SASS`` (``AssertionError`` where one differs); None where no
+    ``cuobjdump`` is found."""
+    import ctypes
+
+    from bio_diffusion_torch.ops.build import load_library
+
+    tool = find_cuobjdump()
+    if tool is None:
+        return None
+    lib = load_library("elementwise_passes")
+    lib.elementwise_passes_trip.restype = ctypes.c_int
+    sass = subprocess.run([tool, "-sass", lib._name], check=True, capture_output=True, text=True).stdout
+    counts = sass_counts(sass, lib.elementwise_passes_trip())
+    if counts != PASS_SASS:
+        raise AssertionError(f"the pass probe's SASS counts {counts} differ from PASS_SASS {PASS_SASS}")
+    return counts
+
+
+class ClockSampler:
+    """Reads the first card's SM clock (MHz) with ``nvidia-smi`` every
+    ``period`` s while the block runs; ``mhz`` stays empty without it."""
+
+    def __init__(self, period: float = 0.5):
+        self.period, self.mhz = period, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        cmd = ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"]
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(cmd, capture_output=True, text=True, timeout=10).stdout.split()
+            except (OSError, subprocess.SubprocessError):
+                return
+            if out and out[0].isdigit():
+                self.mhz.append(int(out[0]))
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        if shutil.which("nvidia-smi"):
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join()
 
 
 def wide_macs_per_row(s_dim: int, v_dim: int, se: int, h1: int, hc: int, num_gcps: int) -> int:
@@ -150,14 +325,17 @@ def message_layer_ms(torch, b: int, n: int, dtype, reps: int, seed: int = 0) -> 
 
 
 def probe(torch, rows: int, cols: int, reps: int) -> Dict[str, Dict[str, float]]:
-    """op -> kernel and plain times at K_LO and K_HI and their per-pass slopes (ms)."""
-    from bio_diffusion_torch.ops.passes import OPS, repeat_op, repeat_op_plain
+    """op -> kernel and plain times at K_LO and K_HI and their per-pass slopes
+    (ms), the kernel's time at k=1 and the one PyTorch call for one pass
+    (``library_k1_ms``, None where no one call computes the op)."""
+    from bio_diffusion_torch.ops.passes import OPS, PLAIN, repeat_op, repeat_op_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(rows, cols, generator=gen, device="cuda")
     out = {}
     for op in OPS:
-        r = {}
+        r = {"kernel_k1_ms": _time_ms(torch, lambda: repeat_op(x, op, 1), reps),
+             "library_k1_ms": _time_ms(torch, lambda: PLAIN[op](x), reps) if op in ONE_CALL else None}
         for name, fn in (("kernel", repeat_op), ("plain", repeat_op_plain)):
             for k in (K_LO, K_HI):
                 r[f"{name}_k{k}_ms"] = _time_ms(torch, lambda: fn(x, op, k), reps)
@@ -181,14 +359,29 @@ def main(argv=None) -> Dict[str, object]:
     if not torch.cuda.is_available():
         raise SystemExit("bench_passes needs a CUDA device")
     elems = rows * cols
-    print(f"# {torch.cuda.get_device_name(0)}; probe [{rows}, {cols}] float32, k={K_LO} and k={K_HI}, "
-          f"best of 3 x {reps} launches (CUDA events)")
-    results = probe(torch, rows, cols, reps)
+    sass = check_sass()
+    print(f"# {torch.cuda.get_device_name(0)}; probe [{rows}, {cols}] float32, k=1, {K_LO} and {K_HI}, "
+          f"best of 3 x {reps} launches (CUDA events); SASS counts "
+          f"{'read and held against PASS_SASS' if sass else 'from PASS_SASS (no cuobjdump found)'}")
+    with ClockSampler() as clocks:
+        results = probe(torch, rows, cols, reps)
     for op, r in results.items():
         k_ns, p_ns = r["kernel_pass_ms"] * 1e6, r["plain_pass_ms"] * 1e6
-        print(f"{op:>14}: kernel {k_ns:10.1f} ns/pass ({elems / max(k_ns, 1e-9):8.1f} Gelem/s); "
-              f"plain {p_ns:10.1f} ns/pass ({elems / max(p_ns, 1e-9):7.1f} Gelem/s)  "
-              f"[kernel k={K_LO}: {r[f'kernel_k{K_LO}_ms']:.4f} ms, k={K_HI}: {r[f'kernel_k{K_HI}_ms']:.4f} ms]")
+        parts = pass_bounds(op, elems, 1)
+        r["bound_ns_per_pass"] = 1e6 * max(parts["issue"], parts["mufu"])
+        r["bound_by"] = "issue" if parts["issue"] >= parts["mufu"] else "mufu"
+        r["bound_k104_ms"] = pass_bound_ms(op, elems, K_HI)
+        r["share_of_bound"] = r["bound_k104_ms"] / r[f"kernel_k{K_HI}_ms"]
+        r["sass"] = PASS_SASS[op]
+        lib = f"{r['library_k1_ms']:.4f} ms" if r["library_k1_ms"] is not None else "none"
+        print(f"{op:>14}: kernel {k_ns:10.1f} ns/pass ({elems / max(k_ns, 1e-9):8.1f} Gelem/s), bound "
+              f"{r['bound_ns_per_pass']:8.1f} ({r['bound_by']}); plain {p_ns:10.1f} ns/pass  "
+              f"[kernel k=1: {r['kernel_k1_ms']:.4f} ms (one PyTorch call {lib}), k={K_LO}: "
+              f"{r[f'kernel_k{K_LO}_ms']:.4f} ms, k={K_HI}: {r[f'kernel_k{K_HI}_ms']:.4f} ms against a bound of "
+              f"{r['bound_k104_ms']:.4f} ms, {100 * r['share_of_bound']:.1f}%]")
+    clock = (f"{min(clocks.mhz)}-{max(clocks.mhz)} MHz over {len(clocks.mhz)} readings" if clocks.mhz
+             else "not read")
+    print(f"# SM clock while timing (nvidia-smi): {clock}")
 
     b, n = 250, 19
     layer_rows = b * n * n
@@ -206,7 +399,7 @@ def main(argv=None) -> Dict[str, object]:
           f"({100 * total / layer_ms:.1f}% accounted)")
     result = {"device": torch.cuda.get_device_name(0), "rows": rows, "cols": cols, "reps": reps,
               "per_pass": results, "accounting_ms": acct, "accounted_ms": total,
-              "message_layer_ms": layer_ms}
+              "message_layer_ms": layer_ms, "clocks_sm_mhz": clocks.mhz, "sass_checked": sass is not None}
     print(json.dumps(result))
     return result
 

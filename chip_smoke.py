@@ -97,7 +97,10 @@
    kernel must have been launched in this phase.
 12. Holds the pass-probe kernel against its plain version for each of its
    nine ops at k=8, then runs the probe (``cli.bench_passes``) at its
-   default shape.
+   default shape: each op at k=1, 8 and 104 beside its plain version and
+   its one PyTorch call, its bound from its SASS counts (``PASS_SASS``,
+   read again from the built library where ``cuobjdump`` is found: a count
+   that differs fails the run) and the SM clock while it times.
 13. Drives the GEOM-Drugs path (after the conditional path), fp32 at the
    published ``geom_mol_gen_ddpm`` width (4 layers, S=256, V=32, Se=16,
    Ve=8, batch 64 in the buckets [48, 64, 96, 128, 192]): writes GEOM-layout
@@ -2372,11 +2375,36 @@ def check_passes(torch):
             raise AssertionError(f"pass-probe kernel disagrees with the plain version ({op})")
         worst = max(worst, err)
     ml.reset_launch_counts()
-    probe = bench_passes.main([])
+    probe = bench_passes.main([])  # holds the built library's SASS counts against PASS_SASS
     launches = ml.launch_counts["elementwise_passes"]
     if launches < 1:
         raise AssertionError("the probe did not launch its kernel")
+    print(f"passes: SASS counts {'read and held against PASS_SASS' if probe['sass_checked'] else 'not read (no cuobjdump)'}")
     return worst, launches, probe
+
+
+def passes_row(torch, probe) -> dict:
+    """The pass probe's kernels-line fields: ``mul`` at k=104 (its bound from
+    its SASS counts) and at k=1 beside one ``torch.mul`` call, and per op
+    the slopes, the bound of a pass, the share of the k=104 bound and the
+    SASS counts."""
+    from bio_diffusion_torch.cli import bench_passes
+    from bio_diffusion_torch.ops.passes import kernel_grid
+
+    mul = probe["per_pass"]["mul"]
+    parts = bench_passes.pass_bounds("mul", probe["rows"] * probe["cols"], bench_passes.K_HI)
+    by = max(parts, key=parts.get)
+    ops = {op: {"ns_per_pass": {"kernel": 1e6 * r["kernel_pass_ms"], "plain": 1e6 * r["plain_pass_ms"]},
+                "bound_ns_per_pass": r["bound_ns_per_pass"], "bound_by": r["bound_by"],
+                "share_of_bound": r["share_of_bound"], "ms_k104": r["kernel_k104_ms"],
+                "bound_ms_k104": r["bound_k104_ms"], "ms_k8": r["kernel_k8_ms"], "ms_k1": r["kernel_k1_ms"],
+                "library_ms_k1": r["library_k1_ms"], "sass": r["sass"],
+                "blocks_per_sm": kernel_grid(torch.device("cuda"), op)[0]}
+           for op, r in probe["per_pass"].items()}
+    return {"ms": mul["kernel_k104_ms"], "plain_ms": mul["plain_k104_ms"], "bound_ms": max(parts.values()),
+            "bound_by": "bytes" if by == "bytes" else "operations", "ms_k1": mul["kernel_k1_ms"],
+            "library_ms": mul["library_k1_ms"], "ops": ops, "clocks_sm_mhz": probe["clocks_sm_mhz"],
+            "sass_checked": probe["sass_checked"]}
 
 
 def main() -> int:
@@ -2453,16 +2481,17 @@ def main() -> int:
         new_paths[name] = (launches, numbers)
     new_fwd = {k: v for launches, _ in new_paths.values() for k, v in launches["fwd"].items()}
     new_bwd = {k: v for launches, _ in new_paths.values() for k, v in launches.get("bwd", {}).items()}
+    t0 = time.perf_counter()
     passes_err, passes_launches, probe = check_passes(torch)
+    passes_phase_s = time.perf_counter() - t0
+    print(f"pass probe phase: {passes_phase_s:.3f} s")
 
     # the chain row: bf16 at the training shape's E, float32 and the serving
     # shape's E beside it
     chain_row = chain[("bfloat16", 53824)]
     # the probe's row: one launch of 104 mul passes over its [90250, 256]
-    # array; each pass is one float32 lane operation (half an FMA's 2 FLOPs)
-    mul = probe["per_pass"]["mul"]
-    elems = probe["rows"] * probe["cols"]
-    probe_bound = bound(2.0 * 104 * elems, 2 * 4 * elems, "float32")
+    # array, and one pass beside the one torch.mul call for it
+    probe_row = dict(passes_row(torch, probe), phase_s=passes_phase_s)
     print(json.dumps({"kernels": [{
         "name": "message_layer",
         "route": "cuda",
@@ -2543,14 +2572,8 @@ def main() -> int:
         "launches": passes_launches,
         "launches_by_path": {"bench_passes": passes_launches},
         "max_abs_err": passes_err,
-        "ms": mul["kernel_k104_ms"],
-        "plain_ms": mul["plain_k104_ms"],
-        "bound_ms": probe_bound[0],
-        "bound_by": probe_bound[1],
-        "library_ms": mul["plain_pass_ms"],
-        "shape": f"mul, k=104, [{probe['rows']}, {probe['cols']}] float32",
-        "ns_per_pass": {op: {"kernel": 1e6 * r["kernel_pass_ms"], "plain": 1e6 * r["plain_pass_ms"]}
-                        for op, r in probe["per_pass"].items()},
+        **probe_row,
+        "shape": f"mul, k=104 (ms_k1, library_ms: k=1), [{probe['rows']}, {probe['cols']}] float32",
         "accounted_ms": probe["accounted_ms"],
         "message_layer_ms": probe["message_layer_ms"],
     }]}))

@@ -13,7 +13,8 @@ where the TPU kernel does, the plain version after every op); the backward's
 are at ``TOL_BWD``, and two backward runs must be bit-identical.  The chain
 kernel is held at the forward's tolerances, the pass probe at rtol 1e-5 of
 max|plain| (float32; only the sigmoid and silu forms and the rsqrt
-approximation differ).
+approximation differ), at k = 0 to 104 passes over a ragged array and a
+view 4 bytes past a 16-byte boundary.
 
 In bfloat16 the forward and the chain kernel run their wide products on the
 tensor cores (mma.sync over m16 row tiles, ragged K and columns masked).  The
@@ -226,17 +227,23 @@ def test_chain_kernel_matches_plain_on_card(dtype, dims, e):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("layout", ["ragged", "misaligned"])
+@pytest.mark.parametrize("k", [0, 1, 3, 8, 104])
 @pytest.mark.parametrize("op", OPS)
-def test_passes_kernel_matches_plain_on_card(op, k):
+def test_passes_kernel_matches_plain_on_card(op, k, layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    x = torch.randn(1000, 77, generator=torch.Generator(device="cuda").manual_seed(k), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    if layout == "ragged":  # 77,077 elements: a partial last tile and a scalar tail
+        x = torch.randn(1001, 77, generator=gen, device="cuda")
+    else:  # 4 bytes past a 16-byte boundary: a scalar head of 3
+        x = torch.randn(1001 * 77 + 1, generator=gen, device="cuda").flatten()[1:]
     before = ml.launch_counts["elementwise_passes"]
     out = repeat_op(x, op, k)
     assert ml.launch_counts["elementwise_passes"] == before + 1
     plain = repeat_op_plain(x, op, k)
     torch.cuda.synchronize()
+    assert out.shape == x.shape
     finite = torch.isfinite(plain)
     assert torch.equal(torch.isfinite(out), finite)
     err = (out - plain)[finite].abs().max().item() if finite.any() else 0.0
