@@ -4,8 +4,6 @@ version of their sources, in one process on one CUDA card.
 
 Usage:
   python -m bio_diffusion_torch.cli.ab_kernels --other DIR [--reps 20]
-      [--kernels message_layer,message_layer_bwd,gcp2_chain,elementwise_passes]
-      [--other-defines NAME[=VALUE],...]
 
 DIR holds the other ``message_layer.cu``, ``message_layer_bwd.cu``,
 ``gcp2_chain.cu``, ``elementwise_passes.cu`` and their header, for instance a
@@ -16,10 +14,7 @@ with ``git archive <commit> bio_diffusion_torch/csrc bio_diffusion_torch/ops
 the same nvcc flags, and the other is launched through its own tree's ops
 wrappers where DIR's sibling ``ops/`` holds them (their C interface may
 differ from this checkout's), else through this checkout's
-(``build.library_override`` either way).  ``--other-defines`` builds the
-other sources with those ``-D`` flags, so that DIR may be this checkout's
-own ``csrc`` to time a variant of a source; ``--kernels`` picks the kernels
-(all four by default).  On the same inputs (full QM9
+(``build.library_override`` either way).  On the same inputs (full QM9
 width, weights and inputs drawn from a seed) each pair's outputs are
 compared (max difference over max|this|) and timed in turns, other, this,
 this, other (CUDA events, best of two each): B1 in bf16 at B=8/N=19,
@@ -64,14 +59,13 @@ PASS_RAGGED = 1001 * 77
 BWD_KERNELS = KERNEL_GROUPS["message_layer_bwd"] + ("reduce_kernel",)
 
 
-def build_other(src_dir: Path, names=NAMES, defines=()) -> Dict[str, ctypes.CDLL]:
-    """Compile DIR's sources of ``names`` with ``defines`` (one nvcc each,
-    started together)."""
+def build_other(src_dir: Path) -> Dict[str, ctypes.CDLL]:
+    """Compile DIR's sources (one nvcc each, started together)."""
     from bio_diffusion_torch.ops import build
 
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = pool.map(lambda name: build.compile_source(src_dir / f"{name}.cu", defines)[0], names)
-        return {name: ctypes.CDLL(str(path)) for name, path in zip(names, built)}
+    with ThreadPoolExecutor(len(NAMES)) as pool:
+        built = pool.map(lambda name: build.compile_source(src_dir / f"{name}.cu")[0], NAMES)
+        return {name: ctypes.CDLL(str(path)) for name, path in zip(NAMES, built)}
 
 
 def other_wrappers(src_dir: Path) -> Dict[str, object]:
@@ -177,7 +171,7 @@ def main(argv=None) -> Dict[str, object]:
     from bio_diffusion_torch.ops import passes
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    opts = {"--other": None, "--reps": "20", "--kernels": ",".join(NAMES), "--other-defines": ""}
+    opts = {"--other": None, "--reps": "20"}
     while argv:
         flag = argv.pop(0)
         if flag not in opts or not argv:
@@ -189,27 +183,22 @@ def main(argv=None) -> Dict[str, object]:
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    kernels = [k for k in opts["--kernels"].split(",") if k]
-    if not kernels or set(kernels) - set(NAMES):
-        raise SystemExit(f"--kernels takes names of {NAMES}, not {opts['--kernels']!r}")
-    defines = [d for d in opts["--other-defines"].split(",") if d]
     reps = int(opts["--reps"])
-    other = build_other(Path(opts["--other"]), kernels, defines)
+    other = build_other(Path(opts["--other"]))
     wrappers = other_wrappers(Path(opts["--other"]))
     mods = {"this": {"message_layer": ml, "gcp2_chain": gc, "passes": passes}, "other": wrappers}
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     print(f"# {torch.cuda.get_device_name(0)}; this checkout's kernels (this) against {opts['--other']} "
-          f"{' built with ' + ' '.join('-D' + d for d in defines) if defines else ''} "
           f"(other, through {'its own' if wrappers['message_layer'] is not ml else 'this checkout'}'s wrappers), "
           f"in turns, best of two x {reps} launches (CUDA events)")
     results = {}
-    for dt, b, n in B1_SHAPES if "message_layer" in kernels else ():
+    for dt, b, n in B1_SHAPES:
         s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt])
         r = compare(torch, other["message_layer"], "message_layer",
                     lambda who: named(mods[who]["message_layer"].fused_message_layer(s, v, epack, g1, chain,
                                                                                       ve_dim=QM9["ve"])), reps)
         results[f"message_layer {dt} B={b} N={n}"] = r
-    for dt, b, n, widths, chunk in B2_SHAPES if "message_layer_bwd" in kernels else ():
+    for dt, b, n, widths, chunk in B2_SHAPES:
         s, v, epack, g1, chain = layer_inputs(torch, b, n, dtypes[dt], widths=widths)
         gen = torch.Generator(device="cuda").manual_seed(1)
         ct = (torch.randn(s.shape, generator=gen, device="cuda").to(s.dtype),
@@ -224,21 +213,20 @@ def main(argv=None) -> Dict[str, object]:
                     sub_kernels=BWD_KERNELS)
         where = "GEOM " if widths is GEOM else ""
         results[f"message_layer_bwd {where}{dt} B={b} N={n}" + (f" chunks of {chunk}" if chunk else "")] = r
-    for dt, e in B3_SHAPES if "gcp2_chain" in kernels else ():
+    for dt, e in B3_SHAPES:
         args = chain_inputs(torch, e, dtypes[dt])
         results[f"gcp2_chain {dt} E={e}"] = compare(
             torch, other["gcp2_chain"], "gcp2_chain", lambda who: named(mods[who]["gcp2_chain"].fused_gcp2_chain(*args)),
             reps)
-    if "elementwise_passes" in kernels:
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        inputs = {"": torch.randn(PASS_SHAPE, generator=gen, device="cuda"),
-                  " ragged misaligned": torch.randn(PASS_RAGGED + 1, generator=gen, device="cuda")[1:]}
-        for op in passes.OPS:
-            for where, x in inputs.items():
-                for k in PASS_KS:
-                    results[f"elementwise_passes {op} k={k}{where}"] = compare(
-                        torch, other["elementwise_passes"], "elementwise_passes",
-                        lambda who: [("out", mods[who]["passes"].repeat_op(x, op, k))], reps)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = {"": torch.randn(PASS_SHAPE, generator=gen, device="cuda"),
+              " ragged misaligned": torch.randn(PASS_RAGGED + 1, generator=gen, device="cuda")[1:]}
+    for op in passes.OPS:
+        for where, x in inputs.items():
+            for k in PASS_KS:
+                results[f"elementwise_passes {op} k={k}{where}"] = compare(
+                    torch, other["elementwise_passes"], "elementwise_passes",
+                    lambda who: [("out", mods[who]["passes"].repeat_op(x, op, k))], reps)
     for what, r in results.items():
         same = "all" if r["all_bit_identical"] else f"{len(r['bit_identical'])} of {len(r['rel_diff'])}"
         print(f"{what:>40}: this {r['this_ms']:.4f} ms, other {r['other_ms']:.4f} ms "

@@ -6,11 +6,14 @@ Usage:
 
 Counterpart of ``scripts/bench_vpu_passes.py``.  For each of the nine ops of
 ``ops/passes.py`` it times the probe kernel (``csrc/elementwise_passes.cu``)
-over a seeded ``[rows, cols]`` float32 array at k=1, 8 and 104 passes with
-CUDA events and fits the slope between 8 and 104: the cost of one pass over
-the array.  It prints ns per pass and Gelem/s per op, and beside each the
-slope of the plain version (one PyTorch call per pass, three for rsqrt and
-two for the bf16 round trip), the one PyTorch call that computes one pass
+over a seeded ``[rows, cols]`` float32 array at k=1, 8, 104 and 208 passes
+with CUDA events and fits the slope between 104 and 208, where every op's
+passes outlast its bytes: the cost of one pass over the array (a slope that
+starts at k=8 takes in passes that run under the memory stream, and for
+add and mul falls below what the card can issue).  It prints ns per pass and
+Gelem/s per op, and beside each the slope of the plain version between 8 and
+104 (one PyTorch call per pass, three for rsqrt and two for the bf16 round
+trip), the one PyTorch call that computes one pass
 where there is one (the library yardstick at k=1), and each op's bound
 (:func:`pass_bound_ms`) from the SASS counts in ``PASS_SASS``, which it
 checks against the built library's SASS wherever ``cuobjdump`` is found (a
@@ -21,7 +24,8 @@ Then it accounts for the forward kernel (``csrc/message_layer.cu``) at QM9
 width, bf16, B=250, N=19 (90,250 edge rows): the passes one layer makes (the
 products left on the FMA pipes as one op per multiply-add, the exp-form silu
 and sigmoids of its 4 stages, the gates over V, the attention, the adds, the
-bf16 rounding), each times its op's measured cost, and the wide products the
+bf16 rounding), each times its op's measured cost a pass (or its bound a
+pass, where the measured slope falls below it), and the wide products the
 kernel runs on the tensor cores at the card's bf16 peak over the rows its
 m16 tiles compute (a bound, not a measurement), against the kernel's own
 time on the same card in the same process.  The last line is one JSON object
@@ -39,7 +43,7 @@ import sys
 import threading
 from typing import Dict, List, Optional, Tuple
 
-K_LO, K_HI = 8, 104
+K_LO, K_HI, K_TOP = 8, 104, 208
 QM9 = dict(s_dim=256, v_dim=32, se=64, ve=16, h1=20, hc=8, num_gcps=3)
 # the card's dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet), FLOP/s
 PEAK_BF16_FLOP_S = 989e12
@@ -93,6 +97,14 @@ def pass_bound_ms(op: str, elems: int, k: int, counts: Dict[str, Dict[str, int]]
     """The least time (ms) of one launch of ``k`` passes of ``op`` over
     ``elems`` elements: the largest of :func:`pass_bounds`."""
     return max(pass_bounds(op, elems, k, counts).values())
+
+
+def pass_price_ms(op: str, slope_ms: float, elems: int) -> float:
+    """The cost (ms) the accounting gives one pass of ``op`` over ``elems``
+    elements: its measured slope, or the least time the card can issue or
+    run the pass in where the slope falls below that."""
+    parts = pass_bounds(op, elems, 1)
+    return max(slope_ms, parts["issue"], parts["mufu"])
 
 
 _SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", re.M)
@@ -167,7 +179,10 @@ def find_cuobjdump() -> Optional[str]:
 def check_sass() -> Optional[Dict[str, Dict[str, int]]]:
     """The counts of the loaded pass-probe library's SASS, held against
     ``PASS_SASS`` (``AssertionError`` where one differs); None where no
-    ``cuobjdump`` is found."""
+    ``cuobjdump`` is found.  The match is exact: nvcc gives the same SASS for
+    the same source and toolkit, and an edit or another toolkit that moves a
+    count (register allocation moved sigmoid_exp's by one between edits)
+    moves the bound, so the table takes the new counts."""
     import ctypes
 
     from bio_diffusion_torch.ops.build import load_library
@@ -325,8 +340,9 @@ def message_layer_ms(torch, b: int, n: int, dtype, reps: int, seed: int = 0) -> 
 
 
 def probe(torch, rows: int, cols: int, reps: int) -> Dict[str, Dict[str, float]]:
-    """op -> kernel and plain times at K_LO and K_HI and their per-pass slopes
-    (ms), the kernel's time at k=1 and the one PyTorch call for one pass
+    """op -> kernel times at 1, K_LO, K_HI and K_TOP and plain times at K_LO
+    and K_HI, their per-pass slopes (ms; the kernel's from K_HI to K_TOP, the
+    plain version's from K_LO to K_HI) and the one PyTorch call for one pass
     (``library_k1_ms``, None where no one call computes the op)."""
     from bio_diffusion_torch.ops.passes import OPS, PLAIN, repeat_op, repeat_op_plain
 
@@ -336,10 +352,10 @@ def probe(torch, rows: int, cols: int, reps: int) -> Dict[str, Dict[str, float]]
     for op in OPS:
         r = {"kernel_k1_ms": _time_ms(torch, lambda: repeat_op(x, op, 1), reps),
              "library_k1_ms": _time_ms(torch, lambda: PLAIN[op](x), reps) if op in ONE_CALL else None}
-        for name, fn in (("kernel", repeat_op), ("plain", repeat_op_plain)):
-            for k in (K_LO, K_HI):
+        for name, fn, ks in (("kernel", repeat_op, (K_LO, K_HI, K_TOP)), ("plain", repeat_op_plain, (K_LO, K_HI))):
+            for k in ks:
                 r[f"{name}_k{k}_ms"] = _time_ms(torch, lambda: fn(x, op, k), reps)
-            r[f"{name}_pass_ms"] = slope(r[f"{name}_k{K_LO}_ms"], r[f"{name}_k{K_HI}_ms"])
+            r[f"{name}_pass_ms"] = slope(r[f"{name}_k{ks[-2]}_ms"], r[f"{name}_k{ks[-1]}_ms"], ks[-2], ks[-1])
         out[op] = r
     return out
 
@@ -360,7 +376,8 @@ def main(argv=None) -> Dict[str, object]:
         raise SystemExit("bench_passes needs a CUDA device")
     elems = rows * cols
     sass = check_sass()
-    print(f"# {torch.cuda.get_device_name(0)}; probe [{rows}, {cols}] float32, k=1, {K_LO} and {K_HI}, "
+    print(f"# {torch.cuda.get_device_name(0)}; probe [{rows}, {cols}] float32, k=1, {K_LO}, {K_HI} and {K_TOP} "
+          f"(the kernel's slope from {K_HI} to {K_TOP}, the plain version's from {K_LO} to {K_HI}), "
           f"best of 3 x {reps} launches (CUDA events); SASS counts "
           f"{'read and held against PASS_SASS' if sass else 'from PASS_SASS (no cuobjdump found)'}")
     with ClockSampler() as clocks:
@@ -372,13 +389,15 @@ def main(argv=None) -> Dict[str, object]:
         r["bound_by"] = "issue" if parts["issue"] >= parts["mufu"] else "mufu"
         r["bound_k104_ms"] = pass_bound_ms(op, elems, K_HI)
         r["share_of_bound"] = r["bound_k104_ms"] / r[f"kernel_k{K_HI}_ms"]
-        r["sass"] = PASS_SASS[op]
+        r["sass"] = (sass or PASS_SASS)[op]
+        r["price_ns_per_pass"] = 1e6 * pass_price_ms(op, r["kernel_pass_ms"], elems)
         lib = f"{r['library_k1_ms']:.4f} ms" if r["library_k1_ms"] is not None else "none"
         print(f"{op:>14}: kernel {k_ns:10.1f} ns/pass ({elems / max(k_ns, 1e-9):8.1f} Gelem/s), bound "
               f"{r['bound_ns_per_pass']:8.1f} ({r['bound_by']}); plain {p_ns:10.1f} ns/pass  "
               f"[kernel k=1: {r['kernel_k1_ms']:.4f} ms (one PyTorch call {lib}), k={K_LO}: "
               f"{r[f'kernel_k{K_LO}_ms']:.4f} ms, k={K_HI}: {r[f'kernel_k{K_HI}_ms']:.4f} ms against a bound of "
-              f"{r['bound_k104_ms']:.4f} ms, {100 * r['share_of_bound']:.1f}%]")
+              f"{r['bound_k104_ms']:.4f} ms, {100 * r['share_of_bound']:.1f}%, k={K_TOP}: "
+              f"{r[f'kernel_k{K_TOP}_ms']:.4f} ms]")
     clock = (f"{min(clocks.mhz)}-{max(clocks.mhz)} MHz over {len(clocks.mhz)} readings" if clocks.mhz
              else "not read")
     print(f"# SM clock while timing (nvidia-smi): {clock}")
@@ -386,20 +405,23 @@ def main(argv=None) -> Dict[str, object]:
     b, n = 250, 19
     layer_rows = b * n * n
     items = forward_passes(**QM9, n=n, bf16=True)
-    per_pass = {op: r["kernel_pass_ms"] for op, r in results.items()}
+    per_pass = {op: 1e-6 * r["price_ns_per_pass"] for op, r in results.items()}
+    at_bound = [op for op, r in results.items() if r["price_ns_per_pass"] > 1e6 * r["kernel_pass_ms"]]
     per_pass["mma"] = 2e3 * elems / PEAK_BF16_FLOP_S  # one multiply-add per element at the peak
     acct = account(items, per_pass, elems, layer_rows, QM9["s_dim"])
     layer_ms = message_layer_ms(torch, b, n, torch.bfloat16, reps)
     total = sum(acct.values())
     print(f"\n# forward message layer, QM9 width, bf16, B={b} N={n} ({layer_rows} edge rows): "
-          f"passes x measured cost per pass")
+          f"passes x measured cost per pass"
+          f"{' (at the bound a pass for ' + ', '.join(at_bound) + ')' if at_bound else ''}")
     for (what, op, count), ms in zip(items, acct.values()):
         print(f"#   {what:>58}: {count:9.2f} {op:>14} passes {ms * 1e3:10.1f} us")
     print(f"#   {'total':>58}: {total * 1e3:.1f} us; the kernel measured {layer_ms * 1e3:.1f} us "
           f"({100 * total / layer_ms:.1f}% accounted)")
     result = {"device": torch.cuda.get_device_name(0), "rows": rows, "cols": cols, "reps": reps,
               "per_pass": results, "accounting_ms": acct, "accounted_ms": total,
-              "message_layer_ms": layer_ms, "clocks_sm_mhz": clocks.mhz, "sass_checked": sass is not None}
+              "message_layer_ms": layer_ms, "priced_at_bound": at_bound, "clocks_sm_mhz": clocks.mhz,
+              "sass_checked": sass is not None}
     print(json.dumps(result))
     return result
 

@@ -24,9 +24,9 @@
 // only the other resident warps hide each op's latency.
 //
 // What the design does about it.
-// - E (PASSES_E, 8 by default, or 4) independent elements a thread: one pass
-//   applies the op to all E registers, so E independent chains issue back to
-//   back.  One empty asm statement over all E registers ends each pass: the
+// - E = 8 independent elements a thread (two float4): one pass applies the
+//   op to all E registers, so E independent chains issue back to back.
+//   (E = 4 was within 3% of E = 8 on every op; PERF.md.)  One empty asm statement over all E registers ends each pass: the
 //   compiler cannot fold the affine (add, mul) or idempotent (cast round
 //   trip) chains across it.  8 passes a loop trip: the loop's own counter,
 //   compare and branch are spread over 8 E ops.
@@ -41,9 +41,9 @@
 //   issues a 1-D bulk copy (cp.async.bulk, the Hopper asynchronous copy) of
 //   the tile after next into a two-stage shared-memory ring, completing on an
 //   mbarrier, so the threads spend no registers and almost no issue slots on
-//   the stream.  Built with -DPASSES_REGISTER_PREFETCH, each thread instead
-//   loads its next float4s into registers before the passes.  Stores go
-//   straight from registers as float4.
+//   the stream.  Stores go straight from registers as float4.  (A register
+//   double buffer, each thread loading its next float4s before the passes,
+//   was as fast or slower at k = 8 on every op; PERF.md.)
 // - Any n and any 4-byte-aligned address: a scalar head up to the first
 //   16-byte boundary, the float4 body in tiles, a scalar tail
 //   (ops/passes.py::split_for_vectors computes the split; the ends run on
@@ -55,17 +55,12 @@
 
 #include "message_layer_common.cuh"
 
-#ifndef PASSES_E
-#define PASSES_E 8
-#endif
-
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int UNROLL = 8;  // passes a loop trip
 constexpr int STAGES = 2;  // tiles in the shared-memory ring
-constexpr int E = PASSES_E;  // elements a thread a tile
-static_assert(E == 4 || E == 8, "PASSES_E is 4 or 8");
+constexpr int E = 8;  // elements a thread a tile
 constexpr int V = E / 4;  // float4 a thread a tile
 constexpr int TILE4 = THREADS * V;  // float4 a tile
 
@@ -89,9 +84,6 @@ __device__ __forceinline__ float apply(float y) {
 
 // the end of a pass over all of a thread's registers: opaque to the compiler
 __device__ __forceinline__ void boundary(float (&y)[1]) { asm volatile("" : "+f"(y[0])); }
-__device__ __forceinline__ void boundary(float (&y)[4]) {
-  asm volatile("" : "+f"(y[0]), "+f"(y[1]), "+f"(y[2]), "+f"(y[3]));
-}
 __device__ __forceinline__ void boundary(float (&y)[8]) {
   asm volatile("" : "+f"(y[0]), "+f"(y[1]), "+f"(y[2]), "+f"(y[3]), "+f"(y[4]), "+f"(y[5]), "+f"(y[6]),
                "+f"(y[7]));
@@ -150,7 +142,6 @@ __device__ __forceinline__ void store_tile(float4* ob, long long body4, long lon
       ob[slot(tile, j)] = make_float4(y[4 * j], y[4 * j + 1], y[4 * j + 2], y[4 * j + 3]);
 }
 
-#ifndef PASSES_REGISTER_PREFETCH
 __device__ __forceinline__ uint32_t smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -179,7 +170,6 @@ __device__ __forceinline__ void wait_tile(uint64_t* bar, uint32_t parity) {
       "r"(parity)
       : "memory");
 }
-#endif
 
 // the next tile of the body for this block, in order from the launch's
 // counter, or `tiles` once the counter has passed the last
@@ -201,7 +191,6 @@ passes_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
   // the counter STAGES ahead of the one the block computes, and stops at the
   // first past the end
   __shared__ long long tile_of[STAGES];
-#ifndef PASSES_REGISTER_PREFETCH
   // ring of STAGES tiles, filled by bulk copies issued by thread 0: stage
   // i % STAGES holds the block's i-th tile; once every thread has stored
   // its results (the stores read the registers the stage was loaded into),
@@ -209,28 +198,18 @@ passes_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
   // those reads by the barrier and an async-proxy fence
   __shared__ alignas(128) float4 ring[STAGES][TILE4];
   __shared__ alignas(8) uint64_t full[STAGES];
-#endif
   if (threadIdx.x == 0) {
     long long t = 0;
     for (int s = 0; s < STAGES; ++s) {
       t = t < tiles ? grab(counter, tiles) : tiles;
       tile_of[s] = t;
-#ifndef PASSES_REGISTER_PREFETCH
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(&full[s])) : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
       if (t < tiles) copy_tile(ring[s], xb, body4, t, &full[s]);
-#endif
     }
   }
   __syncthreads();
   float y[E];
-#ifdef PASSES_REGISTER_PREFETCH
-  // register double buffer: the next tile's float4s load before the passes
-  float4 next[V];
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int j = 0; j < V; ++j) next[j] = slot(tile_of[0], j) < body4 ? xb[slot(tile_of[0], j)] : zero;
-#endif
   for (int i = 0;; ++i) {
     const int s = i % STAGES;
     const long long t = tile_of[s];
@@ -239,29 +218,19 @@ passes_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
     // the passes
     long long t2 = tiles;
     if (threadIdx.x == 0 && tile_of[(i + STAGES - 1) % STAGES] < tiles) t2 = grab(counter, tiles);
-#ifdef PASSES_REGISTER_PREFETCH
-#pragma unroll
-    for (int j = 0; j < V; ++j) unpack(next[j], y + 4 * j);
-    const long long t1 = tile_of[(i + 1) % STAGES];
-#pragma unroll
-    for (int j = 0; j < V; ++j) next[j] = slot(t1, j) < body4 ? xb[slot(t1, j)] : zero;
-#else
     wait_tile(&full[s], (i / STAGES) & 1);
 #pragma unroll
     for (int j = 0; j < V; ++j)
       unpack(slot(t, j) < body4 ? ring[s][threadIdx.x + j * THREADS] : make_float4(0.f, 0.f, 0.f, 0.f), y + 4 * j);
-#endif
     passes<OP>(y, k);
     store_tile(ob, body4, t, y);
     __syncthreads();
     if (threadIdx.x == 0) {
       tile_of[s] = t2;
-#ifndef PASSES_REGISTER_PREFETCH
       if (t2 < tiles) {
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         copy_tile(ring[s], xb, body4, t2, &full[s]);
       }
-#endif
     }
     __syncthreads();
   }

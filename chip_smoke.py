@@ -97,8 +97,8 @@
    kernel must have been launched in this phase.
 12. Holds the pass-probe kernel against its plain version for each of its
    nine ops at k=8, then runs the probe (``cli.bench_passes``) at its
-   default shape: each op at k=1, 8 and 104 beside its plain version and
-   its one PyTorch call, its bound from its SASS counts (``PASS_SASS``,
+   default shape: each op at k=1, 8, 104 and 208 beside its plain version
+   and its one PyTorch call, its bound from its SASS counts (``PASS_SASS``,
    read again from the built library where ``cuobjdump`` is found: a count
    that differs fails the run) and the SM clock while it times.
 13. Drives the GEOM-Drugs path (after the conditional path), fp32 at the
@@ -2386,8 +2386,9 @@ def check_passes(torch):
 def passes_row(torch, probe) -> dict:
     """The pass probe's kernels-line fields: ``mul`` at k=104 (its bound from
     its SASS counts) and at k=1 beside one ``torch.mul`` call, and per op
-    the slopes, the bound of a pass, the share of the k=104 bound and the
-    SASS counts."""
+    the slopes, the bound of a pass and the price the accounting takes, the
+    share of the k=104 bound and the SASS counts (read in this run where
+    ``sass_checked``, else the committed table)."""
     from bio_diffusion_torch.cli import bench_passes
     from bio_diffusion_torch.ops.passes import kernel_grid
 
@@ -2396,6 +2397,7 @@ def passes_row(torch, probe) -> dict:
     by = max(parts, key=parts.get)
     ops = {op: {"ns_per_pass": {"kernel": 1e6 * r["kernel_pass_ms"], "plain": 1e6 * r["plain_pass_ms"]},
                 "bound_ns_per_pass": r["bound_ns_per_pass"], "bound_by": r["bound_by"],
+                "price_ns_per_pass": r["price_ns_per_pass"], "ms_k208": r["kernel_k208_ms"],
                 "share_of_bound": r["share_of_bound"], "ms_k104": r["kernel_k104_ms"],
                 "bound_ms_k104": r["bound_k104_ms"], "ms_k8": r["kernel_k8_ms"], "ms_k1": r["kernel_k1_ms"],
                 "library_ms_k1": r["library_k1_ms"], "sass": r["sass"],
@@ -2404,7 +2406,7 @@ def passes_row(torch, probe) -> dict:
     return {"ms": mul["kernel_k104_ms"], "plain_ms": mul["plain_k104_ms"], "bound_ms": max(parts.values()),
             "bound_by": "bytes" if by == "bytes" else "operations", "ms_k1": mul["kernel_k1_ms"],
             "library_ms": mul["library_k1_ms"], "ops": ops, "clocks_sm_mhz": probe["clocks_sm_mhz"],
-            "sass_checked": probe["sass_checked"]}
+            "sass_checked": probe["sass_checked"], "priced_at_bound": probe["priced_at_bound"]}
 
 
 def main() -> int:

@@ -178,6 +178,19 @@ def test_mufu_bound_follows_the_mufu_count():
     assert rsqrt["mufu"] == pytest.approx(1e3 * 104 * ELEMS / 4.1875e12) and rsqrt["mufu"] > rsqrt["issue"]
 
 
+def test_accounting_price_is_never_below_the_bound():
+    # mul: 64 FMUL a trip of 64 element passes, so one pass over ELEMS
+    # issues in ELEMS / 33.5e12 s = 0.6897 us; a slope under it is priced there
+    issue = 1e3 * ELEMS / 33.5e12
+    assert bench_passes.pass_price_ms("mul", 0.000295, ELEMS) == pytest.approx(issue, rel=1e-12)
+    assert bench_passes.pass_price_ms("mul", 0.0008, ELEMS) == 0.0008
+    # rsqrt: its MUFU.RSQ over 16 lanes an SM sets the floor, not its 2 instructions
+    mufu = 1e3 * ELEMS / 4.1875e12
+    assert bench_passes.pass_price_ms("rsqrt", 0.0, ELEMS) == pytest.approx(mufu, rel=1e-12)
+    # the bytes of a launch are no part of a pass's price
+    assert bench_passes.pass_price_ms("add", 0.0, ELEMS) < bench_passes.pass_bound_ms("add", ELEMS, 1)
+
+
 def _sass(op_id, lines):
     """A function of ``cuobjdump -sass``'s listing, one instruction a line at
     0x10 steps, each followed by its encoding comment."""
