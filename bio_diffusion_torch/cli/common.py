@@ -1,8 +1,9 @@
 """Shared CLI plumbing: argument parsing, the device, model loading.
 
 Port of ``bio_diffusion_tpu/cli/common.py`` (``parse_cli``, ``load_model``,
-``nodes_distribution_for``).  The data-parallel inference mesh of the JAX
-package waits for multi-GPU support (ROADMAP A12).
+``nodes_distribution_for``, and ``inference_devices`` for its
+``inference_mesh``: the inference CLIs run on one card unless
+``inference_devices=K`` or ``all`` splits each batch over K cards).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from bio_diffusion_torch.config.build import ExperimentConfig, build_evd, get_dataset_info_for
 from bio_diffusion_torch.config.loader import default_config_dir, load_config
 from bio_diffusion_torch.models.distributions import NumNodesDistribution
+from bio_diffusion_torch.parallel.distributed import inference_devices  # noqa: F401 (re-exported for the CLIs)
 from bio_diffusion_torch.train.checkpoints import load_checkpoint
 from bio_diffusion_torch.train.torch_import import (
     init_random_weights,

@@ -32,6 +32,7 @@ import torch
 from bio_diffusion_torch.chem.rdkit_bridge import build_molecular_metrics
 from bio_diffusion_torch.cli.common import (
     device_of,
+    inference_devices,
     load_model,
     nodes_distribution_for,
     parse_cli,
@@ -47,9 +48,11 @@ from bio_diffusion_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 
-def nll_passes(cfg, exp, evd, device, nodes_dist, rng):
+def nll_passes(cfg, exp, evd, device, nodes_dist, rng, devices=None):
     """The mean NLL over the test split per pass -> list of ``num_test_passes``
-    floats, or None when the dataset's files are missing."""
+    floats, or None when the dataset's files are missing.  Each batch is
+    split over ``devices`` (more than one; as the JAX CLI shards it over
+    its mesh)."""
     try:
         datasets = build_datasets(exp)
     except (RuntimeError, FileNotFoundError) as e:
@@ -61,7 +64,8 @@ def nll_passes(cfg, exp, evd, device, nodes_dist, rng):
         nll_evd.load_state_dict(evd.state_dict())
         nll_evd = nll_evd.to(device).eval()
         log.info("NLL evaluation with the bf16 network body")
-    eval_step = make_eval_step(nll_evd, exp.diffusion_cfg, exp.dataloader_cfg, nodes_dist.log_prob_table)
+    eval_step = make_eval_step(nll_evd, exp.diffusion_cfg, exp.dataloader_cfg, nodes_dist.log_prob_table,
+                               devices=devices)
     generator = torch.Generator(device=device).manual_seed(exp.seed + 1)
     test = datasets["test"]
     passes = []
@@ -81,12 +85,13 @@ def main(argv=None):
     nodes_dist = nodes_distribution_for(exp)
 
     evd = load_model(exp, cfg.get("ckpt_path"), device, seed=exp.seed)
+    devices = inference_devices(cfg, device)
     rng = np.random.default_rng(exp.seed)
     generator = torch.Generator(device=device).manual_seed(exp.seed)
 
     num_timesteps = cfg.get("num_timesteps")
     xh, node_mask, _ = sample_molecules(
-        SegmentedSampler(evd, device), generator, int(cfg.get("num_samples", 10000)), nodes_dist, rng,
+        SegmentedSampler(evd, devices=devices), generator, int(cfg.get("num_samples", 10000)), nodes_dist, rng,
         batch_size=int(cfg.get("sampling_batch_size", 100)),
         num_timesteps=int(num_timesteps) if num_timesteps else None)
     metrics = analyze_samples(
@@ -95,7 +100,7 @@ def main(argv=None):
 
     # test NLL over multiple passes (reference mol_gen_eval.py:172-186)
     if cfg.get("evaluate_nll", True):
-        passes = nll_passes(cfg, exp, evd, device, nodes_dist, rng)
+        passes = nll_passes(cfg, exp, evd, device, nodes_dist, rng, devices)
         if passes is not None:
             metrics["test_nll"] = float(np.mean(passes))
             metrics["test_nll_passes"] = passes

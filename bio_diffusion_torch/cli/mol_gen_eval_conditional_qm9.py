@@ -49,6 +49,7 @@ import torch
 
 from bio_diffusion_torch.cli.common import (
     device_of,
+    inference_devices,
     load_model,
     nodes_distribution_for,
     parse_cli,
@@ -118,7 +119,7 @@ def main(argv=None):
     device = device_of(cfg)
     nodes_dist = nodes_distribution_for(exp)
     evd = load_model(exp, cfg.get("generator_model_filepath") or cfg.get("ckpt_path"), device, seed=exp.seed)
-    sampler = SegmentedSampler(evd, device)
+    sampler = SegmentedSampler(evd, devices=inference_devices(cfg, device))
 
     norms, props_distr = property_normalizers(build_datasets(exp), (prop,), exp.dataloader_cfg.dataset)
     mean, mad = norms[prop]["mean"], norms[prop]["mad"]

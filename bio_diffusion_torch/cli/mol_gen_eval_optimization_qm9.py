@@ -41,7 +41,14 @@ import numpy as np
 import torch
 
 from bio_diffusion_torch.chem.stability import batch_molecular_stability
-from bio_diffusion_torch.cli.common import device_of, load_model, parse_cli, precision_of, with_precision
+from bio_diffusion_torch.cli.common import (
+    device_of,
+    inference_devices,
+    load_model,
+    parse_cli,
+    precision_of,
+    with_precision,
+)
 from bio_diffusion_torch.cli.mol_gen_eval_conditional_qm9 import (
     apply_conditional_surgery,
     classify,
@@ -51,7 +58,8 @@ from bio_diffusion_torch.config.build import build_datasets, build_experiment, g
 from bio_diffusion_torch.data.batch import broadcast_context
 from bio_diffusion_torch.models.distributions import property_normalizers
 from bio_diffusion_torch.ops.geometry import centralize
-from bio_diffusion_torch.train.sampling import SegmentedSampler, make_node_mask
+from bio_diffusion_torch.parallel.distributed import Replicas
+from bio_diffusion_torch.train.sampling import SegmentedSampler, make_node_mask, mol_gen_optimize_rows
 from bio_diffusion_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -87,6 +95,7 @@ def main(argv=None):
     out_root = str(cfg.get("output_dir", "outputs/mol_gen_eval_optimization_qm9"))
     cfg = with_precision(cfg, precision_of(cfg))
     device = device_of(cfg)
+    devices = inference_devices(cfg, device)
     uncond_exp = build_experiment(copy.deepcopy(cfg))
     seed = uncond_exp.seed
     rng = np.random.default_rng(seed)
@@ -101,7 +110,7 @@ def main(argv=None):
     else:
         node_mask_np = make_node_mask(np.full(num_samples, FIXED_NUM_NODES), FIXED_NUM_NODES)
         evd_u = load_model(uncond_exp, cfg.get("unconditional_generator_model_filepath"), device, seed=seed)
-        sampler_u = SegmentedSampler(evd_u, device)
+        sampler_u = SegmentedSampler(evd_u, devices=devices)
         xs = [sampler_u.run(node_mask_np[start: start + batch_size], generator, num_timesteps=num_gen_timesteps)
               for start in range(0, num_samples, batch_size)]
         x0 = np.concatenate([xh[..., :3] for xh in xs])
@@ -131,13 +140,16 @@ def main(argv=None):
     x_cur = torch.as_tensor(x0, device=device)
     oh_cur = torch.as_tensor(oh0, device=device)
     history = []
+    reps_c = Replicas(evd_c, devices)
+
+    def optimize(sl):
+        return mol_gen_optimize_rows(reps_c, x_cur[sl], oh_cur[sl], node_mask[sl], num_opt_timesteps, context[sl],
+                                     generator)
+
     for it in range(iterations):
         _, x_cur = centralize(x_cur, node_mask)  # the round trip takes CoM-free positions
         with torch.inference_mode():
-            out = torch.cat([
-                evd_c.mol_gen_optimize(x_cur[sl], oh_cur[sl], node_mask[sl], num_opt_timesteps, context[sl],
-                                       generator=generator)
-                for sl in (slice(s, s + batch_size) for s in range(0, len(x0), batch_size))])
+            out = torch.cat([optimize(sl) for sl in (slice(s, s + batch_size) for s in range(0, len(x0), batch_size))])
         x_cur, oh_cur = out[..., :3], out[..., 3:3 + k_types]
         out_np = out.float().cpu().numpy()
         mol_stable, stable_atoms, num_atoms = batch_molecular_stability(

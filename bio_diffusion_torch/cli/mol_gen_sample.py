@@ -63,6 +63,7 @@ import torch
 from bio_diffusion_torch.chem.molecule import RDKIT_AVAILABLE, save_xyz_files
 from bio_diffusion_torch.cli.common import (
     device_of,
+    inference_devices,
     load_model,
     nodes_distribution_for,
     parse_cli,
@@ -77,10 +78,12 @@ from bio_diffusion_torch.data.pocket import (
     sample_joint_sizes,
     synthetic_pockets,
 )
+from bio_diffusion_torch.parallel.distributed import Replicas
 from bio_diffusion_torch.train.sampling import (
     SegmentedSampler,
     analyze_samples,
     generate_ligands_in_pocket,
+    inpaint_rows,
     ligand_pocket_geometry,
     make_node_mask,
     sample_molecules,
@@ -108,6 +111,7 @@ def main(argv=None):
     nodes_dist = nodes_distribution_for(exp)
 
     evd = load_model(exp, cfg.get("ckpt_path"), device, seed=exp.seed)
+    devices = inference_devices(cfg, device)
     rng = np.random.default_rng(exp.seed)
     generator = torch.Generator(device=device).manual_seed(exp.seed)
 
@@ -122,21 +126,21 @@ def main(argv=None):
     if ddpm_mode == "inpainting":
         sizes = np.full(num_samples, int(num_nodes)) if num_nodes else nodes_dist.sample(num_samples, rng)
         xh, node_mask = inpaint_first_node(evd, cfg, sizes, len(dataset_info["atom_decoder"]), num_timesteps,
-                                           generator)
+                                           generator, devices)
     elif ddpm_mode == "pocket":
         xh, node_mask, dataset_info, extra_metrics = sample_in_pockets(
-            evd, cfg, exp, num_samples, num_nodes, num_timesteps, rng, generator, out_dir)
+            evd, cfg, exp, num_samples, num_nodes, num_timesteps, rng, generator, out_dir, devices)
     elif ddpm_mode == "chain":
         sizes = np.full(1, int(num_nodes)) if num_nodes else nodes_dist.sample(1, rng)
         node_mask = make_node_mask(sizes, int(sizes.max()))
-        xh = sample_chain(SegmentedSampler(evd, device), node_mask, generator, num_timesteps or evd.T,
+        xh = sample_chain(SegmentedSampler(evd, devices=devices), node_mask, generator, num_timesteps or evd.T,
                           int(cfg.get("keep_frames", 100)), dataset_info, os.path.join(out_dir, "chain"))
     elif num_nodes:
         node_mask = make_node_mask(np.full(num_samples, int(num_nodes)), int(num_nodes))
-        xh = SegmentedSampler(evd, device).run(node_mask, generator, num_timesteps=num_timesteps)
+        xh = SegmentedSampler(evd, devices=devices).run(node_mask, generator, num_timesteps=num_timesteps)
     else:
         xh, node_mask, _ = sample_molecules(
-            SegmentedSampler(evd, device), generator, num_samples, nodes_dist, rng,
+            SegmentedSampler(evd, devices=devices), generator, num_samples, nodes_dist, rng,
             batch_size=min(num_samples, int(cfg.get("sampling_batch_size", 100))),
             num_timesteps=num_timesteps)
 
@@ -188,21 +192,21 @@ def sample_chain(sampler: SegmentedSampler, node_mask, generator, num_timesteps:
     return xh
 
 
-def inpaint_first_node(evd, cfg, sizes, num_atom_types: int, num_timesteps, generator):
+def inpaint_first_node(evd, cfg, sizes, num_atom_types: int, num_timesteps, generator, devices=None):
     """Molecules of ``sizes`` in one batch, each with its first node fixed
     at the origin (the reference's default fixed point), the rest inpainted
-    -> host ``(xh, node_mask)``."""
-    device = next(evd.parameters()).device
+    (the rows split over ``devices``, default the EVD's) -> host
+    ``(xh, node_mask)``."""
     b, pad = len(sizes), int(sizes.max())
     node_mask = make_node_mask(sizes, pad)
     fixed = np.zeros((b, pad), np.float32)
     fixed[:, 0] = 1.0
+    inputs = (np.zeros((b, pad, 3), np.float32), np.zeros((b, pad, num_atom_types), np.float32),
+              np.zeros((b, pad, 1), np.float32), node_mask, fixed)
     with torch.inference_mode():
-        xh = evd.inpaint(torch.zeros((b, pad, 3), device=device), torch.zeros((b, pad, num_atom_types), device=device),
-                         torch.zeros((b, pad, 1), device=device), torch.as_tensor(node_mask, device=device),
-                         torch.as_tensor(fixed, device=device), int(cfg.get("num_resamplings", 1)),
-                         int(cfg.get("jump_length", 1)), num_timesteps, generator=generator)
-    return xh.cpu().numpy(), node_mask
+        xh = inpaint_rows(Replicas(evd, devices), inputs, int(cfg.get("num_resamplings", 1)),
+                          int(cfg.get("jump_length", 1)), num_timesteps, generator)
+    return xh, node_mask
 
 
 def load_pocket_file(cfg, pocket_name: str, aa_encoder):
@@ -220,7 +224,8 @@ def load_pocket_file(cfg, pocket_name: str, aa_encoder):
     return np.asarray(spec["coords"], dtype=np.float32), np.asarray(residues, dtype=np.int64)
 
 
-def sample_in_pockets(evd, cfg, exp, num_samples: int, num_nodes, num_timesteps, rng, generator, out_dir):
+def sample_in_pockets(evd, cfg, exp, num_samples: int, num_nodes, num_timesteps, rng, generator, out_dir,
+                      devices=None):
     """Ligands generated into ``num_samples`` pockets (one from
     ``pocket_file`` repeated, or synthetic ones), sizes and pockets drawn
     from ``rng`` in the JAX package's order; writes ``pockets.json`` ->
@@ -252,7 +257,7 @@ def sample_in_pockets(evd, cfg, exp, num_samples: int, num_nodes, num_timesteps,
     out = generate_ligands_in_pocket(
         evd, generator, pocket_x, pocket_aa, pocket_mask, ligand_sizes, len(pinfo["atom_decoder"]),
         num_resamplings=int(cfg.get("num_resamplings", 1)), jump_length=int(cfg.get("jump_length", 1)),
-        num_timesteps=num_timesteps)
+        num_timesteps=num_timesteps, devices=devices)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "pockets.json"), "w") as f:
         json.dump({"coords": pocket_x.tolist(), "residue_index": pocket_aa.tolist(), "mask": pocket_mask.tolist(),

@@ -8,12 +8,14 @@ with the port's config loader (a copy of the JAX package's), builds its model on
 Usage:
   python -m bio_diffusion_torch.cli.serve device=cuda [ckpt_path=<ckpt>] \
       [port=8080] [serving_batch_size=8] [num_timesteps=1000] \
-      [warmup_buckets=[20,29]] [precision=bf16|fp32] [k=v ...]
+      [warmup_buckets=[20,29]] [precision=bf16|fp32] [inference_devices=1|K|all] [k=v ...]
 
 ``ckpt_path`` is a reference ``.ckpt``, a checkpoint directory of the port's
 Trainer (its EMA weights) or a params file; ``ckpt_path=null`` serves
 weights drawn from ``seed``.  ``device`` defaults to ``cuda``; there is no
-fallback to the CPU.
+fallback to the CPU.  ``inference_devices=K`` (or ``all``) splits each
+batch over K cards, a replica of the model on each; the default is one
+card (the config's ``use_mesh`` is the JAX server's switch).
 
 Endpoints:
   GET  /healthz   -> server + device status, buckets, stats
@@ -32,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from bio_diffusion_torch.cli.common import (
     device_of,
+    inference_devices,
     load_model,
     nodes_distribution_for,
     parse_cli,
@@ -47,7 +50,7 @@ log = logging.getLogger(__name__)
 def build_server(cfg) -> MoleculeServer:
     """The server of a composed ``serve`` config: the model of ``ckpt_path``
     (see ``cli.common.load_model``) on ``device``, in ``precision``
-    (default bf16)."""
+    (default bf16), its batches split over ``inference_devices``."""
     exp = build_experiment(with_precision(cfg, precision_of(cfg, default="bf16")))
     if exp.module_cfg.conditioning:
         raise ValueError("cli.serve serves unconditional models")
@@ -58,6 +61,7 @@ def build_server(cfg) -> MoleculeServer:
     return MoleculeServer(
         evd, get_dataset_info_for(exp), nodes_distribution_for(exp),
         device=device,
+        devices=inference_devices(cfg, device),
         batch_size=int(cfg.get("serving_batch_size", 8)),
         buckets=cfg.get("buckets"),
         num_timesteps=int(num_timesteps) if num_timesteps else None,

@@ -36,6 +36,7 @@ PHASES = (
     ("reverse step", "reverse step "),
     ("trainer fp32 and bf16", "train bf16: the two kernels"),
     ("user path", "user path phase"),
+    ("data parallel", "data parallel phase"),
     ("conditional path", "conditional path phase"),
     ("GEOM path", "GEOM path phase"),
     ("pocket path", "pocket path phase"),

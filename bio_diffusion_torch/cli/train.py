@@ -2,7 +2,7 @@
 
 Port of ``bio_diffusion_tpu/cli/train.py``.  Composes ``configs/train.yaml``
 with the port's config loader (a copy of the JAX package's) and trains
-on one device.
+on one device, or data-parallel with one process a card under ``torchrun``.
 
 Usage:
   python -m bio_diffusion_torch.cli.train experiment=qm9_mol_gen_ddpm|geom_mol_gen_ddpm \\
@@ -10,6 +10,7 @@ Usage:
       [datamodule.dataloader_cfg.data_dir=DIR] [k=v ...] \\
       [--max-steps=K] [--max-epochs=E] [--workdir=DIR] [--device=cuda|cpu] \\
       [trainer.detect_anomaly=true] [trainer.profile=true] [--profile=DIR] [--dump-graph]
+  torchrun --nproc_per_node=K -m bio_diffusion_torch.cli.train ... [--dist-init=URL] [--dist-timeout=S]
 
 QM9 is read from ``<data_dir>/QM9``: the processed ``train/valid/test.npz``
 or the GDB9 tarball with ``uncharacterized.txt`` and ``atomref.txt``;
@@ -32,6 +33,22 @@ traces ``fit`` with ``torch.profiler`` into ``DIR/trace.json``;
 one call at B=2 and the dataset's largest N to
 ``<workdir>/graph/dynamics.{modules,ops}.txt``.  The seconds ``fit`` took go
 to ``<workdir>/exec_time.log``.
+
+Data parallelism: launched by ``torchrun`` (``WORLD_SIZE`` set) with
+``trainer.use_mesh=true`` (the default), each process joins the group
+(``parallel.distributed.init_distributed``: NCCL with rank r on
+``cuda:LOCAL_RANK``, one rank a card, else an error; gloo with
+``--device=cpu``) and trains its rows of every global batch
+(``train/loop.py``); rank 0 writes the checkpoints, metrics, profile and
+graph files.  ``trainer.multihost=true`` joins a group from JAX's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+where torchrun's variables are absent.  ``--dist-init=URL`` gives the
+rendezvous (e.g. ``file:///path``) in place of ``MASTER_ADDR`` /
+``MASTER_PORT``; ``--dist-timeout=S`` bounds every wait in a collective
+(default 7200 s: the ranks wait while rank 0 runs the sampling
+evaluation).  ``trainer.use_mesh=false`` under ``WORLD_SIZE > 1`` and
+``trainer.num_model_shards > 1`` (parameter sharding, not ported) raise.
+Without a launcher, training runs on ``--device`` alone.
 """
 
 from __future__ import annotations
@@ -45,8 +62,15 @@ import torch
 
 from bio_diffusion_torch.cli.common import parse_cli
 from bio_diffusion_torch.config.build import build_experiment
+from bio_diffusion_torch.parallel.distributed import (
+    DEFAULT_TIMEOUT_S,
+    check_model_shards,
+    init_distributed,
+    launched_world,
+    shutdown,
+)
 from bio_diffusion_torch.train.loop import Trainer
-from bio_diffusion_torch.utils.logging import build_loggers, get_logger
+from bio_diffusion_torch.utils.logging import MetricLoggers, build_loggers, get_logger
 from bio_diffusion_torch.utils.profiling import dump_computation_graph, profile_trace
 
 log = get_logger(__name__)
@@ -55,7 +79,7 @@ log = get_logger(__name__)
 def main(argv=None) -> Trainer:
     cfg, flags = parse_cli(list(sys.argv[1:] if argv is None else argv), "train", __doc__)
     unknown = set(flags) - {"max-steps", "max-epochs", "workdir", "device", "config-dir", "config-name",
-                            "profile", "dump-graph"}
+                            "profile", "dump-graph", "dist-init", "dist-timeout"}
     if unknown:
         raise SystemExit(f"unknown flags: {sorted(unknown)}")
     if not logging.getLogger().handlers:
@@ -67,18 +91,40 @@ def main(argv=None) -> Trainer:
     log.info("Experiment: dataset=%s, layers=%d, precision=%s, device=%s, workdir=%s",
              exp.dataloader_cfg.dataset, exp.model_cfg.num_encoder_layers, exp.trainer.precision,
              device, workdir)
-    trainer = Trainer(exp, workdir, device, loggers=build_loggers(cfg.get("logger"), workdir))
-    if "dump-graph" in flags:
-        log.info("Wrote computation graphs: %s", dump_denoiser_graph(trainer))
-    profile_dir = flags.get("profile") or (os.path.join(workdir, "profile") if exp.trainer.profile else None)
-    t_start = time.time()
-    with profile_trace(profile_dir):
-        trainer.fit(max_epochs=int(flags["max-epochs"]) if flags.get("max-epochs") else None,
-                    max_steps=int(flags["max-steps"]) if flags.get("max-steps") else None)
-    with open(os.path.join(workdir, "exec_time.log"), "w") as f:
-        f.write(f"{time.time() - t_start:.2f}s\n")
-    if cfg.get("test"):
-        log.info("test metrics: %s", trainer.validate(epoch=-1, split="test"))
+    check_model_shards(exp.trainer.num_model_shards)
+    dp = None
+    world = launched_world()
+    if world is not None or exp.trainer.multihost:
+        if exp.trainer.use_mesh:
+            dp = init_distributed(torch.device(device).type, init_method=flags.get("dist-init"),
+                                  timeout_s=float(flags.get("dist-timeout") or DEFAULT_TIMEOUT_S))
+            device = dp.device
+            log.info("Data parallel: rank %d of %d on %s (%s)", dp.rank, dp.world, device, dp.backend)
+        elif (world or 1) > 1:
+            raise ValueError(f"launched with WORLD_SIZE={world} but trainer.use_mesh=false: set "
+                             "trainer.use_mesh=true for data parallelism, or launch one process")
+    main_rank = dp is None or dp.is_main
+    loggers = build_loggers(cfg.get("logger"), workdir) if main_rank else MetricLoggers()
+    try:
+        trainer = Trainer(exp, workdir, device, loggers=loggers, dp=dp)
+        if "dump-graph" in flags:
+            if trainer.state is None:  # a collective under data parallelism: every rank
+                trainer.init_state(resume=not exp.trainer.fast_dev_run)
+            if main_rank:
+                log.info("Wrote computation graphs: %s", dump_denoiser_graph(trainer))
+        profile_dir = flags.get("profile") or (os.path.join(workdir, "profile") if exp.trainer.profile else None)
+        t_start = time.time()
+        with profile_trace(profile_dir if main_rank else None):
+            trainer.fit(max_epochs=int(flags["max-epochs"]) if flags.get("max-epochs") else None,
+                        max_steps=int(flags["max-steps"]) if flags.get("max-steps") else None)
+        if main_rank:
+            with open(os.path.join(workdir, "exec_time.log"), "w") as f:
+                f.write(f"{time.time() - t_start:.2f}s\n")
+        if cfg.get("test"):
+            log.info("test metrics: %s", trainer.validate(epoch=-1, split="test"))
+    finally:
+        if dp is not None:
+            shutdown()
     return trainer
 
 

@@ -5,8 +5,8 @@ the counterpart of the reference's ``BatchSampler``
 (src/datamodules/components/sampler.py): pack molecule indices into batches
 bounded by a total-node budget.  With dense padding the budget bounds the
 padded batch area (B x N_bucket), keeping the work of every batch about the
-same.  The multi-host ``shard_indices`` waits for multi-GPU training
-(ROADMAP A12).
+same.  ``shard_indices`` is a copy of the JAX package's, its defaults the
+rank and world of the ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -49,3 +49,33 @@ def node_budget_batches(
         cur_max = max(cur_max, n)
     if batch:
         yield np.asarray(batch)
+
+
+def shard_indices(
+    num_examples: int,
+    epoch: int,
+    seed: int = 0,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+    shuffle: bool = True,
+    drop_remainder: bool = True,
+) -> np.ndarray:
+    """This rank's deterministic shard of the epoch's example order.
+
+    All ranks compute the same permutation (seed + epoch) and take disjoint
+    strided slices, so global coverage is exact without communication.
+    ``process_index`` / ``process_count`` default to the rank and world size
+    of the ``torch.distributed`` group (0 and 1 without one)."""
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if up else 0) if process_index is None else process_index
+    pc = (dist.get_world_size() if up else 1) if process_count is None else process_count
+
+    order = np.arange(num_examples)
+    if shuffle:
+        np.random.default_rng(np.random.SeedSequence([seed, epoch])).shuffle(order)
+    if drop_remainder:
+        usable = (num_examples // pc) * pc
+        order = order[:usable]
+    return order[pi::pc]

@@ -548,13 +548,19 @@ class EquivariantVariationalDiffusion(nn.Module):
 
 def assemble_nll(terms: Dict[str, Tensor], loss_type: str, training: bool, T: int, num_x_dims: int,
                  num_node_scalar_features: int, log_pN: Tensor,
-                 norm_training_by_max_nodes: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+                 norm_training_by_max_nodes: bool = False,
+                 max_num_nodes: Optional[Tensor] = None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Combine the loss terms into the objective per graph -> ``(nll [B],
-    info dict of batch-mean scalars)``."""
+    info dict of batch-mean scalars)``.  ``max_num_nodes``: the largest
+    molecule of the whole batch where ``terms`` hold one rank's rows of it
+    (``norm_training_by_max_nodes``); else the largest in ``terms``."""
     error_t = terms["error_t"]
     num_nodes = terms["num_nodes"]
     if training and loss_type == "l2":
-        effective = torch.max(num_nodes) if norm_training_by_max_nodes else num_nodes
+        if not norm_training_by_max_nodes:
+            effective = num_nodes
+        else:
+            effective = torch.max(num_nodes) if max_num_nodes is None else max_num_nodes
         denom = (num_x_dims + num_node_scalar_features) * effective
         loss_t = 0.5 * (error_t / denom)
         loss_0 = terms["loss_0_x"] / denom + terms["loss_0_h"]

@@ -1,4 +1,5 @@
-"""Resident molecule-generation server on one device.
+"""Resident molecule-generation server on one device, or with each batch
+split over several (``devices``, the JAX server's ``mesh``).
 
 Port of ``bio_diffusion_tpu/serve.py::MoleculeServer``: transport threads
 enqueue per-molecule jobs; one executor thread owns the device and runs
@@ -63,7 +64,10 @@ class MoleculeServer:
     evd : the port's EquivariantVariationalDiffusion, already on ``device``
     dataset_info : registry entry (atom decoder, bond tables, histograms)
     nodes_dist : NumNodesDistribution for requests without ``num_nodes``
-    device : the torch device every batch runs on
+    device : the torch device every batch runs on (the first of ``devices``)
+    devices : optional list of devices each batch is split over (a replica
+        of ``evd`` on each; ``train.sampling.SegmentedSampler``); the same
+        seed gives the same molecules as on ``device`` alone
     batch_size : fixed device batch; every executed batch has this shape
     buckets : node-count ladder; default multiples of 2 up to the dataset max
     num_timesteps : default denoising steps (None = the model's T)
@@ -76,6 +80,7 @@ class MoleculeServer:
         nodes_dist,
         *,
         device,
+        devices: Optional[Sequence] = None,
         batch_size: int = 8,
         buckets: Optional[Sequence[int]] = None,
         num_timesteps: Optional[int] = None,
@@ -85,6 +90,7 @@ class MoleculeServer:
         max_request_mols: int = 10_000,
     ):
         self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices else [self.device]
         self.dataset_info = ensure_bond_tables(dict(dataset_info))
         self.nodes_dist = nodes_dist
         self.batch_size = int(batch_size)
@@ -98,7 +104,7 @@ class MoleculeServer:
         self.include_charges = bool(evd.include_charges)
         self.max_request_mols = int(max_request_mols)
 
-        self.sampler = SegmentedSampler(evd, self.device)
+        self.sampler = SegmentedSampler(evd, devices=self.devices)
         self._rng = np.random.default_rng(seed)
         self._rng_lock = threading.Lock()  # generate() runs on transport threads
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -346,7 +352,7 @@ class MoleculeServer:
             stats["bucket_batches"] = dict(stats["bucket_batches"])
         stats["uptime_s"] = round(time.time() - stats.pop("started"), 1)
         stats["avg_batch_occupancy"] = round(stats["batched_jobs"] / max(stats["batches"], 1), 3)
-        device = str(self.device)
+        device = ", ".join(str(d) for d in self.devices)
         if self.device.type == "cuda":
             device += f" ({torch.cuda.get_device_name(self.device)})"
         return {

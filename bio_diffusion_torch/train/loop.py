@@ -2,9 +2,10 @@
 checkpoints, early stopping, batch limits, halt files.
 
 Port of ``bio_diffusion_tpu/train/loop.py::Trainer``.  The model trains on
-one device; the EMA twin of the model carries the EMA weights and runs the
-validation and the sampling evaluation.  Step metrics stay on the device
-until the end of an epoch.  ``init_state`` resumes from the newest
+one device, or data-parallel over the ranks of a ``torch.distributed``
+group (``dp``, see below); the EMA twin of the model carries the EMA
+weights and runs the validation and the sampling evaluation.  Step metrics
+stay on the device until the end of an epoch.  ``init_state`` resumes from the newest
 checkpoint under ``<workdir>/<trainer.ckpt_dir>`` (the train state only, not
 the data order, as in the JAX package), else warm-starts from
 ``trainer.warm_start_ckpt``.  A property-conditioned model
@@ -15,6 +16,21 @@ train split's per-size property histograms.  QM9 and synthetic batches are
 padded to the dataset's width, GEOM-Drugs batches each to its bucket
 (``bucket_sizes``), as in the JAX package.  Sample renderings (PNG) are
 not ported; the sampling evaluation writes xyz files.
+
+Data parallelism (``dp``, a ``parallel.distributed.DataParallel``; the JAX
+Trainer's ``mesh``): every rank iterates the same global batches (the same
+seeded order; GEOM batches padded to their bucket before the split) and the
+steps keep each rank's rows (``train/step.py``).  After ``init_state``
+(fresh, resumed or warm-started) rank 0's parameters, EMA and optimizer
+state are broadcast.  Validation runs sharded, its per-batch means averaged
+over the ranks once at its end.  The sampling evaluation runs on rank 0
+alone, with the generator a single device uses; the others wait at a
+barrier (bounded by the group's timeout) and then take rank 0's metrics and
+numpy generator state, so the next epoch's batch order agrees.  Rank 0
+writes the checkpoints, the halt file and the metrics; a barrier follows
+each checkpoint.  Every decision the host takes (early stopping, the
+non-finite loss, ``max_steps``, a failed invariant) reads reduced values,
+so all ranks take it together.
 """
 
 from __future__ import annotations
@@ -31,6 +47,13 @@ from bio_diffusion_torch.config.build import ExperimentConfig, build_datasets, b
 from bio_diffusion_torch.data.batch import iterate_dense_batches
 from bio_diffusion_torch.models.distributions import NumNodesDistribution, property_normalizers
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
+from bio_diffusion_torch.parallel.distributed import (
+    DataParallel,
+    all_reduce_mean_,
+    barrier,
+    broadcast_,
+    broadcast_object,
+)
 from bio_diffusion_torch.train.checkpoints import (
     latest_step,
     reference_state_dict,
@@ -50,15 +73,20 @@ HALT_FILE_EXTENSION = "done"
 
 
 class Trainer:
-    """Single-device trainer of the QM9 and GEOM-Drugs DDPMs with the GCPNet denoiser."""
+    """Trainer of the QM9, GEOM-Drugs and pocket DDPMs with the GCPNet denoiser
+    on one device, or on this rank's device of a data-parallel group
+    (``dp``)."""
 
     def __init__(self, exp: ExperimentConfig, workdir: str, device, datasets: Optional[Dict[str, Any]] = None,
-                 loggers: Optional[MetricLoggers] = None):
+                 loggers: Optional[MetricLoggers] = None, dp: Optional[DataParallel] = None):
         device = torch.device(device)
+        if dp is not None and device != dp.device:
+            raise ValueError(f"device {device} is not the data-parallel rank's device {dp.device}")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device=cuda but no CUDA device is available (there is no CPU fallback)")
         tc = exp.trainer
-        self.exp, self.workdir, self.device = exp, workdir, device
+        self.exp, self.workdir, self.device, self.dp = exp, workdir, device, dp
+        self.is_main = dp is None or dp.is_main
         os.makedirs(workdir, exist_ok=True)
         self.datasets = datasets if datasets is not None else build_datasets(exp)
         self.dataset_info = get_dataset_info_for(exp)
@@ -74,8 +102,10 @@ class Trainer:
         self.train_step = make_train_step(
             self.evd, exp.diffusion_cfg, exp.dataloader_cfg, self.nodes_dist.log_prob_table,
             ema_decay=tc.ema_decay, clip_gradients=exp.module_cfg.clip_gradients,
-            accumulate_grad_batches=self.accumulate_grad_batches)
-        self.loggers = loggers if loggers is not None else build_loggers(None, workdir)
+            accumulate_grad_batches=self.accumulate_grad_batches, dp=dp)
+        if loggers is None:
+            loggers = build_loggers(None, workdir) if self.is_main else MetricLoggers()
+        self.loggers = loggers
         self.ckpt_dir = os.path.join(workdir, tc.ckpt_dir)
         self.rng = np.random.default_rng(exp.seed)
         self.generator = torch.Generator(device=device).manual_seed(exp.seed + 1)
@@ -133,7 +163,17 @@ class Trainer:
             self.start_step = restore_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state)
             self._saved_step = self.start_step
             log.info("Resumed from checkpoint step %d", self.start_step)
+        if self.dp is not None:
+            self._broadcast_state()
         return self.state
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, EMA, optimizer moments, grad-norm history and
+        step counts on every rank."""
+        st = self.state
+        broadcast_(st.params + st.ema_params + st.mu + st.nu + st.nu_max + [st.gradnorm_buffer], self.dp)
+        st.count, st.gradnorm_count, self.start_step, self._saved_step = broadcast_object(
+            (st.count, st.gradnorm_count, self.start_step, self._saved_step), self.dp)
 
     # -- phases ----------------------------------------------------------------
 
@@ -217,7 +257,7 @@ class Trainer:
         exp = self.exp
         evd = self.evd_ema if use_ema else self.evd
         eval_step = make_eval_step(evd, exp.diffusion_cfg, exp.dataloader_cfg,
-                                   self.nodes_dist.log_prob_table)
+                                   self.nodes_dist.log_prob_table, dp=self.dp)
         generator = torch.Generator(device=self.device).manual_seed(exp.seed + 2)
         limit = exp.trainer.limit_test_batches if split == "test" else exp.trainer.limit_val_batches
         accs: Dict[str, list] = {}
@@ -226,7 +266,13 @@ class Trainer:
             self.stats["eval_batches"] += 1
             for k, v in info.items():
                 accs.setdefault(k, []).append(v)
-        means = torch.stack([torch.stack(vs).float().mean() for vs in accs.values()]).tolist()
+        if self.dp is None:
+            means = torch.stack([torch.stack(vs).float().mean() for vs in accs.values()]).tolist()
+        else:
+            # each rank's per-batch means over its rows, averaged over the
+            # ranks (equal shards, or the whole batch on every rank)
+            per_batch = torch.stack([torch.stack(vs).float() for vs in accs.values()])
+            means = all_reduce_mean_([per_batch], self.dp)[0].mean(dim=1).tolist()
         out = dict(zip(accs, means))
         dc = exp.diffusion_cfg
         table = predefined_gamma_table(dc.noise_schedule, dc.num_timesteps, dc.noise_precision)
@@ -251,7 +297,17 @@ class Trainer:
         under ``val/``, and every ``visualize_sample_epochs`` epochs write the
         first ``num_visualization_samples`` as xyz files under
         ``<workdir>/media/epoch_<epoch>``, with a PNG each where matplotlib
-        is installed."""
+        is installed.  Under data parallelism rank 0 alone samples; every
+        rank returns its metrics and continues with its numpy generator."""
+        if self.dp is None:
+            return self._evaluate_sampling(epoch, num_samples)
+        metrics = self._evaluate_sampling(epoch, num_samples) if self.is_main else None
+        barrier(self.dp)
+        metrics, rng_state = broadcast_object((metrics, self.rng.bit_generator.state), self.dp)
+        self.rng.bit_generator.state = rng_state
+        return metrics
+
+    def _evaluate_sampling(self, epoch: int, num_samples: Optional[int]) -> Dict[str, float]:
         exp = self.exp
         dc = exp.diffusion_cfg
         num_samples = num_samples or dc.num_eval_samples
@@ -287,7 +343,10 @@ class Trainer:
     def save(self) -> None:
         """A checkpoint of the current step, unless one was written at it."""
         if self._saved_step != self.state.count:
-            save_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state)
+            if self.is_main:
+                save_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state)
+            if self.dp is not None:
+                barrier(self.dp)
             self._saved_step = self.state.count
 
     def fit(self, max_epochs: Optional[int] = None, max_steps: Optional[int] = None) -> TrainState:
@@ -346,13 +405,15 @@ class Trainer:
 
         self.save()
         self._write_halt_file()
+        if self.dp is not None:
+            barrier(self.dp)
         return self.state
 
     def _write_halt_file(self) -> None:
         """Grid-search completion signal (reference on_fit_end,
         qm9_mol_gen_ddpm.py:1306-1321)."""
         grid_dir = (self.exp.raw.get("paths") or {}).get("grid_search_script_dir")
-        if grid_dir:
+        if grid_dir and self.is_main:
             os.makedirs(grid_dir, exist_ok=True)
             run_id = self.exp.raw.get("task_name", "run")
             with open(os.path.join(grid_dir, f"{run_id}.{HALT_FILE_EXTENSION}"), "w") as f:

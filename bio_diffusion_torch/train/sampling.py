@@ -4,12 +4,17 @@ Port of ``bio_diffusion_tpu/train/sampling.py`` (``SegmentedSampler``,
 ``make_node_mask``, ``sample_molecules``, ``analyze_samples``,
 ``ligand_pocket_geometry``, ``generate_ligands_in_pocket``) with the JAX
 package's signatures, property contexts included; a ``torch.Generator``
-takes the place of the JAX key, and the data-parallel ``mesh`` waits for
-multi-GPU support (ROADMAP A12); ``generate_ligands_in_pocket`` pads the
-ligand block to its largest ligand (JAX's ``pad_to_multiple``, which no
-caller sets, is left out).  PyTorch runs eagerly, so the sampler is a
-Python loop over the reverse steps on the EVD's device; randomness comes
-from the ``torch.Generator`` each call is given.
+takes the place of the JAX key and a list of ``devices`` that of the
+data-parallel ``mesh``; ``generate_ligands_in_pocket`` pads the ligand
+block to its largest ligand (JAX's ``pad_to_multiple``, which no caller
+sets, is left out).  PyTorch runs eagerly, so the sampler is a Python loop
+over the reverse steps; randomness comes from the ``torch.Generator`` each
+call is given.
+
+Every driver runs on ``parallel.distributed.Replicas``: one replica of the
+EVD a device (the EVD itself on one device), a batch's rows split over
+them, and each replica handed its rows of the draws the one-device run
+makes, so the same seed gives the same molecules on any number of devices.
 """
 
 from __future__ import annotations
@@ -22,15 +27,23 @@ import torch
 from bio_diffusion_torch.chem.stability import batch_molecular_stability, ensure_bond_tables
 from bio_diffusion_torch.data.batch import broadcast_context
 from bio_diffusion_torch.models.distributions import CategoricalDistribution, NumNodesDistribution
+from bio_diffusion_torch.parallel.distributed import Replicas
 
 
 class SegmentedSampler:
     """Reverse diffusion for one EVD: prior draw, T ancestral steps, decode.
-    ``runs`` counts the batches it has sampled."""
+    ``runs`` counts the batches it has sampled.  ``devices`` (the JAX
+    sampler's ``mesh``; default the EVD's device): each batch is split over
+    a replica of ``evd`` on each (``parallel.distributed.Replicas``, built
+    once; ``evd`` itself serves the device it lies on)."""
 
-    def __init__(self, evd, device):
+    def __init__(self, evd, device=None, devices: Optional[Sequence] = None):
+        if devices is None and device is not None:
+            devices = [device]
         self.evd = evd
-        self.device = torch.device(device)
+        self.replicas = Replicas(evd, devices)
+        self.devices = self.replicas.devices
+        self.device = self.devices[0]
         self.runs = 0
 
     @torch.inference_mode()
@@ -44,26 +57,38 @@ class SegmentedSampler:
         the denoising chain is kept too -> ``(xh, frames)``: ``frames
         [len(frame_steps), B, N, 3+F]`` (numpy) are the data-scale states
         after the reverse steps ``frame_steps`` (0 = the first step),
-        gathered on the device and copied to the host once."""
-        evd = self.evd
+        gathered on the device and copied to the host once.
+
+        The replicas take each reverse step in turn, and a step reads
+        nothing back to the host, so one thread's launches overlap across
+        cards; every replica sees the draws of the one-device run
+        (``Replicas.draws``), so a seed gives the same molecules on any
+        number of devices."""
+        evd, reps = self.evd, self.replicas
         T_s = evd.T if num_timesteps is None else int(num_timesteps)
-        if noises is not None and len(noises) != T_s + 2:
-            raise ValueError(f"noises: need {T_s + 2} draws, got {len(noises)}")
-        node_mask = torch.as_tensor(np.asarray(node_mask), dtype=torch.float32, device=self.device)
-        if context is not None:
-            context = torch.as_tensor(np.asarray(context), dtype=torch.float32, device=self.device)
-        z = evd.init_sample_noise(node_mask, generator, fix_noise, None if noises is None else noises[0])
-        frames = None
-        if frame_steps is not None:
-            frames = torch.empty((len(frame_steps),) + z.shape, dtype=z.dtype, device=z.device)
+        node_mask = np.asarray(node_mask, dtype=np.float32)
+        b, n = node_mask.shape
+        masks, ctxs = reps.scatter(node_mask, b), reps.scatter(context, b)
+        nf = evd.num_x_dims + evd.num_node_scalar_features
+        draws = reps.draws(b, (1 if fix_noise else b, n, nf), T_s + 2, generator, noises)
+        zs = [m.init_sample_noise(mask, None, fix_noise, d[0]) for m, mask, d in zip(reps.modules, masks, draws)]
+        slot = {} if frame_steps is None else {int(k): i for i, k in enumerate(frame_steps)}
+        frames = None if frame_steps is None else [
+            torch.empty((len(frame_steps),) + z.shape, dtype=z.dtype, device=z.device) for z in zs]
         s_values = np.arange(T_s - 1, -1, -1, dtype=np.float32)
-        z = evd.reverse_segment(z, s_values / T_s, (s_values + 1) / T_s, node_mask,
-                                generator, fix_noise, None if noises is None else noises[1:-1],
-                                context=context, frames=frames, frame_steps=frame_steps)
-        xh = evd.decode_sample(z, node_mask, generator, fix_noise, None if noises is None else noises[-1],
-                               context=context).cpu().numpy()
+        s_norm, t_norm = s_values / T_s, (s_values + 1) / T_s
+        for k in range(T_s):
+            for i, m in enumerate(reps.modules):
+                zs[i] = m.reverse_segment(zs[i], s_norm[k: k + 1], t_norm[k: k + 1], masks[i], None, fix_noise,
+                                          [draws[i][k + 1]], context=ctxs[i])
+                if k in slot:
+                    frames[i][slot[k]].copy_(m.unnormalize_z(zs[i], masks[i]))
+        xh = reps.gather([m.decode_sample(z, mask, None, fix_noise, d[-1], context=c)
+                          for m, z, mask, d, c in zip(reps.modules, zs, masks, draws, ctxs)], b)
         self.runs += 1
-        return xh if frames is None else (xh, frames.cpu().numpy())
+        if frames is None:
+            return xh
+        return xh, np.concatenate([f.cpu().numpy() for f in frames], axis=1)[:, :b]
 
 
 def make_node_mask(num_nodes: Sequence[int], pad_to: Optional[int] = None) -> np.ndarray:
@@ -185,7 +210,8 @@ def generate_ligands_in_pocket(evd, generator: torch.Generator, pocket_x: np.nda
                                pocket_mask: np.ndarray, ligand_sizes: np.ndarray, num_ligand_atom_types: int,
                                num_resamplings: int = 1, jump_length: int = 1,
                                num_timesteps: Optional[int] = None,
-                               noises: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+                               noises: Optional[Sequence[torch.Tensor]] = None,
+                               devices: Optional[Sequence] = None) -> Dict[str, np.ndarray]:
     """Ligands generated into pockets: RePaint inpainting (``evd.inpaint``,
     on the EVD's device) over the joint ligand+pocket graph with the pocket
     rows fixed.
@@ -194,6 +220,8 @@ def generate_ligands_in_pocket(evd, generator: torch.Generator, pocket_x: np.nda
     [B, Np]`` residue indices, ``pocket_mask [B, Np]``, ``ligand_sizes [B]``
     atoms to generate; ``num_ligand_atom_types`` is Kl, the width of the
     ligand block of the joint one-hot.  ``noises`` go to ``inpaint``.
+    ``devices`` (the JAX function's ``mesh``; default the EVD's device):
+    the rows are split over a replica of ``evd`` on each (``inpaint_rows``).
     Returns host arrays: ``ligand_x [B, Nl, 3]`` in the input pocket's
     frame (the best-fit translation of the decoded pocket onto the input),
     ``ligand_one_hot [B, Nl, Kl]`` (types taken over the ligand block
@@ -220,17 +248,11 @@ def generate_ligands_in_pocket(evd, generator: torch.Generator, pocket_x: np.nda
         ligand_x=np.zeros((b, nl_pad, 3), np.float32), ligand_one_hot=np.zeros((b, nl_pad, kl), np.float32),
         ligand_mask=ligand_mask, pocket_x=pocket_x, pocket_one_hot=pocket_one_hot, pocket_mask=pocket_mask)
 
-    device = next(evd.parameters()).device
-
-    def dev(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
-
+    charges = np.zeros((b, nl_pad + np_pad, int(evd.dataloader_cfg.include_charges)), np.float32)
+    inputs = (joint.x, joint.one_hot, charges, joint.node_mask, joint.fixed_mask)
     with torch.inference_mode():
-        xh = evd.inpaint(dev(joint.x), dev(joint.one_hot),
-                         torch.zeros((b, nl_pad + np_pad, int(evd.dataloader_cfg.include_charges)), device=device),
-                         dev(joint.node_mask), dev(joint.fixed_mask), num_resamplings, jump_length, num_timesteps,
-                         generator=generator, noises=noises)
-    xh = xh.cpu().numpy()
+        xh = inpaint_rows(Replicas(evd, devices), inputs, num_resamplings, jump_length, num_timesteps, generator,
+                          noises)
 
     # inpaint's output is centred on the joint CoM: move it by the best-fit
     # translation of the decoded pocket onto the input pocket, then restore
@@ -255,3 +277,34 @@ def generate_ligands_in_pocket(evd, generator: torch.Generator, pocket_x: np.nda
         "node_mask": joint.node_mask,
         "fixed_mask": joint.fixed_mask,
     }
+
+
+def inpaint_rows(reps: Replicas, inputs: Sequence, num_resamplings: int, jump_length: int,
+                 num_timesteps: Optional[int], generator: Optional[torch.Generator] = None,
+                 noises: Optional[Sequence] = None) -> np.ndarray:
+    """``evd.inpaint`` of ``inputs`` (host arrays ``[B, ...]``: x, one_hot,
+    charges, node_mask, fixed_mask) on ``reps``, each replica its rows and
+    its rows of the one-device run's draws (from ``generator`` in
+    ``inpaint``'s order, or ``noises``) -> host ``[B, N, 3+F]``."""
+    evd = reps.modules[0]
+    T_s = evd.T if num_timesteps is None else int(num_timesteps)
+    s_vals, _ = evd.repaint_step_arrays(evd.get_repaint_schedule(num_resamplings, jump_length, T_s), jump_length)
+    b, n = np.shape(inputs[3])
+    draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features), 3 * len(s_vals) + 2, generator,
+                       noises)
+    return reps.map(lambda m, args, eps: m.inpaint(*args, num_resamplings, jump_length, num_timesteps, noises=eps),
+                    inputs, draws)
+
+
+def mol_gen_optimize_rows(reps: Replicas, x: torch.Tensor, h_cat: torch.Tensor, node_mask: torch.Tensor,
+                          num_timesteps: int, context: Optional[torch.Tensor],
+                          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``evd.mol_gen_optimize`` on ``reps``, each replica its rows and its
+    rows of the one-device run's draws (one a step, one for the decode)
+    -> ``[B, N, 3+K]`` on the first device."""
+    evd = reps.modules[0]
+    b, n = node_mask.shape
+    draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features), int(num_timesteps) + 1, generator)
+    out = reps.map(lambda m, args, eps: m.mol_gen_optimize(args[0], args[1], args[2], num_timesteps, args[3],
+                                                           noises=eps), [x, h_cat, node_mask, context], draws)
+    return torch.as_tensor(out, device=reps.devices[0])

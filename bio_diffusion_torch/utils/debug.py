@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,21 +41,27 @@ class Recorder:
     def __init__(self):
         self.checks: List[Tuple[Tensor, str, Dict[str, Tensor]]] = []
 
-    def throw(self) -> None:
+    def throw(self, reduce_max: Optional[Callable[[Tensor], object]] = None) -> None:
         """Read every recorded flag and value in one transfer; raise the
-        first failed check's message."""
+        first failed check's message.  ``reduce_max`` replaces the flat
+        buffer of failure flags and values by its maximum over the ranks of
+        a data-parallel group first (every value a check names is a
+        magnitude), so that every rank raises the same failure."""
         if not self.checks:
             return
         parts = []
         for ok, _, values in self.checks:
-            parts.append(ok.reshape(1).float())
+            parts.append(1.0 - ok.reshape(1).float())
             parts.extend(v.reshape(1).float() for v in values.values())
-        flat = torch.cat(parts).tolist()
+        flat = torch.cat(parts)
+        if reduce_max is not None:
+            reduce_max(flat)
+        flat = flat.tolist()
         pos = 0
         for ok, message, values in self.checks:
-            passed, read = flat[pos], flat[pos + 1: pos + 1 + len(values)]
+            failed, read = flat[pos], flat[pos + 1: pos + 1 + len(values)]
             pos += 1 + len(values)
-            if not passed:
+            if failed:
                 raise InvariantError(message.format(**dict(zip(values, read))))
 
 
@@ -120,11 +126,12 @@ def check_finite(enabled: bool, value: Tensor, name: str = "tensor") -> None:
     _record(torch.isfinite(value).all(), f"{name} contains non-finite values")
 
 
-def checked_call(fn, *args, **kwargs):
+def checked_call(fn, *args, reduce_max: Optional[Callable[[Tensor], object]] = None, **kwargs):
     """Run ``fn`` with its enabled checks recorded, then raise the first one
-    that failed (one read-back after the call)."""
+    that failed (one read-back after the call; ``reduce_max`` as in
+    ``Recorder.throw``)."""
     with collecting() as rec:
         out = fn(*args, **kwargs)
-    rec.throw()
+    rec.throw(reduce_max)
     return out
 

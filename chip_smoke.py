@@ -173,6 +173,28 @@
    forward and backward row kernels; ``exec_time.log`` and
    ``graph/dynamics.ops.txt`` written); prints the ms of further steps with
    the checks on and off, in 8 turns of 6 further steps of the debug trainer.
+19. Drives data parallelism (right after the user path, on its QM9-layout
+   files), full QM9 width: (a) two ranks in two spawned processes on one
+   card (gloo over CUDA tensors: NCCL refuses two ranks on one GPU), the
+   Trainer's 3 float32 steps on global batches of 64 (N=29,
+   32 rows a rank), held against one process taking the same 3 steps on
+   the whole batches from the same seed: loss and grad norm per step to
+   1e-4 relative, the parameters within 2 lr a step (median far below);
+   rank 1 draws its initial weights from another seed and must end with
+   rank 0's parameters bit for bit (the broadcast after ``init_state``);
+   each rank's forward and backward launches read around its steps (27 and
+   27) and its all-reduce timed around each call (two ranks share one
+   card: no scaling figure); (b) ``cli.train`` under ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1`` (NCCL at world
+   1; also 2 ranks where the machine has two cards): 2 steps, one EMA
+   validation batch, exact launch counts, one checkpoint; (c) the sampler
+   over ``[cuda:0, cuda:0]`` (and ``[cuda:0, cuda:1]`` on two cards), B=65
+   (ragged across two), N=19, bf16, T=50, against the one-device sampler
+   with the same seed (positions within 1e-2 of max|x|, every atom type
+   equal), 9 launches a replica a step; a planted fault (two molecules'
+   draws swapped across the replicas) must read above that limit.  Every
+   rank is joined within a timeout; any failure
+   fails the run.
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -2409,6 +2431,341 @@ def passes_row(torch, probe) -> dict:
             "sass_checked": probe["sass_checked"], "priced_at_bound": probe["priced_at_bound"]}
 
 
+# the data-parallel phase: the train steps two ranks take on one card, and
+# the multi-device sampler's batch (65 molecules of 19 atoms: ragged across
+# two devices) and steps
+DP_STEPS = 3
+DP_SAMPLE_B, DP_SAMPLE_N, DP_SAMPLE_T = 65, 19, 50
+# the two-rank steps against one process on the whole batch: loss and grad
+# norm relative (float32, the mean of two half-batch means against one
+# mean); the parameters within 2 lr a step (AMSGrad moves an element whose
+# gradient is near 0 by about +lr in one run and -lr in the other,
+# tests/test_torch_train_step.py:163-175), their median far below
+TOL_DP_REL = 1e-4
+# the multi-device sampler against one device, bf16, relative to max|x| of
+# the single-device positions: the replicas' PyTorch products run over other
+# row counts (cuBLAS may pick another algorithm), rounding at bf16's ulp.
+# Every run of the split read 1.3e-3 (PERF.md section 5); the limit lies
+# between that and the planted fault's reading (one molecule's rows of the
+# draws swapped with another's on the other replica), which the phase
+# measures too and must find above it
+TOL_DP_SAMPLE_REL = 1e-2
+DP_TIMEOUT_S = 300
+
+
+def dp_experiment(data_dir):
+    """The user path's training configuration: full QM9 width, float32,
+    batch 64 of the QM9-layout files."""
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+
+    return build_experiment(load_config(default_config_dir(), "train", [
+        "experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=QM9",
+        f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+        "trainer.precision=fp32"]))
+
+
+def dp_steps(torch, trainer, steps):
+    """``init_state`` and the Trainer's first ``steps`` train batches
+    through its train step, the launch counts set to 0 just before the steps
+    and read just after -> (per-step loss and grad norm, counts, seconds,
+    the ``[B, N]`` of each denoiser call)."""
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    trainer.init_state(resume=False)
+    batches = [b.to(trainer.device) for _, b in zip(range(steps), trainer._train_batches())]
+    seen = []  # the [B, N] the denoiser is given: this rank's rows
+    hook = trainer.evd.dynamics_network.register_forward_pre_hook(lambda _, args: seen.append(tuple(args[0].shape[:2])))
+    torch.cuda.synchronize()
+    ml.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(trainer.state, b, trainer.generator) for b in batches]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    hook.remove()
+    return ([{"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])} for m in metrics],
+            dict(ml.launch_counts), sec, seen)
+
+
+def dp_train_rank(rank, world, init_file, data_dir, out_dir):
+    """One rank of phase (a), in a process of its own: gloo over CUDA
+    tensors (two ranks on one card; NCCL refuses that), the Trainer's steps
+    on its rows of each global batch, the all-reduce timed around each call
+    (the card synchronized before and after); writes its metrics, counts,
+    the sum of its own initial weights and its final parameters."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bio_diffusion_torch.parallel import distributed
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.utils.logging import MetricLoggers
+
+    dp = distributed.init_distributed(device=torch.device("cuda", 0), backend="gloo",
+                                      init_method=f"file://{init_file}", rank=rank, world=world,
+                                      timeout_s=DP_TIMEOUT_S)
+    reduce_ms, reduce = [], distributed.all_reduce_mean_
+
+    def timed(tensors, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(tensors, group)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    distributed.all_reduce_mean_ = timed
+    # rank 1 draws its initial weights from another seed (its batches and
+    # draws keep the run's seed): init_state's broadcast must replace them
+    own_init, init_sums = loop.init_random_weights, []
+
+    def init(evd, seed):
+        own_init(evd, seed + rank)
+        init_sums.append(float(sum(p.double().sum() for p in evd.parameters())))
+
+    loop.init_random_weights = init
+    trainer = loop.Trainer(dp_experiment(data_dir), os.path.join(out_dir, f"rank{rank}"), dp.device,
+                           loggers=MetricLoggers(), dp=dp)
+    metrics, counts, sec, shapes = dp_steps(torch, trainer, DP_STEPS)
+    result = {"rank": dp.rank, "world": dp.world, "backend": dp.backend, "metrics": metrics, "counts": counts,
+              "s": sec, "reduce_ms": reduce_ms, "shapes": shapes, "init_sum": init_sums[0],
+              "params": [p.detach().cpu() for p in trainer.state.params]}
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def run_ranks(target, world, args):
+    """``target(rank, world, *args)`` in ``world`` spawned processes (CUDA
+    state does not survive a fork), each joined within ``DP_TIMEOUT_S`` and
+    killed past it; a rank that fails or times out raises."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if late or bad:
+        raise AssertionError(f"data-parallel ranks failed: timed out {late}, exit codes {bad}")
+
+
+def dp_cli_rank(out_dir, args):
+    """A rank of phase (b), started by ``torch.distributed.run``:
+    ``cli.train.main(args)`` with the launch counts set to 0 just before it
+    and read just after, written to ``out_dir/rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bio_diffusion_torch.cli import train
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    ml.reset_launch_counts()
+    trainer = train.main(args)
+    torch.cuda.synchronize()
+    st, dp = trainer.stats, trainer.dp
+    with open(os.path.join(out_dir, f"rank{dp.rank}.json"), "w") as f:
+        json.dump({"rank": dp.rank, "world": dp.world, "backend": dp.backend, "device": str(dp.device),
+                   "counts": dict(ml.launch_counts), "count": trainer.state.count, "micro_batches": st["micro_batches"],
+                   "eval_batches": st["eval_batches"], "layers": trainer.exp.model_cfg.num_encoder_layers}, f)
+    return 0
+
+
+def drive_dp_cli(torch, data_dir, root, nproc):
+    """Phase (b): ``cli.train`` under ``torch.distributed.run --standalone``
+    with ``nproc`` ranks (NCCL, one a card), 2 steps and one EMA validation
+    batch -> launch counts by rank."""
+    out_dir, workdir = os.path.join(root, f"cli_{nproc}"), os.path.join(root, f"cli_{nproc}", "train")
+    os.makedirs(out_dir, exist_ok=True)
+    args = ["experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=QM9",
+            f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+            "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1", "trainer.limit_train_batches=2",
+            "trainer.limit_val_batches=1", "model.diffusion_cfg.sample_during_training=false", "--device=cuda",
+            f"--workdir={workdir}", "--max-steps=2", "--max-epochs=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--dp-cli", out_dir, *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torch.distributed.run of cli.train (nproc {nproc}) exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ckpts = sorted(os.listdir(os.path.join(workdir, "checkpoints")))
+    for rk in ranks:
+        need_fwd = rk["layers"] * (rk["micro_batches"] + 2 * rk["eval_batches"])
+        need_bwd = rk["layers"] * rk["micro_batches"]
+        print(f"data parallel (b) cli.train nproc={nproc} rank {rk['rank']} of {rk['world']} on {rk['device']} "
+              f"({rk['backend']}): {rk['count']} steps, launches fwd {rk['counts']['message_layer']} (need "
+              f"{need_fwd}), bwd {rk['counts']['message_layer_bwd']} (need {need_bwd})")
+        if rk["backend"] != "nccl" or rk["world"] != nproc or rk["count"] != 2 \
+                or rk["counts"]["message_layer"] != need_fwd or rk["counts"]["message_layer_bwd"] != need_bwd:
+            raise AssertionError(f"cli.train under torch.distributed.run (nproc {nproc}) is not as planned: {rk}")
+    if ckpts != ["step_2.pt"]:
+        raise AssertionError(f"cli.train under torch.distributed.run wrote {ckpts}, need one checkpoint step_2.pt")
+    print(f"data parallel (b): nproc={nproc} wrote {ckpts} in {sec:.3f} s (process start-up included)")
+    return ranks, sec
+
+
+def drive_data_parallel(torch, data_dir):
+    """The data-parallel phase: (a) two ranks, two processes on one card,
+    the Trainer's 3 steps at full QM9 width (fp32, global B=64, N=29) held
+    against one process on the whole batches; (b) ``cli.train`` under
+    ``torch.distributed.run`` at world 1 over NCCL (and world 2 on two
+    cards); (c) the multi-device sampler against one device -> (launches by
+    path of the forward and backward kernels, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli.common import load_model
+    from bio_diffusion_torch.train.loop import Trainer
+    from bio_diffusion_torch.train.sampling import SegmentedSampler, make_node_mask
+    from bio_diffusion_torch.utils.logging import MetricLoggers
+
+    root = os.path.join(REPO, "outputs", "dp_path")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+
+    # (a) one process on the whole batches first, then the two ranks
+    reference = Trainer(dp_experiment(data_dir), os.path.join(root, "reference"), "cuda", loggers=MetricLoggers())
+    ref_metrics, ref_counts, ref_s, ref_shapes = dp_steps(torch, reference, DP_STEPS)
+    ref_params = [p.detach().cpu() for p in reference.state.params]
+    layers, lr = reference.exp.model_cfg.num_encoder_layers, reference.exp.optimizer.lr
+    del reference
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(dp_train_rank, 2, (os.path.join(root, "store"), data_dir, root))
+    numbers["ranks_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    need = layers * DP_STEPS
+    for rk in ranks:
+        c = rk["counts"]
+        print(f"data parallel (a) rank {rk['rank']} of {rk['world']} ({rk['backend']} over CUDA tensors): "
+              f"denoiser rows {rk['shapes']} (one process: {ref_shapes}), "
+              f"launches fwd {c['message_layer']} bwd {c['message_layer_bwd']} (need {need} and {need}), "
+              f"{DP_STEPS} steps in {rk['s']:.3f} s, all-reduce ms {[round(t, 3) for t in rk['reduce_ms']]}")
+        if c["message_layer"] != need or c["message_layer_bwd"] != need or rk["shapes"] != [(32, 29)] * DP_STEPS:
+            raise AssertionError(f"rank {rk['rank']}: launches {c} or rows {rk['shapes']} are not as planned")
+        out["fwd"][f"dp_train_rank{rk['rank']}"] = c["message_layer"]
+        out["bwd"][f"dp_train_rank{rk['rank']}"] = c["message_layer_bwd"]
+    if ref_counts["message_layer"] != need or ref_counts["message_layer_bwd"] != need \
+            or ref_shapes != [(64, 29)] * DP_STEPS:
+        raise AssertionError(f"the one-process reference launched {ref_counts}, need {need} and {need}")
+    if ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError("the two ranks' reduced metrics differ")
+    same = all(torch.equal(p, q) for p, q in zip(ranks[0]["params"], ranks[1]["params"]))
+    print(f"data parallel (a): initial weights' sums {ranks[0]['init_sum']!r} (rank 0) and {ranks[1]['init_sum']!r} "
+          f"(rank 1, another seed) before the broadcast; final parameters bit-equal across the ranks: {same}")
+    if ranks[0]["init_sum"] == ranks[1]["init_sum"] or not same:
+        raise AssertionError("rank 1 did not start from other weights, or its final parameters are not rank 0's")
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(ranks[0]["metrics"], ref_metrics)):
+        for k in ("loss", "grad_norm"):
+            rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            worst = max(worst, rel)
+            if rel > TOL_DP_REL:
+                raise AssertionError(f"step {s} {k}: two ranks {a[k]} vs one process {b[k]} (rel {rel:.3g})")
+    diffs = torch.cat([(p - q).abs().flatten() for p, q in zip(ranks[0]["params"], ref_params)])
+    param_tol = 2 * lr * DP_STEPS
+    max_diff, median_diff = float(diffs.max()), float(diffs.median())
+    print(f"data parallel (a): per-step loss and grad norm of the two ranks {ranks[0]['metrics']} vs one process "
+          f"{ref_metrics} (worst rel {worst:.3g}, tol {TOL_DP_REL}); parameters max |diff| {max_diff:.3g} "
+          f"(tol 2 lr steps = {param_tol:.3g}), median {median_diff:.3g}")
+    if max_diff > param_tol or median_diff > 1e-3 * lr:
+        raise AssertionError("the two ranks' parameters are not the one process's")
+    reduce_ms = [t for rk in ranks for t in rk["reduce_ms"][1:]]
+    numbers.update(dp_train_steps=DP_STEPS, dp_train_ref_s=ref_s, dp_train_rank_s=[rk["s"] for rk in ranks],
+                   allreduce_ms_first=[rk["reduce_ms"][0] for rk in ranks],
+                   allreduce_ms_per_step=statistics.mean(reduce_ms),
+                   max_rel_err=worst, param_max_abs_diff=max_diff, param_median_abs_diff=median_diff,
+                   gradient_floats=int(sum(p.numel() for p in ref_params)))
+    print(f"data parallel (a): all-reduce of {numbers['gradient_floats']:,} gradient floats + the step's metrics "
+          f"{numbers['allreduce_ms_per_step']:.3f} ms a step (mean of steps 2-{DP_STEPS} of both ranks; the first "
+          f"{[round(t, 3) for t in numbers['allreduce_ms_first']]} ms; two ranks on one card, gloo: no scaling "
+          f"figure)")
+
+    # (b) cli.train under torch.distributed.run: world 1 over NCCL, and world 2 on two cards
+    cli_ranks, numbers["dp_cli_s"] = drive_dp_cli(torch, data_dir, root, 1)
+    if torch.cuda.device_count() >= 2:
+        more, numbers["dp_cli_2_s"] = drive_dp_cli(torch, data_dir, root, 2)
+        cli_ranks += more
+    else:
+        print("data parallel (b): one card, so no nproc=2 run over NCCL")
+    out["fwd"]["dp_cli"] = sum(rk["counts"]["message_layer"] for rk in cli_ranks)
+    out["bwd"]["dp_cli"] = sum(rk["counts"]["message_layer_bwd"] for rk in cli_ranks)
+
+    # (c) the multi-device sampler against one device, bf16, B=65 (ragged across two)
+    from bio_diffusion_torch.ops import message_layer as ml
+
+    evd = load_model(qm9_experiment("bf16"), None, torch.device("cuda"), seed=0)
+    mask = make_node_mask(np.full(DP_SAMPLE_B, DP_SAMPLE_N), DP_SAMPLE_N)
+
+    def sample(sampler, noises=None):
+        return sampler.run(mask, torch.Generator(device="cuda").manual_seed(4), num_timesteps=DP_SAMPLE_T,
+                           noises=noises)
+
+    def planted_fault(sampler):
+        """The run with the draws of the first molecule (first replica)
+        and the last (second replica) swapped: a replica handed another's
+        rows -> its positions' max |diff| from the one-device run."""
+        g = torch.Generator(device="cuda").manual_seed(4)
+        shape = (DP_SAMPLE_B, DP_SAMPLE_N, evd.num_x_dims + evd.num_node_scalar_features)
+        noises = [torch.randn(shape, generator=g, device="cuda") for _ in range(DP_SAMPLE_T + 2)]
+        for e in noises:
+            e[[0, -1]] = e[[-1, 0]]
+        return float(np.abs(sample(sampler, noises)[..., :3] - single[..., :3]).max())
+
+    single, single_s, _ = count_run(torch, lambda: sample(SegmentedSampler(evd, devices=[torch.device("cuda", 0)])))
+    numbers["sample_cuda:0_s"] = single_s
+    sets = [[torch.device("cuda", 0)] * 2]
+    if torch.cuda.device_count() >= 2:
+        sets.append([torch.device("cuda", 0), torch.device("cuda", 1)])
+    out["fwd"]["dp_sample"] = 0
+    k = evd.num_atom_types
+    for devices in sets:
+        sampler = SegmentedSampler(evd, devices=devices)
+        xh, sec, counts = count_run(torch, lambda: sample(sampler))
+        need = layers * len(devices) * (DP_SAMPLE_T + 1)
+        scale = float(np.abs(single[..., :3]).max())
+        err = float(np.abs(xh[..., :3] - single[..., :3]).max())
+        same_types = float((xh[..., 3:3 + k].argmax(-1) == single[..., 3:3 + k].argmax(-1)).mean())
+        names = ", ".join(str(d) for d in devices)
+        fault = planted_fault(sampler)
+        entry = {"s": sec, "max_abs_err": err, "max_abs_x": scale, "same_types": same_types, "planted_fault": fault}
+        again = ""
+        if len(set(devices)) > 1:  # the first run paid the second card's first use: time a second
+            entry["warm_s"] = count_run(torch, lambda: sample(sampler))[1]
+            again = f" (again: {entry['warm_s']:.3f} s)"
+        print(f"data parallel (c) SegmentedSampler(devices=[{names}]): B={DP_SAMPLE_B}, N={DP_SAMPLE_N}, bf16, "
+              f"T={DP_SAMPLE_T}, {sec:.3f} s{again}; "
+              f"launches {counts['message_layer']} (need {need}: {layers} a replica a step); positions max |diff| "
+              f"{err!r} vs one device (max |x| {scale!r}, rel {err / scale:.3g}, tol {TOL_DP_SAMPLE_REL} relative; "
+              f"the planted fault {fault!r}, rel {fault / scale:.3g}), atom types equal for "
+              f"{100 * same_types:.2f}% of the atoms; one device {single_s:.3f} s")
+        if xh.shape != single.shape or not np.isfinite(xh).all() or counts["message_layer"] != need \
+                or err > TOL_DP_SAMPLE_REL * scale or same_types != 1.0:
+            raise AssertionError(f"the multi-device sampler over [{names}] is not the one-device sampler")
+        if fault <= TOL_DP_SAMPLE_REL * scale:
+            raise AssertionError(f"the planted fault over [{names}] reads {fault!r}, within the limit: the check "
+                                 "cannot see it")
+        out["fwd"]["dp_sample"] += counts["message_layer"]
+        numbers[f"sample_{names}"] = entry
+    return out, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2416,6 +2773,8 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     if not os.path.isdir(os.path.join(REPO, "bio_diffusion_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
+    if sys.argv[1:2] == ["--dp-cli"]:  # a rank of the data-parallel phase's torch.distributed.run
+        return dp_cli_rank(sys.argv[2], sys.argv[3:])
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2456,6 +2815,10 @@ def main() -> int:
     t0 = time.perf_counter()
     user_launches, user_numbers = drive_user_path(torch)
     print(f"user path phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    dp_launches, dp_numbers = drive_data_parallel(torch, os.path.join(REPO, "outputs", "user_path", "data"))
+    dp_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"data parallel phase: {dp_numbers['phase_s']:.3f} s")
     t0 = time.perf_counter()
     cond_launches, cond_numbers = drive_conditional_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
     cond_numbers["phase_s"] = time.perf_counter() - t0
@@ -2499,10 +2862,10 @@ def main() -> int:
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
-        "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values())
+        "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values()) + sum(dp_launches["fwd"].values())
         + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
         + sum(pocket_launches["fwd"].values()) + sum(new_fwd.values()),
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"],
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"], **dp_launches["fwd"],
                              **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"], **new_fwd},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
@@ -2517,6 +2880,7 @@ def main() -> int:
         "bound_ms_b64": kernel_bwd["fwd_bound_ms_b64"],
         "reverse_step_ms_b250": step_ms_b250,
         "user_path": user_numbers,
+        "data_parallel": dp_numbers,
         "conditional_path": cond_numbers,
         "geom": geom_fwd,
         "pocket": pocket_numbers,
@@ -2527,9 +2891,10 @@ def main() -> int:
         "route": "cuda",
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
-        "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
+        "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(dp_launches["bwd"].values())
+        + sum(cond_launches["bwd"].values())
         + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()) + sum(new_bwd.values()),
-        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **cond_launches["bwd"],
+        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **dp_launches["bwd"], **cond_launches["bwd"],
                              **geom_launches["bwd"], **pocket_launches["bwd"], **new_bwd},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],
