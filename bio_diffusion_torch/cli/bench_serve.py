@@ -19,10 +19,12 @@ full bucket ladder), ``SERVE_REQUESTS`` (8), ``SERVE_CONCURRENCY`` (4),
 ``SERVE_PRECISION`` (bf16; fp32 is the exact-parity body).
 ``SERVE_EXPERIMENT`` (unset: ``serve.yaml``'s QM9 model) is passed to the
 config as ``experiment=``, e.g. ``geom_mol_gen_ddpm`` serves GEOM-Drugs.
-The JAX script's ``SERVE_MESH`` is not read: the port serves on one card
-(multi-GPU serving waits for ROADMAP A12).  Extra ``key=value`` arguments
-are further config overrides, applied last: the device is ``cuda`` unless
-one of them is ``device=cpu``; there is no fallback to the CPU.
+The JAX script's ``SERVE_MESH`` is not read: the server runs on one card
+unless ``inference_devices=K`` (or ``all``) is passed as a ``key=value``
+override, which splits each batch over K cards (``cli.serve.build_server``).
+Extra ``key=value`` arguments are further config overrides, applied last:
+the device is ``cuda`` unless one of them is ``device=cpu``; there is no
+fallback to the CPU.
 
 Prints one JSON line with the JAX script's keys -- ``value`` (molecules
 per second), ``denoiser_evals_per_s``, ``latency_s`` (p50, p95, max),

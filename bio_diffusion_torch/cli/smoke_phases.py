@@ -37,6 +37,7 @@ PHASES = (
     ("trainer fp32 and bf16", "train bf16: the two kernels"),
     ("user path", "user path phase"),
     ("data parallel", "data parallel phase"),
+    ("self-conditioning and learned schedule", "self-conditioning and learned schedule phase"),
     ("conditional path", "conditional path phase"),
     ("GEOM path", "GEOM path phase"),
     ("pocket path", "pocket path phase"),

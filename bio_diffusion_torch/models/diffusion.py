@@ -1,18 +1,39 @@
 """Equivariant variational diffusion (EVD): the training loss and the sampler.
 
-Port of ``bio_diffusion_tpu/models/diffusion.py``: the predefined gamma
-table, the sigma/alpha algebra, CoM-free noise, the loss terms (L2 and VLB,
-KL prior, the L0 likelihoods, the two-pass L0 estimate for evaluation) and
-``assemble_nll``, one ancestral reverse step, the final decode, the
-reverse loop, the guided round trip of existing molecules
-(``mol_gen_optimize``) and RePaint inpainting (``inpaint``, its jump back
-``sample_p_zt_given_zs`` and its schedule).  Every function that runs the
-denoiser takes the property context of a conditioned model (``context
-[B, N, C]``, else None) and hands it to each denoiser call.  Every function
-that draws takes an explicit ``torch.Generator`` and also accepts the draws
-as tensors (``noise``, ``noises``, ``t_int``, ``eps_t``, ``eps_0``), so tests
-can pass in another framework's draws; raw normal draws are masked and
-CoM-projected exactly like fresh ones.
+Port of ``bio_diffusion_tpu/models/diffusion.py``: the noise schedule
+(the predefined gamma table, or the learned ``GammaNetwork``), the
+sigma/alpha algebra, CoM-free noise, the loss terms (L2 and VLB, KL prior,
+the L0 likelihoods, the two-pass L0 estimate for evaluation, the
+self-conditioning pass) and ``assemble_nll``, one ancestral reverse step,
+the final decode, the reverse loop, the guided round trip of existing
+molecules (``mol_gen_optimize``) and RePaint inpainting (``inpaint``, its
+jump back ``sample_p_zt_given_zs`` and its schedule).  Every function that
+runs the denoiser takes the property context of a conditioned model
+(``context [B, N, C]``, else None) and hands it to each denoiser call.
+Every function that draws takes an explicit ``torch.Generator`` and also
+accepts the draws as tensors (``noise``, ``noises``, ``t_int``, ``eps_t``,
+``eps_0``, ``sc_take``, ``eps_sc``, ``eps_sc_step``), so tests can pass in
+another framework's draws; raw normal draws are masked and CoM-projected
+exactly like fresh ones.
+
+Self-conditioning (``diffusion_cfg.self_condition``): the denoiser also
+takes an estimate of the clean state (``xh_self_cond``).  Every reverse
+step then makes a second, no-grad denoiser call that estimates z_0 from
+the new state (one more draw a step), carried to the next step and to the
+decode; in training, with probability 0.5 a batch first takes that
+estimate from the state one step noisier.
+
+The learned schedule (``noise_schedule=learned``, VLB only) is the
+reference's ``GammaNetwork``, registered as ``gamma`` (its parameters at
+the reference's names ``gamma.l1.weight`` ... ``gamma.gamma_1``); the
+predefined schedule's lookup is a module of that name too, so ``gamma(t)``
+is one call either way.  The sampling loops (``reverse_segment``,
+``decode_sample``, ``mol_gen_optimize``, ``inpaint``) read a learned
+schedule from a table of its T+1 values on the grid k/T, linear in
+between, as the JAX package's samplers read the table ``build_fast_evd``
+freezes; the table is rebuilt whenever a parameter changed.  The loss
+terms (the self-conditioning pass included) and a lone reverse step run
+the network, as JAX's ``loss_terms`` does.
 
 Two bugs of the reference stay fixed, as in the JAX package: ``inpaint``
 reads ``num_denoise_steps`` before assigning it (its self-conditioning
@@ -23,6 +44,8 @@ broadcast, is what the dense layout gives).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,6 +78,122 @@ def sum_except_batch(values: Tensor) -> Tensor:
     return values.sum(dim=(-1, -2))
 
 
+# -- noise schedules -----------------------------------------------------------
+
+
+class PredefinedGamma(nn.Module):
+    """gamma(t) of a predefined schedule: its table of T+1 values, looked up
+    at ``round(t * T)`` (half to even, as in JAX)."""
+
+    def __init__(self, table: np.ndarray):
+        super().__init__()
+        self.T = len(table) - 1
+        self.register_buffer("table", torch.tensor(table, dtype=torch.float32), persistent=False)
+
+    def forward(self, t: Tensor) -> Tensor:
+        return self.table[torch.clamp(torch.round(t * self.T).long(), 0, self.T)]
+
+
+class PositiveLinear(nn.Module):
+    """Linear layer with softplus-positive weights (``weight [out, in]``, the
+    reference's layout; the JAX package keeps ``[in, out]``), weights
+    initialized uniform in +-1/sqrt(in) and offset by ``weight_init_offset``."""
+
+    def __init__(self, in_features: int, out_features: int, weight_init_offset: float = -2.0):
+        super().__init__()
+        self.in_features, self.weight_init_offset = in_features, weight_init_offset
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw the weights on the host (``generator``: a CPU generator)."""
+        bound = 1.0 / math.sqrt(self.in_features)
+        self.weight.copy_(torch.empty(self.weight.shape).uniform_(-bound, bound, generator=generator)
+                          + self.weight_init_offset)
+        self.bias.copy_(torch.empty(self.bias.shape).uniform_(-bound, bound, generator=generator))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(x, F.softplus(self.weight), self.bias)
+
+
+class GammaNetwork(nn.Module):
+    """The learned, monotone gamma(t) (JAX ``GammaNetwork``): ``l1`` 1->1,
+    ``l2`` 1->1024, ``l3`` 1024->1 of positive weights, its output rescaled
+    between its values at 0 and 1 onto the learnable endpoints ``gamma_0``
+    (-5 at first) and ``gamma_1`` (10), float32.
+
+    While ``frozen`` (``EquivariantVariationalDiffusion.frozen_schedule``)
+    ``forward`` reads :meth:`table` (its values at k/T, k = 0..T, linear in
+    between), built once and rebuilt whenever a parameter changed (keyed on
+    the parameters and their version counters, which every in-place update
+    bumps); otherwise the network runs."""
+
+    def __init__(self, num_timesteps: int):
+        super().__init__()
+        self.T = int(num_timesteps)
+        self.l1 = PositiveLinear(1, 1)
+        self.l2 = PositiveLinear(1, 1024)
+        self.l3 = PositiveLinear(1024, 1)
+        self.gamma_0 = nn.Parameter(torch.tensor([-5.0]))
+        self.gamma_1 = nn.Parameter(torch.tensor([10.0]))
+        self.frozen = False
+        self._table: Optional[Tensor] = None
+        self._table_key: Optional[tuple] = None
+
+    def _apply(self, fn, *args, **kwargs):
+        # moving or casting replaces the parameters' data without bumping
+        # their version counters
+        self._table = None
+        return super()._apply(fn, *args, **kwargs)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for layer in (self.l1, self.l2, self.l3):
+            layer.reset_parameters(generator)
+        self.gamma_0.fill_(-5.0)
+        self.gamma_1.fill_(10.0)
+
+    def gamma_tilde(self, t: Tensor) -> Tensor:
+        l1_t = self.l1(t)
+        return l1_t + self.l3(torch.sigmoid(self.l2(l1_t)))
+
+    def network(self, t: Tensor) -> Tensor:
+        g0, g1 = self.gamma_tilde(torch.zeros_like(t)), self.gamma_tilde(torch.ones_like(t))
+        normalized = (self.gamma_tilde(t) - g0) / (g1 - g0)
+        return self.gamma_0 + (self.gamma_1 - self.gamma_0) * normalized
+
+    def table(self) -> Tensor:
+        """gamma(k/T) for k = 0..T, ``[T+1]``, detached (JAX
+        ``build_fast_evd``'s ``gamma_table_override``)."""
+        key = tuple((id(p), p._version) for p in self.parameters())
+        if self._table is None or self._table_key != key:
+            with torch.no_grad():
+                grid = torch.arange(self.T + 1, dtype=torch.float32, device=self.gamma_0.device)[:, None] / self.T
+                self._table = self.network(grid)[:, 0]
+            self._table_key = key
+        return self._table
+
+    def forward(self, t: Tensor) -> Tensor:
+        if not self.frozen:
+            return self.network(t)
+        table = self.table()
+        tf = torch.clamp(t, 0.0, 1.0) * self.T
+        lo = torch.clamp(torch.floor(tf).long(), 0, self.T - 1)
+        frac = tf - lo.to(tf.dtype)
+        return table[lo] * (1.0 - frac) + table[lo + 1] * frac
+
+
+def sampling_loop(method):
+    """Run an EVD method under ``frozen_schedule`` (the sampling loops)."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with self.frozen_schedule():
+            return method(self, *args, **kwargs)
+    return wrapped
+
+
 class EquivariantVariationalDiffusion(nn.Module):
     """eps-parametrized E(3) diffusion over (x, h), holding ``dynamics_network``."""
 
@@ -64,14 +203,18 @@ class EquivariantVariationalDiffusion(nn.Module):
         dc = diffusion_cfg
         if dc.parametrization != "eps":
             raise ValueError("eps is the only supported parametrization")
-        if dc.noise_schedule == "learned":
-            raise NotImplementedError("the learned noise schedule is not ported yet")
+        if dc.loss_type not in ("vlb", "l2"):
+            raise ValueError(f"unknown loss_type {dc.loss_type!r}")
         self.dynamics_network = dynamics_network
         self.diffusion_cfg = dc
         self.dataloader_cfg = dataloader_cfg
-        table = predefined_gamma_table(dc.noise_schedule, dc.num_timesteps, dc.noise_precision)
-        self.register_buffer("gamma_table", torch.tensor(table, dtype=torch.float32),
-                             persistent=False)
+        if dc.noise_schedule == "learned":
+            if dc.loss_type != "vlb":
+                raise ValueError("a learned schedule requires the VLB objective (loss_type=vlb)")
+            self.gamma = GammaNetwork(dc.num_timesteps)
+        else:
+            self.gamma = PredefinedGamma(
+                predefined_gamma_table(dc.noise_schedule, dc.num_timesteps, dc.noise_precision))
 
     # -- basic quantities ------------------------------------------------------
 
@@ -95,10 +238,19 @@ class EquivariantVariationalDiffusion(nn.Module):
     def num_node_scalar_features(self) -> int:
         return self.num_atom_types + int(self.include_charges)
 
-    def gamma(self, t: Tensor) -> Tensor:
-        """gamma(t) for normalized t in [0, 1]; ``round`` is half-to-even, as in JAX."""
-        t_int = torch.clamp(torch.round(t * self.T).long(), 0, self.T)
-        return self.gamma_table[t_int]
+    @contextlib.contextmanager
+    def frozen_schedule(self):
+        """Within the block a learned schedule reads its frozen table (a
+        predefined one is a table already)."""
+        gamma = self.gamma
+        if not isinstance(gamma, GammaNetwork) or gamma.frozen:
+            yield
+            return
+        gamma.frozen = True
+        try:
+            yield
+        finally:
+            gamma.frozen = False
 
     @staticmethod
     def sigma(gamma: Tensor) -> Tensor:
@@ -245,22 +397,54 @@ class EquivariantVariationalDiffusion(nn.Module):
         log_ph_cat = sum_except_batch((log_ph_cat_proportional - log_z) * onehot * m)
         return log_p_x_given_z0, log_ph_integer + log_ph_cat
 
+    def loss_draws(self, node_mask: Tensor, generator: Optional[torch.Generator] = None, training: bool = True,
+                   **given: Optional[Tensor]) -> Dict[str, Tensor]:
+        """The draws :meth:`loss_terms` takes, in its order and shapes, each
+        from ``given`` where it is there and not None, else from
+        ``generator``: ``t_int [B, 1]`` (integers), ``eps_t [B, N, 3+F]``
+        (raw normal draws); with self-conditioning in training ``sc_take``
+        (a 0-dim bool, the Bernoulli(0.5) of the whole batch), ``eps_sc`` and
+        ``eps_sc_step``; in evaluation ``eps_0``."""
+        b, n = node_mask.shape
+        dev = node_mask.device
+        nf = self.num_x_dims + self.num_node_scalar_features
+
+        def normal():
+            return torch.randn((b, n, nf), generator=generator, device=dev, dtype=torch.float32)
+
+        makers = [("t_int", lambda: torch.randint(0 if training else 1, self.T + 1, (b, 1), generator=generator,
+                                                  device=dev)),
+                  ("eps_t", normal)]
+        if training and self.diffusion_cfg.self_condition:
+            makers += [("sc_take", lambda: torch.rand((), generator=generator, device=dev) < 0.5),
+                       ("eps_sc", normal), ("eps_sc_step", normal)]
+        if not training:
+            makers.append(("eps_0", normal))
+        return {k: given[k] if given.get(k) is not None else make() for k, make in makers}
+
     def loss_terms(self, x: Tensor, h_cat: Tensor, h_int: Tensor, node_mask: Tensor, training: bool,
                    generator: Optional[torch.Generator] = None, t_int: Optional[Tensor] = None,
                    eps_t: Optional[Tensor] = None, eps_0: Optional[Tensor] = None,
-                   context: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                   context: Optional[Tensor] = None, sc_take=None, eps_sc: Optional[Tensor] = None,
+                   eps_sc_step: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """All per-graph loss/NLL terms; ``x`` must already be CoM-free.
 
-        Draws come from ``generator`` unless given: ``t_int [B, 1]`` (integer
-        timesteps, as floats), ``eps_t`` and (evaluation) ``eps_0``, raw normal
-        draws ``[B, N, 3+F]``.  As in the reference, the L2 error sums the h
-        residual over all node rows, padded ones included (eps is 0 there, so
-        they contribute ||net_h||^2).  With ``debug_invariants`` the inputs,
-        z_t and the denoiser's output are checked at the JAX package's sites
-        (``utils/debug.py``)."""
+        Draws come from ``generator`` unless given (:meth:`loss_draws`):
+        ``t_int [B, 1]`` (integer timesteps, as floats), ``eps_t`` and
+        (evaluation) ``eps_0``, raw normal draws ``[B, N, 3+F]``; with
+        self-conditioning in training ``sc_take`` (a bool or 0-dim tensor)
+        and the pass's ``eps_sc`` and ``eps_sc_step``.  As in the reference,
+        the L2 error sums the h residual over all node rows, padded ones
+        included (eps is 0 there, so they contribute ||net_h||^2).  With
+        ``debug_invariants`` the inputs, z_t and the denoiser's output are
+        checked at the JAX package's sites (``utils/debug.py``).
+
+        Self-conditioning in training: when ``sc_take`` holds and no row's
+        t_int is T, a no-grad pass noises the batch at t+1 (``eps_sc``) and
+        takes one reverse step to s=0 from there (``eps_sc_step``); its
+        result is the main denoiser call's ``xh_self_cond``, else zeros
+        (also in evaluation).  Deciding reads one value back to the host."""
         dc = self.diffusion_cfg
-        if dc.self_condition:
-            raise NotImplementedError("self-conditioning is not ported yet")
         b = node_mask.shape[0]
         num_nodes = node_mask.to(x.dtype).sum(dim=-1)
         dbg = dc.debug_invariants
@@ -271,22 +455,32 @@ class EquivariantVariationalDiffusion(nn.Module):
         x, h_cat, h_int = self.normalize(x, h_cat, h_int, node_mask)
         xh = self.pack_xh(x, h_cat, h_int)
         l2_train = training and dc.loss_type == "l2"
+        draws = self.loss_draws(node_mask, generator, training, t_int=t_int, eps_t=eps_t, eps_0=eps_0,
+                                sc_take=sc_take, eps_sc=eps_sc, eps_sc_step=eps_sc_step)
 
         delta_log_px = -self.subspace_dimensionality(num_nodes) * math.log(dc.norm_values[0])
         if l2_train:
             delta_log_px = torch.zeros_like(delta_log_px)
-        if t_int is None:
-            t_int = torch.randint(0 if training else 1, self.T + 1, (b, 1), generator=generator,
-                                  device=x.device)
-        t_int = t_int.to(x.dtype)
+        t_int = draws["t_int"].to(x.dtype)
         t_is_zero = (t_int == 0).to(x.dtype)
         s = (t_int - 1.0) / self.T
         t = t_int / self.T
         gamma_s, gamma_t = self.gamma(s), self.gamma(t)
 
-        z_t, eps_t = self.compute_noised_representation(xh, node_mask, gamma_t, generator, eps_t)
+        z_t, eps_t = self.compute_noised_representation(xh, node_mask, gamma_t, noise=draws["eps_t"])
         check_mean_zero_with_mask(dbg, z_t[..., :self.num_x_dims], node_mask, "z_t positions")
-        net_out = self.dynamics_network(z_t, t, node_mask, context)
+        self_cond = None
+        if dc.self_condition:
+            self_cond = torch.zeros_like(xh)
+            if training and bool(torch.logical_and(torch.as_tensor(draws["sc_take"], device=x.device),
+                                                   ~(t_int == self.T).any())):
+                with torch.no_grad():
+                    t_sc = (t_int + 1.0) / self.T
+                    z_t_sc, _ = self.compute_noised_representation(xh, node_mask, self.gamma(t_sc),
+                                                                   noise=draws["eps_sc"])
+                self_cond = self.self_condition_step(t_sc, z_t_sc, node_mask, noise=draws["eps_sc_step"],
+                                                     context=context)
+        net_out = self.dynamics_network(z_t, t, node_mask, context, self_cond)
         check_correctly_masked(dbg, net_out[..., :self.num_x_dims], node_mask, "net_out vel")
         check_finite(dbg, net_out, "net_out")
         error_t = sum_except_batch((eps_t - net_out) ** 2)
@@ -307,7 +501,7 @@ class EquivariantVariationalDiffusion(nn.Module):
         else:
             # a separate z_0 pass: a lower-variance L0 estimate
             t_zeros = torch.zeros_like(s)
-            z_0, eps_0 = self.compute_noised_representation(xh, node_mask, gamma_0, generator, eps_0)
+            z_0, eps_0 = self.compute_noised_representation(xh, node_mask, gamma_0, noise=draws["eps_0"])
             net_out_0 = self.dynamics_network(z_0, t_zeros, node_mask, context)
             log_p_x, log_p_h = self.log_pxh_given_z0_without_constants(
                 h_cat, h_int, z_0, eps_0, net_out_0, gamma_0, node_mask)
@@ -329,7 +523,8 @@ class EquivariantVariationalDiffusion(nn.Module):
 
     def sample_p_zs_given_zt(self, s: Tensor, t: Tensor, z: Tensor, node_mask: Tensor,
                              generator: Optional[torch.Generator] = None, fix_noise: bool = False,
-                             noise: Optional[Tensor] = None, context: Optional[Tensor] = None) -> Tensor:
+                             noise: Optional[Tensor] = None, context: Optional[Tensor] = None,
+                             xh_self_cond: Optional[Tensor] = None) -> Tensor:
         """One ancestral reverse step z_t -> z_s."""
         gamma_s = self.gamma(s)
         gamma_t = self.gamma(t)
@@ -337,7 +532,7 @@ class EquivariantVariationalDiffusion(nn.Module):
         sigma_s = self.sigma(gamma_s)
         sigma_t = self.sigma(gamma_t)
 
-        eps_t = self.dynamics_network(z, t, node_mask, context)
+        eps_t = self.dynamics_network(z, t, node_mask, context, xh_self_cond)
 
         mu = z / alpha_tgs[..., None] - (sigma2_tgs / alpha_tgs / sigma_t)[..., None] * eps_t
         sigma = sigma_tgs * sigma_s / sigma_t  # [B, 1]
@@ -346,6 +541,16 @@ class EquivariantVariationalDiffusion(nn.Module):
         nx = self.num_x_dims
         _, zs_x = centralize(zs[..., :nx], node_mask)
         return torch.cat([zs_x, zs[..., nx:]], dim=-1)
+
+    def self_condition_step(self, s: Tensor, z: Tensor, node_mask: Tensor,
+                            generator: Optional[torch.Generator] = None, fix_noise: bool = False,
+                            noise: Optional[Tensor] = None, context: Optional[Tensor] = None) -> Tensor:
+        """The next step's self-conditioning input: one reverse step from the
+        new state ``z`` at ``s`` to 0, without gradients and without a
+        self-conditioning input of its own."""
+        with torch.no_grad():
+            return self.sample_p_zs_given_zt(torch.zeros_like(s), s, z, node_mask, generator, fix_noise, noise,
+                                             context)
 
     def sample_p_zt_given_zs(self, zs: Tensor, node_mask: Tensor, gamma_t: Tensor, gamma_s: Tensor,
                              generator: Optional[torch.Generator] = None, noise: Optional[Tensor] = None) -> Tensor:
@@ -359,15 +564,15 @@ class EquivariantVariationalDiffusion(nn.Module):
 
     def sample_p_xh_given_z0(self, z_0: Tensor, node_mask: Tensor,
                              generator: Optional[torch.Generator] = None, fix_noise: bool = False,
-                             noise: Optional[Tensor] = None, context: Optional[Tensor] = None
-                             ) -> Tuple[Tensor, Tensor, Tensor]:
+                             noise: Optional[Tensor] = None, context: Optional[Tensor] = None,
+                             xh_self_cond: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
         """Final decode x, h ~ p(x, h | z_0) -> (x, one_hot, charges) on the data scale."""
         b = z_0.shape[0]
         t_zeros = torch.zeros((b, 1), dtype=z_0.dtype, device=z_0.device)
         gamma_0 = self.gamma(t_zeros)
         sigma_x = self.snr(-0.5 * gamma_0)
 
-        net_out = self.dynamics_network(z_0, t_zeros, node_mask, context)
+        net_out = self.dynamics_network(z_0, t_zeros, node_mask, context, xh_self_cond)
 
         sigma_0 = self.sigma(gamma_0)[..., None]
         alpha_0 = self.alpha(gamma_0)[..., None]
@@ -392,40 +597,65 @@ class EquivariantVariationalDiffusion(nn.Module):
         """z_T ~ p(z_T): the sampling prior (CoM-free x, iid h)."""
         return self.sample_noise(node_mask, generator, fix_noise, noise)
 
+    @property
+    def draws_per_step(self) -> int:
+        """Raw draws a reverse step takes: its own, and a self-conditioned
+        model's second step."""
+        return 2 if self.diffusion_cfg.self_condition else 1
+
+    @sampling_loop
     def reverse_segment(self, z: Tensor, s_values: Sequence[float], t_values: Sequence[float],
                         node_mask: Tensor, generator: Optional[torch.Generator] = None,
                         fix_noise: bool = False, noises: Optional[Sequence[Tensor]] = None,
                         context: Optional[Tensor] = None, frames: Optional[Tensor] = None,
-                        frame_steps: Optional[Sequence[int]] = None) -> Tensor:
-        """Run reverse steps at the given normalized (s, t) pairs.  ``noises``:
-        one raw draw per step instead of drawing from ``generator``.
-        ``frames [len(frame_steps), B, N, 3+F]``: a preallocated tensor on
-        the state's device that receives ``unnormalize_z`` of the state
-        after each step listed in ``frame_steps`` (in order; nothing is read
-        back to the host here)."""
+                        frame_steps: Optional[Sequence[int]] = None,
+                        self_cond: Optional[Tensor] = None) -> Tuple[Tensor, Optional[Tensor]]:
+        """Run reverse steps at the given normalized (s, t) pairs -> ``(z,
+        self_cond)``.  A self-conditioned model carries ``self_cond``
+        (zeros where None) into each step and replaces it after the step
+        with :meth:`self_condition_step` of the new state (``fix_noise``
+        too); otherwise it stays None.  ``noises``: the raw draws instead of
+        drawing from ``generator``, ``draws_per_step`` a step (the step's,
+        then the self-conditioning step's).  ``frames [len(frame_steps), B,
+        N, 3+F]``: a preallocated tensor on the state's device that receives
+        ``unnormalize_z`` of the state after each step listed in
+        ``frame_steps`` (in order; nothing is read back to the host here)."""
         b = node_mask.shape[0]
+        per = self.draws_per_step
+        if self.diffusion_cfg.self_condition and self_cond is None:
+            self_cond = torch.zeros_like(z)
         slot = {} if frames is None else {int(k): i for i, k in enumerate(frame_steps)}
+
+        def draw(i):
+            return None if noises is None else noises[i]
+
         for k, (s_val, t_val) in enumerate(zip(s_values, t_values)):
             s_arr = torch.full((b, 1), float(s_val), dtype=z.dtype, device=z.device)
             t_arr = torch.full((b, 1), float(t_val), dtype=z.dtype, device=z.device)
-            z = self.sample_p_zs_given_zt(
-                s_arr, t_arr, z, node_mask, generator, fix_noise,
-                None if noises is None else noises[k], context,
-            )
+            z = self.sample_p_zs_given_zt(s_arr, t_arr, z, node_mask, generator, fix_noise, draw(per * k),
+                                          context, self_cond)
+            if self_cond is not None:
+                self_cond = self.self_condition_step(s_arr, z, node_mask, generator, fix_noise, draw(per * k + 1),
+                                                     context)
             if k in slot:
                 frames[slot[k]].copy_(self.unnormalize_z(z, node_mask))
-        return z
+        return z, self_cond
 
+    @sampling_loop
     def decode_sample(self, z: Tensor, node_mask: Tensor,
                       generator: Optional[torch.Generator] = None, fix_noise: bool = False,
-                      noise: Optional[Tensor] = None, context: Optional[Tensor] = None) -> Tensor:
-        """Final p(x, h | z_0) decode and CoM projection -> data-scale xh."""
-        x, one_hot, charges = self.sample_p_xh_given_z0(z, node_mask, generator, fix_noise, noise, context)
+                      noise: Optional[Tensor] = None, context: Optional[Tensor] = None,
+                      self_cond: Optional[Tensor] = None) -> Tensor:
+        """Final p(x, h | z_0) decode (with the last ``self_cond`` of a
+        self-conditioned model) and CoM projection -> data-scale xh."""
+        x, one_hot, charges = self.sample_p_xh_given_z0(z, node_mask, generator, fix_noise, noise, context,
+                                                        self_cond)
         _, x = centralize(x, node_mask)
         if self.include_charges:
             return torch.cat([x, one_hot, charges], dim=-1)
         return torch.cat([x, one_hot], dim=-1)
 
+    @sampling_loop
     def mol_gen_optimize(self, x: Tensor, h_cat: Tensor, node_mask: Tensor, num_timesteps: int,
                          context: Optional[Tensor] = None,
                          generator: Optional[torch.Generator] = None,
@@ -434,21 +664,23 @@ class EquivariantVariationalDiffusion(nn.Module):
         (CoM-free positions, one-hot types), run the last ``num_timesteps``
         reverse steps from there, decode and centralize -> ``[x | one_hot]``
         on the data scale.  Only for models without the charge channel (the
-        conditional QM9 model).  ``noises``: one raw draw per step and one
-        for the decode instead of drawing from ``generator``."""
+        conditional QM9 model).  ``noises``: ``draws_per_step`` raw draws a
+        step and one for the decode instead of drawing from ``generator``."""
         if self.include_charges:
             raise ValueError(
                 "mol_gen_optimize requires an include_charges=False model (the guided-optimization "
                 "protocol runs the conditional QM9 model, which is trained without the charge channel)")
-        if noises is not None and len(noises) != num_timesteps + 1:
-            raise ValueError(f"noises: need {num_timesteps + 1} draws, got {len(noises)}")
+        count = self.draws_per_step * num_timesteps + 1
+        if noises is not None and len(noises) != count:
+            raise ValueError(f"noises: need {count} draws, got {len(noises)}")
         x_n, h_cat_n, _ = self.normalize(x, h_cat, torch.zeros_like(x[..., :1]), node_mask)
         z = torch.cat([x_n, h_cat_n], dim=-1)
         s_values = np.arange(num_timesteps - 1, -1, -1, dtype=np.float32)
-        z = self.reverse_segment(z, s_values / num_timesteps, (s_values + 1) / num_timesteps, node_mask, generator,
-                                 noises=None if noises is None else noises[:-1], context=context)
+        z, self_cond = self.reverse_segment(z, s_values / num_timesteps, (s_values + 1) / num_timesteps, node_mask,
+                                            generator, noises=None if noises is None else noises[:-1],
+                                            context=context)
         return self.decode_sample(z, node_mask, generator, noise=None if noises is None else noises[-1],
-                                  context=context)
+                                  context=context, self_cond=self_cond)
 
     # -- RePaint inpainting -------------------------------------------------------
 
@@ -491,6 +723,7 @@ class EquivariantVariationalDiffusion(nn.Module):
                 s -= 1
         return np.array(s_vals, dtype=np.float32), np.array(jump_flags, dtype=bool)
 
+    @sampling_loop
     def inpaint(self, x0: Tensor, h0_cat: Tensor, h0_int: Tensor, node_mask: Tensor, node_mask_fixed: Tensor,
                 num_resamplings: int = 1, jump_length: int = 1, num_timesteps: Optional[int] = None,
                 generator: Optional[torch.Generator] = None, noises: Optional[Sequence[Tensor]] = None,
@@ -503,17 +736,21 @@ class EquivariantVariationalDiffusion(nn.Module):
         the step's level and shifted so that its CoM is the denoised part's
         CoM over the same nodes, then the two are merged; after the last
         step of each segment but the final one the state jumps back
-        ``jump_length`` steps.  ``noises``: the raw draws instead of drawing
-        from ``generator``, one for the prior, then per step one for the
-        known part, one for the reverse step and one for the jump (read only
-        where the step jumps), then one for the decode."""
-        if self.diffusion_cfg.self_condition:
-            raise NotImplementedError("self-conditioning is not ported yet")
+        ``jump_length`` steps.  A self-conditioned model carries its
+        self-conditioning input from step to step, each step's taken from
+        the generated part's new state, and decodes with the last.
+        ``noises``: the raw draws instead of drawing from ``generator``, in
+        the order of the JAX package's key splits: one for the prior, then
+        per step one for the known part, one for the reverse step, one for
+        the self-conditioning step (read only by a self-conditioned model)
+        and one for the jump (read only where the step jumps), then one for
+        the decode."""
         T_s = self.T if num_timesteps is None else int(num_timesteps)
         s_vals, jump_flags = self.repaint_step_arrays(
             self.get_repaint_schedule(num_resamplings, jump_length, T_s), jump_length)
-        if noises is not None and len(noises) != 3 * len(s_vals) + 2:
-            raise ValueError(f"noises: need {3 * len(s_vals) + 2} draws, got {len(noises)}")
+        count = 4 * len(s_vals) + 2
+        if noises is not None and len(noises) != count:
+            raise ValueError(f"noises: need {count} draws, got {len(noises)}")
 
         def draw(k):
             return None if noises is None else noises[k]
@@ -528,13 +765,17 @@ class EquivariantVariationalDiffusion(nn.Module):
         xh0 = torch.cat([(xh0[..., :nx] - mean_known[:, None, :]) * m, xh0[..., nx:]], dim=-1)
 
         z = self.sample_noise(node_mask, generator, noise=draw(0))
+        self_cond = torch.zeros_like(z) if self.diffusion_cfg.self_condition else None
         for k, (s_val, jump) in enumerate(zip(s_vals, jump_flags)):
             s_full = torch.full((b, 1), float(s_val), dtype=z.dtype, device=z.device)
             s_arr, t_arr = s_full / T_s, (s_full + 1.0) / T_s
             gamma_s = self.gamma(s_arr)
-            z_known, _ = self.compute_noised_representation(xh0, node_mask, gamma_s, generator, draw(3 * k + 1))
-            z_unknown = self.sample_p_zs_given_zt(s_arr, t_arr, z, node_mask, generator, noise=draw(3 * k + 2),
-                                                  context=context)
+            z_known, _ = self.compute_noised_representation(xh0, node_mask, gamma_s, generator, draw(4 * k + 1))
+            z_unknown = self.sample_p_zs_given_zt(s_arr, t_arr, z, node_mask, generator, noise=draw(4 * k + 2),
+                                                  context=context, xh_self_cond=self_cond)
+            if self_cond is not None:
+                self_cond = self.self_condition_step(s_arr, z_unknown, node_mask, generator, noise=draw(4 * k + 3),
+                                                     context=context)
             com_noised = (z_known[..., :nx] * mf).sum(dim=-2) / count_known
             com_denoised = (z_unknown[..., :nx] * mf).sum(dim=-2) / count_known
             z_known = torch.cat([z_known[..., :nx] + (com_denoised - com_noised)[:, None, :] * m,
@@ -542,8 +783,9 @@ class EquivariantVariationalDiffusion(nn.Module):
             z = (z_known * mf + z_unknown * (1.0 - mf)) * m
             if jump:
                 gamma_t = self.gamma((s_full + jump_length) / T_s)
-                z = self.sample_p_zt_given_zs(z, node_mask, gamma_t, gamma_s, generator, noise=draw(3 * k + 3))
-        return self.decode_sample(z, node_mask, generator, noise=draw(3 * len(s_vals) + 1), context=context)
+                z = self.sample_p_zt_given_zs(z, node_mask, gamma_t, gamma_s, generator, noise=draw(4 * k + 4))
+        return self.decode_sample(z, node_mask, generator, noise=draw(4 * len(s_vals) + 1), context=context,
+                                  self_cond=self_cond)
 
 
 def assemble_nll(terms: Dict[str, Tensor], loss_type: str, training: bool, T: int, num_x_dims: int,

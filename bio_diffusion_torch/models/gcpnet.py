@@ -18,9 +18,9 @@ forward does not take it.
 
 The port covers the configuration the fast path supports (GCP2 with vector
 gates, no norm/dropout/ablations, one feedforward GCP, scalar message
-attention, residual message stack), with or without property conditioning;
-``GCPNetDynamics`` raises ``NotImplementedError`` for anything else
-(self-conditioning included).
+attention, residual message stack), with or without property conditioning
+and self-conditioning; ``GCPNetDynamics`` raises ``NotImplementedError``
+for anything else.
 """
 
 from __future__ import annotations
@@ -116,10 +116,15 @@ class GCPInteractions(nn.Module):
 
 class GCPNetDynamics(nn.Module):
     """eps-prediction denoiser: ``(xh [B, N, 3+F], t [B, 1], node_mask [B, N],
-    context [B, N, C] or None) -> [B, N, 3+F]`` (CoM-free velocity | eps_h),
-    float32 out.  A model conditioned on C properties
-    (``module_cfg.conditioning``) takes their per-node context as C more node
-    input scalars and requires it.
+    context [B, N, C] or None, xh_self_cond [B, N, 3+F] or None) -> [B, N,
+    3+F]`` (CoM-free velocity | eps_h), float32 out.  A model conditioned on
+    C properties (``module_cfg.conditioning``) takes their per-node context
+    as C more node input scalars and requires it.  A self-conditioned model
+    (``diffusion_cfg.self_condition``) featurizes ``xh_self_cond`` (zeros
+    where None) as it does ``xh``, on the same masks, and appends each block
+    after the noisy input's own: h on the scalars, the orientations on the
+    vectors, the edge features on the edges.  Only the embeddings' input
+    widths change, not the message layers'.
 
     ``compute_dtype`` ("bfloat16" or None) is the network body's dtype.  With
     gradients enabled (training) the forward packs the live parameters on
@@ -134,20 +139,21 @@ class GCPNetDynamics(nn.Module):
         super().__init__()
         if not supports_fast_path(module_cfg, layer_cfg):
             raise NotImplementedError("GCPNet configuration outside the port's packed forward")
-        if diffusion_cfg.self_condition:
-            raise NotImplementedError("self-conditioning is not ported yet (ROADMAP A3)")
         self.model_cfg, self.module_cfg, self.layer_cfg = model_cfg, module_cfg, layer_cfg
         self.diffusion_cfg, self.dataloader_cfg = diffusion_cfg, dataloader_cfg
         self.compute_dtype = {None: torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
         mc = model_cfg
         h_in = compute_num_atom_types(dataloader_cfg) + int(dataloader_cfg.include_charges)
-        # node scalars in: [atom types | charges if any | time | context]
+        # node scalars in: [atom types | charges if any | (self-conditioning:
+        # the same of the estimate) | time | context]; self-conditioning
+        # doubles every input block (JAX ``_input_dims``)
         self.num_context = len(module_cfg.conditioning)
         h_cond = int(diffusion_cfg.condition_on_time) + self.num_context
+        k = 2 if diffusion_cfg.self_condition else 1
         node_dims = (mc.h_hidden_dim, mc.chi_hidden_dim)
         edge_dims = (mc.e_hidden_dim, mc.xi_hidden_dim)
         self.gcp_embedding = GCPEmbedding(
-            (mc.e_input_dim, mc.xi_input_dim), (h_in + h_cond, mc.chi_input_dim),
+            (k * mc.e_input_dim, k * mc.xi_input_dim), (k * h_in + h_cond, k * mc.chi_input_dim),
             edge_dims, node_dims, module_cfg,
         )
         self.interaction_layers = nn.ModuleList([
@@ -194,7 +200,8 @@ class GCPNetDynamics(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor, context: Optional[Tensor] = None) -> Tensor:
+    def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor, context: Optional[Tensor] = None,
+                xh_self_cond: Optional[Tensor] = None) -> Tensor:
         if self.num_context and context is None:
             raise ValueError("a property-conditioned model requires a context tensor")
         mc, dl = self.model_cfg, self.dataloader_cfg
@@ -211,6 +218,13 @@ class GCPNetDynamics(nn.Module):
         edge_mask = build_edge_mask(node_mask)
         chi = orientations(x_init, node_mask)  # [B, N, 2, 3]
         e_s, e_v = edge_features(x_init, edge_mask)  # [B, N, N, 1], [B, N, N, 1, 3]
+        if self.diffusion_cfg.self_condition:
+            sc = torch.zeros_like(xh) if xh_self_cond is None else xh_self_cond.to(xh.dtype)
+            e_s_sc, e_v_sc = edge_features(sc[..., :nx], edge_mask)
+            h = torch.cat([h, sc[..., nx:]], dim=-1)
+            chi = torch.cat([chi, orientations(sc[..., :nx], node_mask)], dim=-2)
+            e_s = torch.cat([e_s, e_s_sc], dim=-1)
+            e_v = torch.cat([e_v, e_v_sc], dim=-2)
         if self.diffusion_cfg.condition_on_time:
             h = torch.cat([h, t[:, None, :].expand(b, n, t.shape[-1]).to(h.dtype)], dim=-1)
         if self.num_context:

@@ -147,19 +147,23 @@ def row_slice(batch_size: int, rank: int, world: int) -> slice:
     return slice(rank * k, (rank + 1) * k)
 
 
+def _is_scalar(a) -> bool:
+    return isinstance(a, (bool, int, float)) or (isinstance(a, (Tensor, np.ndarray)) and a.ndim == 0)
+
+
 def _leading(batch) -> int:
     if dataclasses.is_dataclass(batch):
         batch = [getattr(batch, f.name) for f in dataclasses.fields(batch)]
     if isinstance(batch, dict):
         batch = list(batch.values())
     if isinstance(batch, (list, tuple)):
-        return next(_leading(v) for v in batch if v is not None)
+        return next(_leading(v) for v in batch if v is not None and not _is_scalar(v))
     return int(batch.shape[0])
 
 
 def _take(batch, sl: slice):
-    if batch is None:
-        return None
+    if batch is None or _is_scalar(batch):
+        return batch
     if dataclasses.is_dataclass(batch):
         return dataclasses.replace(batch, **{f.name: _take(getattr(batch, f.name), sl)
                                              for f in dataclasses.fields(batch)})
@@ -173,7 +177,8 @@ def _take(batch, sl: slice):
 def shard_rows(batch, rank: int, world: int):
     """Rank ``rank``'s rows (``row_slice``) of every leaf of ``batch`` (a
     tensor, an array, a dataclass such as ``DenseMolBatch``, a dict or a
-    sequence; None leaves stay None) -- the counterpart of ``shard_batch``."""
+    sequence; None leaves and scalars, such as a 0-dim tensor or a bool,
+    stay whole) -- the counterpart of ``shard_batch``."""
     if batch is None:
         return None
     return _take(batch, row_slice(_leading(batch), rank, world))

@@ -5,9 +5,13 @@ Port of ``bio_diffusion_tpu/train/loop.py::Trainer``.  The model trains on
 one device, or data-parallel over the ranks of a ``torch.distributed``
 group (``dp``, see below); the EMA twin of the model carries the EMA
 weights and runs the validation and the sampling evaluation.  Step metrics
-stay on the device until the end of an epoch.  ``init_state`` resumes from the newest
-checkpoint under ``<workdir>/<trainer.ckpt_dir>`` (the train state only, not
-the data order, as in the JAX package), else warm-starts from
+stay on the device until the end of an epoch.  Each optimizer step draws
+from the Trainer's generator seeded anew from the run's seed and the step
+count (``train.step.step_seed``, the JAX step's ``fold_in(rng, step)``).
+``init_state`` resumes from the newest checkpoint under
+``<workdir>/<trainer.ckpt_dir>`` (the train state only, not the data order,
+as in the JAX package; the draws of a step depend on its count alone, so a
+resumed run draws what the uninterrupted run draws), else warm-starts from
 ``trainer.warm_start_ckpt``.  A property-conditioned model
 (``module_cfg.conditioning``) gets each batch's context from the property
 normalizers (mean and MAD of the valid split for ``QM9_second_half``, of the
@@ -63,7 +67,7 @@ from bio_diffusion_torch.train.checkpoints import (
 )
 from bio_diffusion_torch.train.sampling import SegmentedSampler, analyze_samples, sample_molecules
 from bio_diffusion_torch.train.state import TrainState
-from bio_diffusion_torch.train.step import make_eval_step, make_train_step
+from bio_diffusion_torch.train.step import make_eval_step, make_train_step, step_seed
 from bio_diffusion_torch.train.torch_import import init_random_weights, load_reference_state_dict
 from bio_diffusion_torch.utils.logging import MetricLoggers, build_loggers, get_logger
 
@@ -108,7 +112,8 @@ class Trainer:
         self.loggers = loggers
         self.ckpt_dir = os.path.join(workdir, tc.ckpt_dir)
         self.rng = np.random.default_rng(exp.seed)
-        self.generator = torch.Generator(device=device).manual_seed(exp.seed + 1)
+        # the train steps' draws: seeded anew before each step (step_generator)
+        self.generator = torch.Generator(device=device).manual_seed(step_seed(exp.seed, 0))
         self.start_step = 0  # the optimizer step init_state resumed at
         # optimizer steps, loader batches, validation batches and sampling
         # batches run so far
@@ -222,6 +227,11 @@ class Trainer:
             return iter(self._overfit_cache)
         return self._limited(self._batch_iter("train"), self.exp.trainer.limit_train_batches)
 
+    def step_generator(self) -> torch.Generator:
+        """The generator of the next optimizer step, seeded from the run's
+        seed and the steps taken so far (the same on every rank)."""
+        return self.generator.manual_seed(step_seed(self.exp.seed, self.state.count))
+
     def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> Dict[str, float]:
         accum = self.accumulate_grad_batches
         metrics_acc: Dict[str, list] = {}
@@ -232,10 +242,10 @@ class Trainer:
                 micro.append(batch)
                 if len(micro) < accum:
                     continue
-                metrics = self.train_step(self.state, micro, self.generator)
+                metrics = self.train_step(self.state, micro, self.step_generator())
                 micro = []
             else:
-                metrics = self.train_step(self.state, batch, self.generator)
+                metrics = self.train_step(self.state, batch, self.step_generator())
             self.stats["steps"] += 1
             self.stats["micro_batches"] += accum
             for k, v in metrics.items():
@@ -275,9 +285,10 @@ class Trainer:
             means = all_reduce_mean_([per_batch], self.dp)[0].mean(dim=1).tolist()
         out = dict(zip(accs, means))
         dc = exp.diffusion_cfg
-        table = predefined_gamma_table(dc.noise_schedule, dc.num_timesteps, dc.noise_precision)
-        out["log_SNR_max"] = float(-table[0])
-        out["log_SNR_min"] = float(-table[-1])
+        if dc.noise_schedule != "learned":  # log-SNR endpoints of the predefined table, as JAX logs them
+            table = predefined_gamma_table(dc.noise_schedule, dc.num_timesteps, dc.noise_precision)
+            out["log_SNR_max"] = float(-table[0])
+            out["log_SNR_min"] = float(-table[-1])
         self.loggers.log({f"{split}/{k}": v for k, v in out.items()}, self.state.count, epoch)
         return out
 

@@ -53,25 +53,32 @@ class SegmentedSampler:
         """Sample xh ``[B, N, 3+F]`` on the data scale (numpy, float32);
         ``context [B, N, C]`` for a property-conditioned model; ``noises``:
         the raw draws instead of drawing from ``generator``, one for the
-        prior, one a reverse step, one for the decode.  With ``frame_steps``
-        the denoising chain is kept too -> ``(xh, frames)``: ``frames
-        [len(frame_steps), B, N, 3+F]`` (numpy) are the data-scale states
-        after the reverse steps ``frame_steps`` (0 = the first step),
-        gathered on the device and copied to the host once.
+        prior, ``evd.draws_per_step`` a reverse step (the step's, then a
+        self-conditioned model's second step's), one for the decode.  With
+        ``frame_steps`` the denoising chain is kept too -> ``(xh, frames)``:
+        ``frames [len(frame_steps), B, N, 3+F]`` (numpy) are the data-scale
+        states after the reverse steps ``frame_steps`` (0 = the first
+        step), gathered on the device and copied to the host once.
+        ``fix_noise`` shares every draw over the batch, a self-conditioned
+        model's second steps and the decode included (the JAX sampler's
+        ``fix_self_conditioning_noise``).
 
         The replicas take each reverse step in turn, and a step reads
         nothing back to the host, so one thread's launches overlap across
         cards; every replica sees the draws of the one-device run
         (``Replicas.draws``), so a seed gives the same molecules on any
-        number of devices."""
+        number of devices.  A self-conditioned model's estimate is carried
+        by each replica from step to step and into its decode."""
         evd, reps = self.evd, self.replicas
         T_s = evd.T if num_timesteps is None else int(num_timesteps)
         node_mask = np.asarray(node_mask, dtype=np.float32)
         b, n = node_mask.shape
         masks, ctxs = reps.scatter(node_mask, b), reps.scatter(context, b)
         nf = evd.num_x_dims + evd.num_node_scalar_features
-        draws = reps.draws(b, (1 if fix_noise else b, n, nf), T_s + 2, generator, noises)
+        per = evd.draws_per_step
+        draws = reps.draws(b, (1 if fix_noise else b, n, nf), per * T_s + 2, generator, noises)
         zs = [m.init_sample_noise(mask, None, fix_noise, d[0]) for m, mask, d in zip(reps.modules, masks, draws)]
+        self_conds = [None] * len(zs)
         slot = {} if frame_steps is None else {int(k): i for i, k in enumerate(frame_steps)}
         frames = None if frame_steps is None else [
             torch.empty((len(frame_steps),) + z.shape, dtype=z.dtype, device=z.device) for z in zs]
@@ -79,12 +86,13 @@ class SegmentedSampler:
         s_norm, t_norm = s_values / T_s, (s_values + 1) / T_s
         for k in range(T_s):
             for i, m in enumerate(reps.modules):
-                zs[i] = m.reverse_segment(zs[i], s_norm[k: k + 1], t_norm[k: k + 1], masks[i], None, fix_noise,
-                                          [draws[i][k + 1]], context=ctxs[i])
+                zs[i], self_conds[i] = m.reverse_segment(
+                    zs[i], s_norm[k: k + 1], t_norm[k: k + 1], masks[i], None, fix_noise,
+                    draws[i][1 + per * k: 1 + per * (k + 1)], context=ctxs[i], self_cond=self_conds[i])
                 if k in slot:
                     frames[i][slot[k]].copy_(m.unnormalize_z(zs[i], masks[i]))
-        xh = reps.gather([m.decode_sample(z, mask, None, fix_noise, d[-1], context=c)
-                          for m, z, mask, d, c in zip(reps.modules, zs, masks, draws, ctxs)], b)
+        xh = reps.gather([m.decode_sample(z, mask, None, fix_noise, d[-1], context=c, self_cond=sc)
+                          for m, z, mask, d, c, sc in zip(reps.modules, zs, masks, draws, ctxs, self_conds)], b)
         self.runs += 1
         if frames is None:
             return xh
@@ -290,7 +298,7 @@ def inpaint_rows(reps: Replicas, inputs: Sequence, num_resamplings: int, jump_le
     T_s = evd.T if num_timesteps is None else int(num_timesteps)
     s_vals, _ = evd.repaint_step_arrays(evd.get_repaint_schedule(num_resamplings, jump_length, T_s), jump_length)
     b, n = np.shape(inputs[3])
-    draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features), 3 * len(s_vals) + 2, generator,
+    draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features), 4 * len(s_vals) + 2, generator,
                        noises)
     return reps.map(lambda m, args, eps: m.inpaint(*args, num_resamplings, jump_length, num_timesteps, noises=eps),
                     inputs, draws)
@@ -300,11 +308,12 @@ def mol_gen_optimize_rows(reps: Replicas, x: torch.Tensor, h_cat: torch.Tensor, 
                           num_timesteps: int, context: Optional[torch.Tensor],
                           generator: Optional[torch.Generator]) -> torch.Tensor:
     """``evd.mol_gen_optimize`` on ``reps``, each replica its rows and its
-    rows of the one-device run's draws (one a step, one for the decode)
-    -> ``[B, N, 3+K]`` on the first device."""
+    rows of the one-device run's draws (``evd.draws_per_step`` a step, one
+    for the decode) -> ``[B, N, 3+K]`` on the first device."""
     evd = reps.modules[0]
     b, n = node_mask.shape
-    draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features), int(num_timesteps) + 1, generator)
+    draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features),
+                       evd.draws_per_step * int(num_timesteps) + 1, generator)
     out = reps.map(lambda m, args, eps: m.mol_gen_optimize(args[0], args[1], args[2], num_timesteps, args[3],
                                                            noises=eps), [x, h_cat, node_mask, context], draws)
     return torch.as_tensor(out, device=reps.devices[0])

@@ -3,8 +3,12 @@
 Port of ``bio_diffusion_tpu/train/step.py``.  A step runs on the device end
 to end and returns its metrics as device tensors: nothing is read back to
 the host per step.  Draws come from a ``torch.Generator`` unless given as
-tensors (``draws``: ``t_int [B, 1]``, ``eps_t`` and, for evaluation, ``eps_0``),
-which is how the tests feed in the JAX package's draws.
+tensors (``draws``: ``t_int [B, 1]``, ``eps_t`` and, for evaluation, ``eps_0``;
+with self-conditioning ``sc_take``, ``eps_sc`` and ``eps_sc_step``), which
+is how the tests feed in the JAX package's draws.  The Trainer seeds a
+step's generator from the run's seed and the step's count (``step_seed``),
+as the JAX step folds the count into its key, so a resumed run draws what
+the uninterrupted run draws.
 
 With ``diffusion_cfg.debug_invariants`` (``trainer.detect_anomaly`` or
 ``debug=default``) the loss's invariant checks (``utils/debug.py``) are
@@ -14,9 +18,12 @@ Off, the steps run no check and read nothing back.
 
 Data parallelism (``dp``, a ``parallel.distributed.DataParallel``): every
 rank is handed the same global batch and the same seeded generator, draws
-the whole batch's draws in ``loss_terms``' order (``loss_draws``) and keeps
+the whole batch's draws in ``loss_terms``' order (``evd.loss_draws``) and keeps
 its rows of both (``shard_rows``), so world W computes what world 1 does
 for the same seed, as a sharded array does in the JAX package.  The
+self-conditioning decision belongs to the whole batch: ``sc_take`` goes to
+every rank whole, folded with "no row of the global batch has t_int = T"
+before the split.  The
 gradients (averaged over the micro-batches first) and the step's metrics
 are all-reduced in one call before the clip, so the clip, AMSGrad and the
 EMA see the same values on every rank; there is no DDP wrapper, because
@@ -77,26 +84,25 @@ def make_loss_fn(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloader
     return loss_fn
 
 
-def loss_draws(evd, batch: DenseMolBatch, generator: Optional[torch.Generator], training: bool) -> Dict[str, Tensor]:
-    """The draws ``evd.loss_terms`` makes from ``generator`` for ``batch``, in
-    its order and shapes: ``t_int [B, 1]``, ``eps_t [B, N, 3+F]`` and, for
-    evaluation, ``eps_0``."""
-    b, n = batch.node_mask.shape
-    dev = batch.node_mask.device
-    nf = evd.num_x_dims + evd.num_node_scalar_features
-    draws = {"t_int": torch.randint(0 if training else 1, evd.T + 1, (b, 1), generator=generator, device=dev),
-             "eps_t": torch.randn((b, n, nf), generator=generator, device=dev, dtype=torch.float32)}
-    if not training:
-        draws["eps_0"] = torch.randn((b, n, nf), generator=generator, device=dev, dtype=torch.float32)
-    return draws
+def step_seed(seed: int, count: int) -> int:
+    """The seed of the draws of the optimizer step that follows ``count``
+    steps of a run seeded ``seed``: a hash of both (numpy ``SeedSequence``),
+    so every step, resumed or not, draws from a stream of its own."""
+    return int(np.random.SeedSequence([int(seed) + 1, int(count)]).generate_state(1, np.uint64)[0])
 
 
 def _rank_rows(evd, dp: DataParallel, batch, generator, draws: Draws, training: bool, by_max_nodes: bool):
     """This rank's rows of a global batch and of its draws (drawn for the
     whole batch when not given), and the batch's largest molecule where the
-    loss normalizes by it."""
+    loss normalizes by it.  A self-conditioning ``sc_take`` is the global
+    batch's decision: it is folded with "no row's t_int is T" here, before
+    the split, and goes to every rank whole."""
     if draws is None:
-        draws = loss_draws(evd, batch, generator, training)
+        draws = evd.loss_draws(batch.node_mask, generator, training)
+    if draws.get("sc_take") is not None:
+        t_int = draws["t_int"]
+        draws = dict(draws, sc_take=torch.logical_and(torch.as_tensor(draws["sc_take"], device=t_int.device),
+                                                      ~(t_int == evd.T).any()))
     max_num_nodes = batch.node_mask.sum(dim=-1).max() if by_max_nodes else None
     return shard_rows(batch, dp.rank, dp.world), shard_rows(draws, dp.rank, dp.world), max_num_nodes
 
@@ -199,7 +205,7 @@ def _replicated_eval_step(evd, diffusion_cfg, dataloader_cfg, log_pN_table, devi
     def eval_step(batch, generator: Optional[torch.Generator], draws: Draws = None):
         batch = batch.to(devices[0])
         if draws is None:
-            draws = loss_draws(evd, batch, generator, training=False)
+            draws = evd.loss_draws(batch.node_mask, generator, training=False)
         if batch.node_mask.shape[0] % nd:
             return steps[0](batch, generator, draws)
         infos: List[Dict[str, Tensor]] = []

@@ -23,8 +23,12 @@ from torch import nn
 # flax module-list names whose integer suffix is a reference container index
 _INDEXED_CONTAINERS = ("interaction_layers", "message_fusion", "feedforward_network",
                        "gcp_norm", "gcp_dropout")
-# reference entries that are not parameters of the port's modules
-_SKIP_PREFIXES = ("gamma.gamma", "num_nodes_distribution", "molecular_metrics")
+# reference entries that are not parameters of the port's modules: the
+# predefined schedule's table (``gamma.gamma``; a learned schedule's
+# ``gamma.gamma_0`` / ``gamma.gamma_1`` are parameters), the size
+# distribution and the metrics
+_SKIP_NAMES = ("gamma.gamma",)
+_SKIP_PREFIXES = ("num_nodes_distribution", "molecular_metrics")
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -49,6 +53,8 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
         if parts[-1] == "kernel":  # flax Dense [in, out] -> torch Linear [out, in]
             parts = parts[:-1] + ["weight"]
             arr = arr.T
+        elif parts[-1] == "weight" and parts[0] == "gamma" and arr.ndim == 2:
+            arr = arr.T  # the learned schedule's PositiveLinear keeps [in, out] in JAX
         elif parts[-1] == "scale" and len(parts) >= 2 and parts[-2] == "scalar_norm":
             parts = parts[:-1] + ["weight"]
         names: List[str] = []
@@ -124,7 +130,7 @@ def load_reference_state_dict(evd: nn.Module, state_dict: Dict[str, Any]) -> Non
     own = {}
     for name, value in state_dict.items():
         name = name[len("ddpm."):] if name.startswith("ddpm.") else name
-        if name.startswith(_SKIP_PREFIXES) or re.match(r"^(train|val|test)_", name):
+        if name in _SKIP_NAMES or name.startswith(_SKIP_PREFIXES) or re.match(r"^(train|val|test)_", name):
             continue
         own[name] = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
     evd.load_state_dict(own, strict=True)
@@ -138,7 +144,12 @@ def load_reference_checkpoint(evd: nn.Module, ckpt_path: str) -> None:
 
 def init_random_weights(module: nn.Module, seed: int) -> None:
     """Draw every Linear's weight and bias from U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    (PyTorch's default Linear distribution) with a generator seeded by ``seed``."""
+    (PyTorch's default Linear distribution) with a generator seeded by ``seed``,
+    then reset a learned noise schedule from the same generator (its
+    initialization: the same distribution, weights offset by -2, endpoints
+    -5 and 10), so the denoiser's weights do not depend on the schedule."""
+    from bio_diffusion_torch.models.diffusion import GammaNetwork
+
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
@@ -147,3 +158,6 @@ def init_random_weights(module: nn.Module, seed: int) -> None:
                 m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound, generator=gen))
                 if m.bias is not None:
                     m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound, generator=gen))
+        for m in module.modules():
+            if isinstance(m, GammaNetwork):
+                m.reset_parameters(gen)

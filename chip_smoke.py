@@ -195,6 +195,19 @@
    draws swapped across the replicas) must read above that limit.  Every
    rank is joined within a timeout; any failure
    fails the run.
+20. Drives self-conditioning and the learned noise schedule (right after
+   data parallelism, on the user path's QM9-layout files), fp32 at full
+   QM9 width with ``self_condition=true noise_schedule=learned
+   loss_type=vlb``: the denoiser with a nonzero self-conditioning input and
+   its parameter gradients, card against CPU; ``cli.train.main`` (B=64, 4
+   train batches, 2 EMA validation batches), each step's forward launches
+   read around it and held at 9, or 18 where that step's draws run the
+   self-conditioning pass, 9 backward a step, a finite loss and the
+   schedule's endpoints moved from -5 and 10; ``cli.mol_gen_sample.main``
+   from its checkpoint, 64 molecules at T=1000 in exactly 9 x (2 x 1000 +
+   1) = 18,009 launches, the decoded batch (positions finite, padded rows
+   0, one type a real atom) and the xyz files checked; prints ms per step
+   and s per reverse step.
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -276,11 +289,11 @@ def nbytes(*tensors) -> int:
     return out
 
 
-def qm9_experiment(precision: str):
+def qm9_experiment(precision: str, extra=()):
     from bio_diffusion_torch.config.build import build_experiment
     from bio_diffusion_torch.config.loader import default_config_dir, load_config
 
-    cfg = load_config(default_config_dir(), "serve", [f"trainer.precision={precision}"])
+    cfg = load_config(default_config_dir(), "serve", [f"trainer.precision={precision}", *extra])
     return build_experiment(cfg)
 
 
@@ -619,17 +632,13 @@ def bwd_occupancy(torch, evd):
     return out
 
 
-def check_denoiser(torch):
-    """Full-width denoiser, float32: the card (kernel) against the CPU (plain)."""
-    import copy
-
-    from bio_diffusion_torch.cli.common import load_model
+def denoiser_inputs(torch, seed, t_value, self_condition=False):
+    """A small seeded batch (B=2, N=11, molecule 1 with 3 padded rows): xh,
+    t, mask and, for a self-conditioned model, a nonzero estimate (its
+    keyword argument), on the CPU."""
     from bio_diffusion_torch.ops.geometry import centralize
 
-    exp = qm9_experiment("fp32")
-    evd_gpu = load_model(exp, None, torch.device("cuda"), seed=1)
-    evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator().manual_seed(seed)
     b, n = 2, 11
     mask = torch.ones(b, n)
     mask[1, 8:] = 0
@@ -637,17 +646,35 @@ def check_denoiser(torch):
     _, x = centralize(x, mask)
     h = torch.randn(b, n, 6, generator=gen) * mask[..., None]
     xh = torch.cat([x, h], dim=-1)
-    t = torch.full((b, 1), 0.5)
+    sc = {"xh_self_cond": torch.randn(b, n, 9, generator=gen) * mask[..., None]} if self_condition else {}
+    return xh, torch.full((b, 1), t_value), mask, sc, gen
+
+
+def check_denoiser(torch, extra=(), label="fp32"):
+    """Full-width denoiser, float32: the card (kernel) against the CPU
+    (plain); ``extra``: config overrides (a self-conditioned model gets a
+    nonzero estimate) -> max abs error."""
+    import copy
+
+    from bio_diffusion_torch.cli.common import load_model
+
+    exp = qm9_experiment("fp32", extra)
+    evd_gpu = load_model(exp, None, torch.device("cuda"), seed=1)
+    evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
+    xh, t, mask, sc, _ = denoiser_inputs(torch, 3, 0.5, exp.diffusion_cfg.self_condition)
+    b, n = mask.shape
     with torch.inference_mode():
-        out_cpu = evd_cpu.dynamics_network(xh, t, mask)
-        out_gpu = evd_gpu.dynamics_network(xh.cuda(), t.cuda(), mask.cuda()).cpu()
+        out_cpu = evd_cpu.dynamics_network(xh, t, mask, **sc)
+        out_gpu = evd_gpu.dynamics_network(xh.cuda(), t.cuda(), mask.cuda(),
+                                           **{k: v.cuda() for k, v in sc.items()}).cpu()
     err = (out_gpu - out_cpu).abs().max().item()
     ref = out_cpu.abs().max().item()
     ok = bool(torch.isfinite(out_gpu).all()) and err <= TOL_DENOISER_REL * ref
-    print(f"denoiser card-vs-cpu fp32 B={b} N={n}: max_abs_err={err:.6g} max|cpu|={ref:.6g} "
+    print(f"denoiser card-vs-cpu {label} B={b} N={n}: max_abs_err={err:.6g} max|cpu|={ref:.6g} "
           f"tol={TOL_DENOISER_REL:g} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("full-width denoiser on the card disagrees with the CPU")
+        raise AssertionError(f"full-width denoiser ({label}) on the card disagrees with the CPU")
+    return err
 
 
 def cotangents(torch, args, seed):
@@ -767,31 +794,24 @@ def check_bwd_kernel(torch, evd):
     return result
 
 
-def check_denoiser_grad(torch):
+def check_denoiser_grad(torch, extra=(), label="fp32"):
     """Full-width denoiser, float32: parameter gradients on the card (both
-    kernels) against the CPU (plain versions)."""
+    kernels) against the CPU (plain versions); ``extra`` as
+    ``check_denoiser`` -> worst relative error."""
     import copy
 
     from bio_diffusion_torch.cli.common import load_model
-    from bio_diffusion_torch.ops.geometry import centralize
 
-    exp = qm9_experiment("fp32")
+    exp = qm9_experiment("fp32", extra)
     evd_gpu = load_model(exp, None, torch.device("cuda"), seed=2)
     evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
-    gen = torch.Generator().manual_seed(4)
-    b, n = 2, 11
-    mask = torch.ones(b, n)
-    mask[1, 8:] = 0
-    x = torch.randn(b, n, 3, generator=gen) * mask[..., None]
-    _, x = centralize(x, mask)
-    h = torch.randn(b, n, 6, generator=gen) * mask[..., None]
-    xh = torch.cat([x, h], dim=-1)
-    t = torch.full((b, 1), 0.3)
+    xh, t, mask, sc, gen = denoiser_inputs(torch, 4, 0.3, exp.diffusion_cfg.self_condition)
+    b, n = mask.shape
     w = torch.randn(b, n, 9, generator=gen)
     grads = []
     for evd, dev in ((evd_cpu, "cpu"), (evd_gpu, "cuda")):
         dyn = evd.dynamics_network
-        out = dyn(xh.to(dev), t.to(dev), mask.to(dev))
+        out = dyn(xh.to(dev), t.to(dev), mask.to(dev), **{k: v.to(dev) for k, v in sc.items()})
         params = [p for _, p in dyn.named_parameters()]
         grads.append([g.cpu() for g in torch.autograd.grad((out * w.to(dev)).sum(), params)])
     names = [k for k, _ in evd_cpu.dynamics_network.named_parameters()]
@@ -805,8 +825,9 @@ def check_denoiser_grad(torch):
                                  f"err {err:.3g}, max|cpu| {scale:.3g}")
         if err / scale >= worst:
             worst, worst_name = err / scale, name
-    print(f"denoiser grad card-vs-cpu fp32 B={b} N={n}: {len(names)} parameters, worst {worst_name} "
+    print(f"denoiser grad card-vs-cpu {label} B={b} N={n}: {len(names)} parameters, worst {worst_name} "
           f"rel={worst:.3g} tol={TOL_GRAD_REL:g} ok")
+    return worst
 
 
 def drive_training(torch, precision: str, steps: int, timed_steps: int):
@@ -1077,6 +1098,120 @@ def drive_user_path(torch):
     numbers["eval_s"] = sec
     print(f"user path mol_gen_eval: {sec:.3f} s, test_nll {saved['test_nll']:.6g} (finite), launches "
           f"{counts['message_layer']}; metrics (printed, not judged) {saved}")
+    return out, numbers
+
+
+SC_LEARNED = ("model.diffusion_cfg.self_condition=true", "model.diffusion_cfg.noise_schedule=learned",
+              "model.diffusion_cfg.loss_type=vlb")
+
+
+def drive_sc_learned_path(torch, data_dir):
+    """Self-conditioning and the learned noise schedule at full QM9 width
+    (``qm9_mol_gen_ddpm``, 9 layers, T=1000, with ``SC_LEARNED``), float32,
+    on the user path's QM9-layout files: (a) the denoiser with a nonzero
+    self-conditioning input and its parameter gradients, card against CPU;
+    (b) ``cli.train.main`` (B=64, 4 train batches, 2 EMA validation
+    batches), each train step's forward launches read around it and held at
+    9, or 18 where that step's own draws (``loss_draws``: ``sc_take`` and no
+    t_int = T) run the self-conditioning pass, 9 backward launches a step,
+    18 forward a validation batch, a finite loss and the schedule's
+    endpoints moved from -5 and 10; (c) ``cli.mol_gen_sample.main`` from its
+    checkpoint, 64 molecules at T=1000: 9 x (2 x 1000 + 1) = 18,009 forward
+    launches, the decoded batch and the xyz molecules checked -> (launches
+    by path, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_sample, train
+    from bio_diffusion_torch.data.dataset_info import get_dataset_info
+    from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    numbers = {"denoiser_max_abs_err": check_denoiser(torch, SC_LEARNED, "sc+learned fp32"),
+               "denoiser_grad_worst_rel": check_denoiser_grad(torch, SC_LEARNED, "sc+learned fp32")}
+    root = os.path.join(REPO, "outputs", "sc_learned_path")
+    shutil.rmtree(root, ignore_errors=True)
+    workdir = os.path.join(root, "train")
+    args = ["experiment=qm9_mol_gen_ddpm", *SC_LEARNED, "datamodule.dataloader_cfg.dataset=QM9",
+            f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+            "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1", "trainer.limit_train_batches=4",
+            "trainer.limit_val_batches=2", "model.diffusion_cfg.sample_during_training=false", "--device=cuda",
+            f"--workdir={workdir}", "--max-epochs=1"]
+    steps = []  # per train step: forward and backward launches, host seconds (synchronized)
+    orig_make = loop.make_train_step
+
+    def make(*a, **k):
+        step = orig_make(*a, **k)
+
+        def run(*sa, **sk):
+            torch.cuda.synchronize()
+            fwd, bwd, t0 = ml.launch_counts["message_layer"], ml.launch_counts["message_layer_bwd"], time.perf_counter()
+            result = step(*sa, **sk)
+            torch.cuda.synchronize()
+            steps.append((ml.launch_counts["message_layer"] - fwd, ml.launch_counts["message_layer_bwd"] - bwd,
+                          time.perf_counter() - t0))
+            return result
+        return run
+
+    loop.make_train_step = make
+    try:
+        with spy(torch, EquivariantVariationalDiffusion, "loss_draws") as draws:
+            trainer, sec, counts = count_run(torch, lambda: train.main(args))
+    finally:
+        loop.make_train_step = orig_make
+    layers, T = trainer.exp.model_cfg.num_encoder_layers, trainer.exp.diffusion_cfg.num_timesteps
+    st = trainer.stats
+    train_draws = [c["result"] for c in draws if "sc_take" in c["result"]]
+    taken = [bool(d["sc_take"]) and not bool((d["t_int"] == T).any()) for d in train_draws]
+    need_steps = [(layers * (2 if sc else 1), layers) for sc in taken]
+    got_steps = [(f, b) for f, b, _ in steps]
+    eval_fwd = counts["message_layer"] - sum(f for f, _ in got_steps)
+    print(f"sc+learned train: {st['steps']} steps (B=64, N=29), self-conditioning pass taken {taken}; launches "
+          f"per step (fwd, bwd) {got_steps} (need {need_steps}); validation fwd {eval_fwd} (need "
+          f"{2 * layers * st['eval_batches']} for {st['eval_batches']} batches); {sec:.3f} s with set-up")
+    if st["steps"] != 4 or len(train_draws) != 4 or got_steps != need_steps \
+            or eval_fwd != 2 * layers * st["eval_batches"] or counts["message_layer_bwd"] != 4 * layers:
+        raise AssertionError("the self-conditioned training run's launch counts are not exact")
+    rows = trainer.loggers.loggers[0].rows
+    losses = [r["train/loss"] for r in rows if "train/loss" in r] + [r["valid/loss"] for r in rows if "valid/loss" in r]
+    g0, g1 = trainer.evd.gamma.gamma_0.item(), trainer.evd.gamma.gamma_1.item()
+    if not losses or not np.all(np.isfinite(losses)) or g0 == -5.0 or g1 == 10.0:
+        raise AssertionError(f"losses {losses}, schedule endpoints ({g0}, {g1})")
+    ms = [1e3 * t for _, _, t in steps]
+    numbers.update(train_ms_per_step=ms, sc_taken=taken, gamma_0=g0, gamma_1=g1)
+    print(f"sc+learned train: losses {losses} (finite), gamma_0 {g0:.6g}, gamma_1 {g1:.6g} (moved from -5, 10); "
+          f"ms/step {[round(v, 3) for v in ms]} (host, synchronized; 18-launch steps where the pass ran)")
+    out = {"fwd": {"sc_train": counts["message_layer"]}, "bwd": {"sc_train": counts["message_layer_bwd"]}}
+
+    cli = [*SC_LEARNED, f"ckpt_path={trainer.ckpt_dir}", "device=cuda", "precision=fp32", "num_samples=64",
+           "sampling_batch_size=64", f"output_dir={root}/samples"]
+    with spy(torch, SegmentedSampler, "run") as batches:
+        metrics, sec, counts = count_run(torch, lambda: mol_gen_sample.main(cli))
+    need = layers * (2 * T + 1)
+    if len(batches) != 1 or counts["message_layer"] != need or batches[0]["launches"] != need:
+        raise AssertionError(f"sc+learned mol_gen_sample launched {counts['message_layer']} in {len(batches)} "
+                             f"batch(es), need {need} in one")
+    # positions and types of the decoded batch (the charges of untrained
+    # weights can overflow float32 over 1000 steps, as in every path)
+    xh, mask = batches[0]["result"], np.asarray(batches[0]["args"][1])
+    real = mask > 0
+    k = len(get_dataset_info("QM9")["atom_decoder"])
+    xk = xh[..., :3 + k]
+    faults = {"non-finite positions": not np.isfinite(xk).all(), "nonzero padded rows": bool(np.any(xk[~real] != 0)),
+              "not one type a real atom": bool(np.any(xk[..., 3:][real].sum(-1) != 1)),
+              "non-finite charges": not np.isfinite(xh[..., 3 + k:]).all()}
+    print(f"sc+learned samples: {faults}")
+    if any(v for f, v in faults.items() if f != "non-finite charges"):
+        raise AssertionError(f"sc+learned samples: {faults}")
+    check_molecules(xyz_molecules(os.path.join(root, "samples"), get_dataset_info("QM9")), 64)
+    loop_s = batches[0]["s"]
+    out["fwd"]["sc_sample_cli"] = counts["message_layer"]
+    numbers.update(sample_s_per_step=loop_s / T, sample_mol_per_s=64 / loop_s, sample_cli_s=sec)
+    print(f"sc+learned mol_gen_sample: 64 molecules pass the checks; the sampler's batch of 64 (prior, T={T} "
+          f"steps of 2 denoiser calls, decode) took {loop_s:.3f} s = {loop_s / T:.6f} s per reverse step, "
+          f"{64 / loop_s:.3f} molecules/s; the CLI call {sec:.3f} s with set-up; launches {counts['message_layer']} "
+          f"(need {need}); metrics (printed, not judged) {metrics}")
     return out, numbers
 
 
@@ -2219,11 +2354,11 @@ def time_reverse_steps(torch, server, layers, b1_ms, b=250, n=19, steps=20):
     s_values = np.arange(T - 1, T - 3 - steps, -1, dtype=np.float32)
     with torch.inference_mode():
         z = evd.init_sample_noise(mask, gen)
-        z = evd.reverse_segment(z, s_values[:2] / T, (s_values[:2] + 1) / T, mask, gen)
+        z, _ = evd.reverse_segment(z, s_values[:2] / T, (s_values[:2] + 1) / T, mask, gen)
         launches0 = ml.launch_counts["message_layer"]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        z = evd.reverse_segment(z, s_values[2:] / T, (s_values[2:] + 1) / T, mask, gen)
+        z, _ = evd.reverse_segment(z, s_values[2:] / T, (s_values[2:] + 1) / T, mask, gen)
         end.record()
         torch.cuda.synchronize()
     ms = start.elapsed_time(end) / steps
@@ -2820,6 +2955,10 @@ def main() -> int:
     dp_numbers["phase_s"] = time.perf_counter() - t0
     print(f"data parallel phase: {dp_numbers['phase_s']:.3f} s")
     t0 = time.perf_counter()
+    sc_launches, sc_numbers = drive_sc_learned_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
+    sc_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"self-conditioning and learned schedule phase: {sc_numbers['phase_s']:.3f} s")
+    t0 = time.perf_counter()
     cond_launches, cond_numbers = drive_conditional_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
     cond_numbers["phase_s"] = time.perf_counter() - t0
     print(f"conditional path phase: {cond_numbers['phase_s']:.3f} s")
@@ -2863,10 +3002,10 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
         "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values()) + sum(dp_launches["fwd"].values())
-        + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
+        + sum(sc_launches["fwd"].values()) + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
         + sum(pocket_launches["fwd"].values()) + sum(new_fwd.values()),
         "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"], **dp_launches["fwd"],
-                             **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"], **new_fwd},
+                             **sc_launches["fwd"], **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"], **new_fwd},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -2881,6 +3020,7 @@ def main() -> int:
         "reverse_step_ms_b250": step_ms_b250,
         "user_path": user_numbers,
         "data_parallel": dp_numbers,
+        "sc_learned_path": sc_numbers,
         "conditional_path": cond_numbers,
         "geom": geom_fwd,
         "pocket": pocket_numbers,
@@ -2892,9 +3032,10 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
         "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(dp_launches["bwd"].values())
-        + sum(cond_launches["bwd"].values())
+        + sum(sc_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
         + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()) + sum(new_bwd.values()),
-        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **dp_launches["bwd"], **cond_launches["bwd"],
+        "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **dp_launches["bwd"], **sc_launches["bwd"],
+                             **cond_launches["bwd"],
                              **geom_launches["bwd"], **pocket_launches["bwd"], **new_bwd},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],

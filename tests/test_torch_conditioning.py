@@ -230,7 +230,7 @@ def test_reverse_steps_with_context_match_jax(setup):
         noises.append(raw_noise(k1, b, n))
     tm, tc = torch.from_numpy(mask), torch.from_numpy(batch.context)
     with torch.inference_mode():
-        z = evd.reverse_segment(torch.from_numpy(np.array(z0)), s_vals, t_vals, tm, noises=noises, context=tc)
+        z, _ = evd.reverse_segment(torch.from_numpy(np.array(z0)), s_vals, t_vals, tm, noises=noises, context=tc)
         np.testing.assert_allclose(z.numpy(), np.asarray(z_j), atol=ATOL, rtol=0)
         xh = evd.decode_sample(z, tm, noise=raw_noise(k_dec, b, n), context=tc).numpy()
     assert xh.shape == (b, n, 3 + NUM_FEATURES)  # no charge column

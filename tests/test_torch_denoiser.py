@@ -126,5 +126,3 @@ def test_unsupported_configuration_raises(models):
     mc, mod, lc, dc, dl = models[0]
     with pytest.raises(NotImplementedError):
         GCPNetDynamics(mc, dataclasses.replace(mod, selected_gcp="gcp"), lc, dc, dl)
-    with pytest.raises(NotImplementedError):
-        GCPNetDynamics(mc, mod, lc, dataclasses.replace(dc, self_condition=True), dl)

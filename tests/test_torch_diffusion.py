@@ -86,7 +86,7 @@ def test_ten_step_chain_and_decode_match(models):
     with torch.inference_mode():
         z = evd.init_sample_noise(tm, noise=jax_raw_noise(k_init, b, n))
         np.testing.assert_allclose(z.numpy(), np.asarray(z0_j), atol=1e-6, rtol=0)
-        z = evd.reverse_segment(z, s_vals, t_vals, tm, noises=step_noises)
+        z, _ = evd.reverse_segment(z, s_vals, t_vals, tm, noises=step_noises)
         np.testing.assert_allclose(z.numpy()[..., :3], np.asarray(zT_j)[..., :3], atol=ATOL, rtol=0)
         xh = evd.decode_sample(z, tm, noise=jax_raw_noise(k_dec, b, n)).numpy()
 

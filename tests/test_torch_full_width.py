@@ -80,7 +80,7 @@ def test_full_width_ten_step_chain_matches_jax():
         z = evd.init_sample_noise(tm, noise=jax_raw_noise(k_init, b, n))
         np.testing.assert_allclose(z.numpy(), z0_j, rtol=0, atol=1e-6)
         frames = torch.empty((len(s_vals),) + z.shape)
-        z = evd.reverse_segment(z, s_norm, t_norm, tm, noises=draws, frames=frames,
+        z, _ = evd.reverse_segment(z, s_norm, t_norm, tm, noises=draws, frames=frames,
                                 frame_steps=range(len(s_vals)))
         np.testing.assert_allclose(z.numpy()[..., :3], z_j[..., :3], rtol=0, atol=ATOL)
         h_scale = float(np.abs(z_j[..., 3:]).max())

@@ -89,12 +89,12 @@ def raw_noise(key, b, n, f):
 
 def inpaint_draws(key, steps, b, n, f):
     """JAX ``inpaint``'s draws from ``key`` in the port's order: prior,
-    (known, reverse, jump) a step, decode."""
+    (known, reverse, self-conditioning, jump) a step, decode."""
     key, k_init = jax.random.split(key)
     noises = [raw_noise(k_init, b, n, f)]
     for _ in range(steps):
-        key, k_known, k_unknown, _, k_jump = jax.random.split(key, 5)
-        noises += [raw_noise(k_known, b, n, f), raw_noise(k_unknown, b, n, f), raw_noise(k_jump, b, n, f)]
+        key, k_known, k_unknown, k_sc, k_jump = jax.random.split(key, 5)
+        noises += [raw_noise(k, b, n, f) for k in (k_known, k_unknown, k_sc, k_jump)]
     key, k_final = jax.random.split(key)
     return noises + [raw_noise(k_final, b, n, f)]
 

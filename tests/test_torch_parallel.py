@@ -7,7 +7,10 @@
   1 and 2 (JAX's draws), 2 steps drawing from a seeded generator, a ragged
   batch (B=3 on 2 ranks: every rank takes the whole batch) and a GEOM-style
   batch padded to its bucket; float32, atol 1e-6 on the parameters and rtol
-  1e-6 on the loss, as ``test_accumulated_step_equals_the_big_batch_step``.
+  1e-6 on the loss, as ``test_accumulated_step_equals_the_big_batch_step``;
+  and a self-conditioned model's 2 steps, one where only rank 1's rows
+  hold t_int = T (the pass is the global batch's decision, taken by no
+  rank) and one where the pass runs, and 2 from a seeded generator.
 * The same steps against the JAX step on a 2-device CPU mesh
   (``make_mesh(num_devices=2)`` + ``shard_batch``) with JAX's draws, at the
   tolerances of ``test_three_train_steps_match_jax``.
@@ -86,6 +89,15 @@ def test_row_rules():
     np.testing.assert_array_equal(half.x, [3, 4, 5])
     assert torch.equal(half.one_hot, torch.tensor([3, 4, 5])) and half.context is None
     assert distributed.shard_rows({"a": torch.arange(4)}, 0, 2)["a"].tolist() == [0, 1]
+
+
+def test_row_rules_keep_scalars_whole():
+    """A 0-dim tensor or a bool among the leaves (self-conditioning's
+    ``sc_take``, the whole batch's decision) goes to every rank whole."""
+    take = torch.tensor(True)
+    draws = {"sc_take": take, "t_int": torch.arange(6)[:, None], "flag": False}
+    half = distributed.shard_rows(draws, 1, 2)
+    assert half["sc_take"] is take and half["flag"] is False and half["t_int"].flatten().tolist() == [3, 4, 5]
 
 
 def test_model_shards_raise():
@@ -220,12 +232,30 @@ def step_setup(tmp_path_factory):
     corrupted = dataclasses.replace(first, x=first.x.clone())
     corrupted.x[5, 6] = 7.7
     cases["corrupted"] = dict(cases["checked"], steps=[corrupted])
+    # self-conditioning (its own weights: the embeddings' inputs are doubled).
+    # The pass is the global batch's decision: with sc_take drawn true, step 0
+    # has t_int = T in molecule 5 only (rank 1's rows), so no rank may run the
+    # pass; step 1 has no T, so both must.  Then the same from a seeded generator.
+    sc_cfgs = cfgs[:3] + (dataclasses.replace(cfgs[3], self_condition=True), cfgs[4])
+    sc_evd = EquivariantVariationalDiffusion(GCPNetDynamics(*sc_cfgs), sc_cfgs[3], sc_cfgs[4])
+    init_random_weights(sc_evd, 2)
+    gen, sc_draws = torch.Generator().manual_seed(9), []
+    for s, batch in enumerate((first, second)):
+        d = sc_evd.loss_draws(batch.node_mask, gen, True)
+        t_int = d["t_int"].clamp(max=sc_evd.T - 1)
+        if s == 0:
+            t_int[5] = sc_evd.T
+        sc_draws.append(dict(d, t_int=t_int, sc_take=torch.tensor(True)))
+    cases["self_condition"] = {"state_dict": reference_state_dict(sc_evd), "table": table, "accum": 1,
+                               "draws": sc_draws, "steps": [first, second], "diffusion": {"self_condition": True}}
+    cases["self_condition_seeded"] = dict(cases["self_condition"], draws=None, seed=5)
     world1 = {name: run_steps(None, case) for name, case in cases.items()}
     world2 = run_group("train_steps", 2, str(tmp_path_factory.mktemp("dp_steps")), cases)
     return {"cases": cases, "world1": world1, "world2": world2, "jax": jax_runs, "geom": geom}
 
 
-@pytest.mark.parametrize("name", ["accum1", "accum2", "seeded", "ragged", "geom", "max_nodes", "checked"])
+@pytest.mark.parametrize("name", ["accum1", "accum2", "seeded", "ragged", "geom", "max_nodes", "checked",
+                                  "self_condition", "self_condition_seeded"])
 def test_dp_step_equals_world_one(step_setup, name):
     """Two steps at world 2 equal two steps at world 1 on the global batches
     with the same draws; the two ranks hold identical states."""
@@ -348,7 +378,7 @@ def direct_sample(evd, mask, generator, fix_noise=False, frame_steps=None):
         z = evd.init_sample_noise(mask, generator, fix_noise)
         frames = None if frame_steps is None else torch.empty((len(frame_steps),) + z.shape)
         s_values = np.arange(evd.T - 1, -1, -1, dtype=np.float32)
-        z = evd.reverse_segment(z, s_values / evd.T, (s_values + 1) / evd.T, mask, generator, fix_noise,
+        z, _ = evd.reverse_segment(z, s_values / evd.T, (s_values + 1) / evd.T, mask, generator, fix_noise,
                                 frames=frames, frame_steps=frame_steps)
         xh = evd.decode_sample(z, mask, generator, fix_noise).numpy()
     return xh, None if frames is None else frames.numpy()

@@ -9,8 +9,13 @@ go through ``cli.train.main`` in this process without a launcher (world 1):
   parameters; rtol 1e-6 on the logged loss), rank 0 alone logs and writes
   exactly one checkpoint set;
 * a resume at world 2 (2 steps, then a second run to 4 on the same workdir)
-  equal to the same resume at world 1 (the port restarts the data order and
-  the draws on resume, so the reference is the resumed run at world 1);
+  equal to the same resume at world 1 (the port restarts the data order on
+  resume, as the JAX package does, so the reference is the resumed run at
+  world 1);
+* a step's draws depend on its count alone: on the same batches
+  (``trainer.overfit_batches=2``, the same two batches every epoch), 2
+  steps and a resumed run to 4 equal 4 uninterrupted steps, at world 1 (bit
+  for bit) and at world 2;
 * early stopping stops both ranks at the same epoch as world 1.
 """
 
@@ -24,6 +29,7 @@ from torch_parallel_workers import TINY_OVERRIDES, run_group, trainer_summary
 BASE = TINY_OVERRIDES + ["datamodule.dataloader_cfg.batch_size=8", "trainer.limit_train_batches=2",
                          "trainer.limit_val_batches=1", "trainer.check_val_every_n_epoch=1",
                          "model.diffusion_cfg.sample_during_training=false", "--device=cpu"]
+SAME_BATCHES = ["trainer.overfit_batches=2"]
 EARLY = ["trainer.early_stopping_monitor=val/loss", "trainer.early_stopping_patience=1",
          "trainer.early_stopping_min_delta=1e9", "trainer.min_epochs=1", "--max-epochs=5"]
 TOL_PARAMS = dict(rtol=0, atol=1e-6)
@@ -34,7 +40,10 @@ def plans(root):
     return [("two_steps", BASE + ["--max-steps=2", f"--workdir={root}/a"]),
             ("resume_first", BASE + ["--max-steps=2", f"--workdir={root}/b"]),
             ("resume_second", BASE + ["--max-steps=4", f"--workdir={root}/b"]),
-            ("early_stop", BASE + EARLY + [f"--workdir={root}/c"])]
+            ("early_stop", BASE + EARLY + [f"--workdir={root}/c"]),
+            ("uninterrupted", BASE + SAME_BATCHES + ["--max-steps=4", f"--workdir={root}/d"]),
+            ("same_first", BASE + SAME_BATCHES + ["--max-steps=2", f"--workdir={root}/e"]),
+            ("same_resumed", BASE + SAME_BATCHES + ["--max-steps=4", f"--workdir={root}/e"])]
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +97,23 @@ def test_resume_at_world_two_equals_world_one(runs):
     r0, r1 = [w["resume_second"] for w in runs["world2"]]
     assert_same_state(r0, r1, "rank 1 vs rank 0")
     assert_same_state(r0, w1, "world 2 vs world 1", **TOL_PARAMS)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_resume_continues_the_uninterrupted_draws(runs, world):
+    """2 steps, then a resumed run to 4, on the same batches, equal 4
+    uninterrupted steps: step k draws what it draws without the resume."""
+    if world == 1:
+        ref, resumed = runs["world1"]["uninterrupted"], runs["world1"]["same_resumed"]
+        tol = {}
+    else:
+        ref = runs["world1"]["uninterrupted"]
+        resumed = runs["world2"][0]["same_resumed"]
+        assert_same_state(resumed, runs["world2"][1]["same_resumed"], "rank 1 vs rank 0")
+        assert_same_state(runs["world2"][0]["uninterrupted"], ref, "world 2 vs world 1", **TOL_PARAMS)
+        tol = TOL_PARAMS
+    assert (resumed["start_step"], resumed["count"], ref["count"]) == (2, 4, 4)
+    assert_same_state(resumed, ref, f"resumed vs uninterrupted at world {world}", **tol)
 
 
 def test_early_stopping_stops_both_ranks_together(runs):
