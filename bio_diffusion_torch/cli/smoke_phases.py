@@ -38,6 +38,7 @@ PHASES = (
     ("user path", "user path phase"),
     ("data parallel", "data parallel phase"),
     ("self-conditioning and learned schedule", "self-conditioning and learned schedule phase"),
+    ("module-path denoisers", "module-path denoisers phase"),
     ("conditional path", "conditional path phase"),
     ("GEOM path", "GEOM path phase"),
     ("pocket path", "pocket path phase"),

@@ -74,6 +74,8 @@ def build_experiment(cfg: Dict[str, Any]) -> ExperimentConfig:
     precision = str(trainer_raw.get("precision", "fp32"))
     trainer = from_dict(TrainerConfig, trainer_raw)
     trainer.precision = precision
+    if isinstance(trainer.fast_train, bool):  # YAML reads on/off as booleans
+        trainer.fast_train = "on" if trainer.fast_train else "off"
     diffusion = from_dict(DiffusionConfig, model.get("diffusion_cfg", {}))
     if trainer.detect_anomaly:
         # reference trainer.detect_anomaly (configs/debug/default.yaml:33)
@@ -156,16 +158,28 @@ def build_datasets(exp: ExperimentConfig) -> Dict[str, Any]:
     raise ValueError(f"unknown dataset {dl.dataset!r}")
 
 
-def build_evd(exp: ExperimentConfig):
+def build_evd(exp: ExperimentConfig, fast: str = "auto"):
     """The port's EVD with the configured denoiser on the CPU, weights not
-    yet set; ``trainer.precision`` bf16 gives the bf16 network body."""
+    yet set: ``dynamics_network`` gcpnet (its packed forward where the
+    configuration allows it and ``fast`` is not "off", else its module
+    forward; ``fast`` "on" or "pallas" where it does not raise
+    ``ValueError``, as the JAX Trainer does) or egnn (never packed: "on" or
+    "pallas" raise); ``trainer.precision`` bf16 gives the bf16 network body."""
     from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
-    from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
 
-    if exp.diffusion_cfg.dynamics_network != "gcpnet":
-        raise NotImplementedError(
-            f"dynamics network {exp.diffusion_cfg.dynamics_network!r} is not ported yet (ROADMAP A13)")
     compute_dtype = "bfloat16" if exp.trainer.precision in ("bf16", "bfloat16") else None
-    dynamics = GCPNetDynamics(exp.model_cfg, exp.module_cfg, exp.layer_cfg, exp.diffusion_cfg,
-                              exp.dataloader_cfg, compute_dtype=compute_dtype)
+    cfgs = (exp.model_cfg, exp.module_cfg, exp.layer_cfg, exp.diffusion_cfg, exp.dataloader_cfg)
+    name = exp.diffusion_cfg.dynamics_network
+    if name == "gcpnet":
+        from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
+
+        dynamics = GCPNetDynamics(*cfgs, compute_dtype=compute_dtype, fast=fast)
+    elif name == "egnn":
+        from bio_diffusion_torch.models.egnn import EGNNDynamics
+
+        if fast in ("on", "pallas"):
+            raise ValueError(f"trainer.fast_train={fast} but the model config is not supported by the fast path")
+        dynamics = EGNNDynamics(*cfgs, compute_dtype=compute_dtype)
+    else:
+        raise ValueError(f"Unknown dynamics network {name}")
     return EquivariantVariationalDiffusion(dynamics, exp.diffusion_cfg, exp.dataloader_cfg)

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bio_diffusion_torch.config.schema import DataloaderConfig, DiffusionConfig, compute_num_atom_types
+from bio_diffusion_torch.models.nn import DropoutDraws
 from bio_diffusion_torch.ops.geometry import centralize
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
 from bio_diffusion_torch.utils.debug import check_correctly_masked, check_finite, check_mean_zero_with_mask
@@ -426,7 +427,8 @@ class EquivariantVariationalDiffusion(nn.Module):
                    generator: Optional[torch.Generator] = None, t_int: Optional[Tensor] = None,
                    eps_t: Optional[Tensor] = None, eps_0: Optional[Tensor] = None,
                    context: Optional[Tensor] = None, sc_take=None, eps_sc: Optional[Tensor] = None,
-                   eps_sc_step: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                   eps_sc_step: Optional[Tensor] = None,
+                   dropout_rows: Optional[Tuple[int, slice]] = None) -> Dict[str, Tensor]:
         """All per-graph loss/NLL terms; ``x`` must already be CoM-free.
 
         Draws come from ``generator`` unless given (:meth:`loss_draws`):
@@ -443,7 +445,14 @@ class EquivariantVariationalDiffusion(nn.Module):
         t_int is T, a no-grad pass noises the batch at t+1 (``eps_sc``) and
         takes one reverse step to s=0 from there (``eps_sc_step``); its
         result is the main denoiser call's ``xh_self_cond``, else zeros
-        (also in evaluation).  Deciding reads one value back to the host."""
+        (also in evaluation).  Deciding reads one value back to the host.
+
+        In training the main denoiser call draws its dropout masks (a model
+        with GCP dropout) from ``generator``, after the draws above; a
+        data-parallel rank passes ``dropout_rows`` (the global batch's size,
+        its rows) to draw them at the global batch's shape and keep its
+        rows.  Every other denoiser call is deterministic (JAX
+        ``deterministic=not training``)."""
         dc = self.diffusion_cfg
         b = node_mask.shape[0]
         num_nodes = node_mask.to(x.dtype).sum(dim=-1)
@@ -480,7 +489,8 @@ class EquivariantVariationalDiffusion(nn.Module):
                                                                    noise=draws["eps_sc"])
                 self_cond = self.self_condition_step(t_sc, z_t_sc, node_mask, noise=draws["eps_sc_step"],
                                                      context=context)
-        net_out = self.dynamics_network(z_t, t, node_mask, context, self_cond)
+        dropout = DropoutDraws(generator, *(dropout_rows or ())) if training else None
+        net_out = self.dynamics_network(z_t, t, node_mask, context, self_cond, dropout=dropout)
         check_correctly_masked(dbg, net_out[..., :self.num_x_dims], node_mask, "net_out vel")
         check_finite(dbg, net_out, "net_out")
         error_t = sum_except_batch((eps_t - net_out) ** 2)

@@ -16,11 +16,15 @@ on materialized ``[B, N, N, .]`` tensors and its chain through the flat-edge
 kernel (``ops/gcp2_chain.py``).  As in the JAX package, the denoiser's
 forward does not take it.
 
-The port covers the configuration the fast path supports (GCP2 with vector
-gates, no norm/dropout/ablations, one feedforward GCP, scalar message
-attention, residual message stack), with or without property conditioning
-and self-conditioning; ``GCPNetDynamics`` raises ``NotImplementedError``
-for anything else.
+The packed forward covers the configurations of ``supports_fast_path``
+(GCP2 with vector gates, no norm/dropout/ablations, one feedforward GCP,
+scalar message attention, residual message stack), with or without property
+conditioning and self-conditioning.  Every other configuration takes the
+module forward (JAX ``gcpnet.py``'s flax modules as PyTorch ops): GCP v1,
+GCP2's frame and norm gates, vector residuals and ablations, GCP norm,
+pre-norm and dropout, any message stack, any number of feedforward GCPs, the
+vector-sum position update and every nonlinearity.  The choice is made from
+the configuration when the denoiser is built, never at run time.
 """
 
 from __future__ import annotations
@@ -35,14 +39,17 @@ from bio_diffusion_torch.config.schema import (
     DataloaderConfig, DiffusionConfig, LayerConfig, ModelConfig, ModuleConfig,
     compute_num_atom_types,
 )
-from bio_diffusion_torch.models.gcp import GCP2
+from bio_diffusion_torch.models.gcp import make_gcp
+from bio_diffusion_torch.models.gcp_fused import GCP2FusedEdgeMessage
+from bio_diffusion_torch.models.nn import DropoutDraws, GCPDropout, GCPLayerNorm
 from bio_diffusion_torch.ops.gcp2_chain import fused_gcp2_chain, gcp2_chain_plain
 from bio_diffusion_torch.ops.geometry import (
-    build_edge_mask, centralize, edge_features, localize, node_mean_frames, orientations,
+    build_edge_mask, centralize, edge_features, localize, masked_sum, node_mean_frames, orientations,
 )
 from bio_diffusion_torch.ops.message_layer import (
     cast_parameters, detached, message_layer, pack_message_stack, stack_chain,
 )
+from bio_diffusion_torch.ops.scalar_vector import ScalarVector
 
 Tensor = torch.Tensor
 
@@ -70,48 +77,149 @@ def supports_fast_path(module_cfg: ModuleConfig, layer_cfg: LayerConfig) -> bool
     )
 
 
+def uses_fused_first_message(module_cfg: ModuleConfig) -> bool:
+    """Whether the first message GCP runs per part (``GCP2FusedEdgeMessage``)
+    rather than on the materialized concat (JAX ``gcpnet.py:136-143``)."""
+    return (
+        module_cfg.selected_gcp.lower() == "gcp2"
+        and not module_cfg.frame_gate
+        and not module_cfg.ablate_frame_updates
+        and not module_cfg.ablate_scalars
+        and not module_cfg.ablate_vectors
+        and not module_cfg.default_vector_residual
+    )
+
+
+def _apply(gcp: nn.Module, rep: ScalarVector, frames: Tensor) -> ScalarVector:
+    """A GCP (coords-major inside) on a ScalarVector (``[..., V, 3]``); a
+    module without vector outputs gives ``[..., 0, 3]`` vectors."""
+    s, v_cm = gcp(rep.scalar, rep.vector_cm, frames)
+    if v_cm is None:
+        return ScalarVector(s, s.new_zeros(s.shape[:-1] + (0, 3)))
+    return ScalarVector.from_cm(s, v_cm)
+
+
 class GCPEmbedding(nn.Module):
-    """One edge GCP and one node GCP (the GCP norms are identities here)."""
+    """One edge GCP and one node GCP, each input GCP-normed first (an identity
+    without ``use_gcp_norm``; the denoiser always pre-norms its embedding)."""
 
     def __init__(self, edge_input_dims, node_input_dims, edge_hidden_dims, node_hidden_dims,
-                 module_cfg: ModuleConfig):
+                 module_cfg: ModuleConfig, use_gcp_norm: bool = False):
         super().__init__()
-        self.edge_embedding = GCP2(edge_input_dims, edge_hidden_dims, module_cfg.nonlinearities)
-        self.node_embedding = GCP2(node_input_dims, node_hidden_dims, (None, None))
+        self.edge_normalization = GCPLayerNorm(edge_input_dims[0], use_gcp_norm)
+        self.node_normalization = GCPLayerNorm(node_input_dims[0], use_gcp_norm)
+        sel = module_cfg.selected_gcp
+        self.edge_embedding = make_gcp(sel, edge_input_dims, edge_hidden_dims, module_cfg,
+                                       nonlinearities=module_cfg.nonlinearities)
+        self.node_embedding = make_gcp(sel, node_input_dims, node_hidden_dims, module_cfg,
+                                       nonlinearities=(None, None))
+
+    def forward(self, node_rep: ScalarVector, edge_rep: ScalarVector, edge_frames: Tensor,
+                node_frames: Tensor) -> Tuple[ScalarVector, ScalarVector]:
+        edge_rep, node_rep = self.edge_normalization(edge_rep), self.node_normalization(node_rep)
+        return _apply(self.node_embedding, node_rep, node_frames), _apply(self.edge_embedding, edge_rep, edge_frames)
 
 
 class GCPMessagePassing(nn.Module):
-    """Residual stack of message GCPs over [node_i | edge_ij | node_j] plus
-    sigmoid scalar attention; the forward is the packed message layer."""
+    """A stack of ``num_message_layers`` message GCPs over [node_i | edge_ij |
+    node_j] on every edge (residual, or not), optional sigmoid scalar
+    attention, and the masked sum over targets.  The packed forward runs it
+    as one message-layer kernel; :meth:`forward` is the module path."""
 
     def __init__(self, node_dims, edge_dims, module_cfg: ModuleConfig, layer_cfg: LayerConfig):
         super().__init__()
+        cfg, num = module_cfg, layer_cfg.mp_cfg.num_message_layers
         s, v = node_dims
         se, ve = edge_dims
-        nl = module_cfg.nonlinearities
-        num = layer_cfg.mp_cfg.num_message_layers
-        fusion = [GCP2((2 * s + se, 2 * v + ve), node_dims, nl, bottleneck=module_cfg.default_bottleneck)]
-        fusion += [GCP2(node_dims, node_dims, nl, bottleneck=module_cfg.bottleneck)
-                   for _ in range(num - 2)]
+        self.residual = layer_cfg.mp_cfg.use_residual_message_gcp
+        self.fused = uses_fused_first_message(cfg)
+
+        def primary(in_dims):
+            return make_gcp(cfg.selected_gcp, in_dims, node_dims, cfg, bottleneck=cfg.default_bottleneck,
+                            vector_residual=cfg.default_vector_residual)
+
+        if self.fused:
+            first = GCP2FusedEdgeMessage(node_dims, edge_dims, node_dims, cfg.nonlinearities,
+                                         vector_gate=cfg.vector_gate, bottleneck=cfg.default_bottleneck)
+        else:
+            first = primary((2 * s + se, 2 * v + ve))
+        fusion = [first] + [make_gcp(cfg.selected_gcp, node_dims, node_dims, cfg, bottleneck=cfg.bottleneck,
+                                     vector_residual=cfg.vector_residual) for _ in range(num - 2)]
         if num > 1:
-            fusion.append(GCP2(node_dims, node_dims, nl, bottleneck=module_cfg.default_bottleneck))
+            fusion.append(primary(node_dims))
         self.message_fusion = nn.ModuleList(fusion)
-        self.scalar_message_attention = nn.Sequential(nn.Linear(s, 1), nn.Sigmoid())
+        if layer_cfg.use_scalar_message_attention:
+            self.scalar_message_attention = nn.Sequential(nn.Linear(s, 1), nn.Sigmoid())
+
+    def forward(self, node_rep: ScalarVector, edge_rep: ScalarVector, edge_frames: Tensor,
+                edge_mask: Tensor) -> ScalarVector:
+        """Nodes ``[B, N, .]``, edges ``[B, N, N, .]`` -> the aggregated messages ``[B, N, .]``."""
+        s, v_cm = node_rep.scalar, node_rep.vector_cm
+        e, xi_cm = edge_rep.scalar, edge_rep.vector_cm
+        if self.fused:
+            ms, mv = self.message_fusion[0](s, v_cm, e, xi_cm, edge_frames)
+        else:
+            n = s.shape[-2]
+            s_i = s[..., :, None, :].expand(*s.shape[:-2], n, n, s.shape[-1])
+            v_i = v_cm[..., :, None, :, :].expand(*v_cm.shape[:-3], n, n, *v_cm.shape[-2:])
+            ms, mv = self.message_fusion[0](
+                torch.cat([s_i, e, s_i.transpose(-3, -2)], dim=-1),
+                torch.cat([v_i, xi_cm, v_i.transpose(-4, -3)], dim=-1), edge_frames)
+        for gcp in self.message_fusion[1:]:
+            ds, dv = gcp(ms, mv, edge_frames)
+            ms, mv = (ms + ds, mv + dv) if self.residual else (ds, dv)
+        if hasattr(self, "scalar_message_attention"):
+            lin = self.scalar_message_attention[0]
+            ms = ms * torch.sigmoid(F.linear(ms, lin.weight.to(ms.dtype), lin.bias.to(ms.dtype)))
+        # the masked sum over targets j
+        return ScalarVector.from_cm(masked_sum(ms, edge_mask, dim=-2), masked_sum(mv, edge_mask, dim=-3))
 
 
 class GCPInteractions(nn.Module):
-    """One denoiser layer: message passing, feedforward GCP, position update."""
+    """One denoiser layer: message passing, the feedforward GCPs, GCP dropout
+    and norm, the position update."""
 
-    def __init__(self, node_dims, edge_dims, module_cfg: ModuleConfig, layer_cfg: LayerConfig):
+    def __init__(self, node_dims, edge_dims, module_cfg: ModuleConfig, layer_cfg: LayerConfig,
+                 dropout: float = 0.0):
         super().__init__()
+        cfg, lc = module_cfg, layer_cfg
         s, v = node_dims
-        self.interaction = GCPMessagePassing(node_dims, edge_dims, module_cfg, layer_cfg)
-        self.feedforward_network = nn.ModuleList([
-            GCP2((2 * s, 2 * v), node_dims, (None, None), feedforward_out=True,
-                 bottleneck=module_cfg.bottleneck)
-        ])
-        self.node_position_update_gcp = GCP2(node_dims, (s, 1), module_cfg.nonlinearities,
-                                             bottleneck=module_cfg.bottleneck)
+        sel = cfg.selected_gcp
+        self.pre_norm = lc.pre_norm
+        self.vector_sum = cfg.update_positions_with_vector_sum
+        self.positions_weight = cfg.node_positions_weight
+        self.gcp_norm = nn.ModuleList([GCPLayerNorm(s, lc.use_gcp_norm)])
+        self.interaction = GCPMessagePassing(node_dims, edge_dims, cfg, lc)
+        n_ff = lc.num_feedforward_layers
+        hidden = node_dims if n_ff == 1 else (4 * s, 2 * v)
+        ff = [make_gcp(sel, (2 * s, 2 * v), hidden, cfg, nonlinearities=(None, None) if n_ff == 1 else None,
+                       bottleneck=cfg.bottleneck, vector_residual=False, feedforward_out=n_ff == 1)]
+        ff += [make_gcp(sel, hidden, hidden, cfg, bottleneck=cfg.bottleneck) for _ in range(n_ff - 2)]
+        if n_ff > 1:
+            ff.append(make_gcp(sel, hidden, node_dims, cfg, nonlinearities=(None, None), bottleneck=cfg.bottleneck,
+                               vector_residual=False, feedforward_out=True))
+        self.feedforward_network = nn.ModuleList(ff)
+        self.gcp_dropout = nn.ModuleList([GCPDropout(dropout, lc.use_gcp_dropout)])
+        self.node_position_update_gcp = make_gcp(sel, node_dims, node_dims if self.vector_sum else (s, 1), cfg,
+                                                 bottleneck=cfg.bottleneck, vector_residual=False)
+
+    def forward(self, node_rep: ScalarVector, edge_rep: ScalarVector, edge_frames: Tensor, node_frames: Tensor,
+                node_mask: Tensor, edge_mask: Tensor, node_pos: Tensor,
+                dropout: Optional[DropoutDraws] = None) -> Tuple[ScalarVector, Tensor]:
+        norm = self.gcp_norm[0]
+        if self.pre_norm:
+            node_rep = norm(node_rep)
+        hidden = self.interaction(node_rep, edge_rep, edge_frames, edge_mask).concat(node_rep)
+        for gcp in self.feedforward_network:
+            hidden = _apply(gcp, hidden, node_frames)
+        node_rep = node_rep + self.gcp_dropout[0](hidden, dropout)
+        if not self.pre_norm:
+            node_rep = norm(node_rep)
+        node_rep = node_rep.mask(node_mask)
+        _, v_cm = self.node_position_update_gcp(node_rep.scalar, node_rep.vector_cm, node_frames)
+        update = v_cm.sum(dim=-1) if self.vector_sum else v_cm[..., 0]
+        node_pos = node_pos + update * self.positions_weight
+        return node_rep, node_pos * node_mask[..., None].to(node_pos.dtype)
 
 
 class GCPNetDynamics(nn.Module):
@@ -126,19 +234,32 @@ class GCPNetDynamics(nn.Module):
     vectors, the edge features on the edges.  Only the embeddings' input
     widths change, not the message layers'.
 
+    Two forwards over one module tree: the packed forward (the message-layer
+    kernels) where ``supports_fast_path`` holds and ``fast`` is not "off",
+    else the module forward (GCPs as ordinary PyTorch ops, every option of
+    the reference).  The choice is made once, here, and kept in
+    :attr:`packed`.  ``fast`` is ``trainer.fast_train``: "on" or "pallas"
+    for a configuration the packed forward does not implement raise
+    ``ValueError``.
+
     ``compute_dtype`` ("bfloat16" or None) is the network body's dtype.  With
-    gradients enabled (training) the forward packs the live parameters on
-    every call, so gradients reach them; without (serving, evaluation) it
-    reads a detached packed copy, rebuilt whenever a parameter changed (the
-    copy is keyed on the parameters' version counters, which every in-place
-    update bumps: optimizer steps, EMA updates, ``load_state_dict``)."""
+    gradients enabled (training) the packed forward packs the live
+    parameters on every call, so gradients reach them; without (serving,
+    evaluation) it reads a detached packed copy, rebuilt whenever a
+    parameter changed (the copy is keyed on the parameters' version
+    counters, which every in-place update bumps: optimizer steps, EMA
+    updates, ``load_state_dict``).  ``dropout`` (the training loss's draws)
+    applies GCP dropout on the module forward; without it the forward is
+    deterministic."""
 
     def __init__(self, model_cfg: ModelConfig, module_cfg: ModuleConfig, layer_cfg: LayerConfig,
                  diffusion_cfg: DiffusionConfig, dataloader_cfg: DataloaderConfig,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None, fast: str = "auto"):
         super().__init__()
-        if not supports_fast_path(module_cfg, layer_cfg):
-            raise NotImplementedError("GCPNet configuration outside the port's packed forward")
+        supported = supports_fast_path(module_cfg, layer_cfg)
+        if fast in ("on", "pallas") and not supported:
+            raise ValueError(f"trainer.fast_train={fast} but the model config is not supported by the fast path")
+        self.packed = supported and fast != "off"
         self.model_cfg, self.module_cfg, self.layer_cfg = model_cfg, module_cfg, layer_cfg
         self.diffusion_cfg, self.dataloader_cfg = diffusion_cfg, dataloader_cfg
         self.compute_dtype = {None: torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
@@ -154,13 +275,14 @@ class GCPNetDynamics(nn.Module):
         edge_dims = (mc.e_hidden_dim, mc.xi_hidden_dim)
         self.gcp_embedding = GCPEmbedding(
             (k * mc.e_input_dim, k * mc.xi_input_dim), (k * h_in + h_cond, k * mc.chi_input_dim),
-            edge_dims, node_dims, module_cfg,
+            edge_dims, node_dims, module_cfg, use_gcp_norm=layer_cfg.use_gcp_norm,
         )
         self.interaction_layers = nn.ModuleList([
-            GCPInteractions(node_dims, edge_dims, module_cfg, layer_cfg)
+            GCPInteractions(node_dims, edge_dims, module_cfg, layer_cfg, dropout=mc.dropout)
             for _ in range(mc.num_encoder_layers)
         ])
-        self.scalar_node_projection_gcp = GCP2(node_dims, (h_in + h_cond, 0), (None, None))
+        self.scalar_node_projection_gcp = make_gcp(module_cfg.selected_gcp, node_dims, (h_in + h_cond, 0),
+                                                   module_cfg, nonlinearities=(None, None))
         self._packed: Optional[Dict[str, Any]] = None
         self._packed_key: Optional[tuple] = None
 
@@ -200,18 +322,11 @@ class GCPNetDynamics(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor, context: Optional[Tensor] = None,
-                xh_self_cond: Optional[Tensor] = None) -> Tensor:
-        if self.num_context and context is None:
-            raise ValueError("a property-conditioned model requires a context tensor")
-        mc, dl = self.model_cfg, self.dataloader_cfg
-        cdt = self.compute_dtype
-        w = self.weights() if torch.is_grad_enabled() else self.packed_weights()
-        nx = dl.num_x_dims
+    def _featurize(self, xh: Tensor, t: Tensor, node_mask: Tensor, context: Optional[Tensor],
+                   xh_self_cond: Optional[Tensor]) -> Dict[str, Tensor]:
+        """The float32 geometry and the input features both forwards start from."""
+        nx = self.dataloader_cfg.num_x_dims
         b, n = node_mask.shape
-        v_dim, ve_dim = mc.chi_hidden_dim, mc.xi_hidden_dim
-
-        # ---- featurization (float32 geometry) ----
         mask_f = node_mask.to(xh.dtype)
         xh = xh * mask_f[..., None]
         x_init, h = xh[..., :nx], xh[..., nx:]
@@ -231,22 +346,68 @@ class GCPNetDynamics(nn.Module):
             h = torch.cat([h, context.to(h.dtype)], dim=-1)
         _, x_cent = centralize(x_init, node_mask)
         f_ij = localize(x_cent, edge_mask, norm_x_diff=self.module_cfg.norm_x_diff)
-        f_node_c = node_mean_frames(f_ij, edge_mask).to(cdt)
+        return dict(mask_f=mask_f, x_init=x_init, h=h, chi=chi, e_s=e_s, e_v=e_v, edge_mask=edge_mask,
+                    x_cent=x_cent, f_ij=f_ij, f_node=node_mean_frames(f_ij, edge_mask))
+
+    def forward(self, xh: Tensor, t: Tensor, node_mask: Tensor, context: Optional[Tensor] = None,
+                xh_self_cond: Optional[Tensor] = None, dropout: Optional[DropoutDraws] = None) -> Tensor:
+        if self.num_context and context is None:
+            raise ValueError("a property-conditioned model requires a context tensor")
+        f = self._featurize(xh, t, node_mask, context, xh_self_cond)
+        body = self._packed_body if self.packed else self._module_body
+        x, h_out = body(f, node_mask, dropout)
+
+        # ---- outputs ----
+        mask_f = f["mask_f"]
+        vel = (x - f["x_init"]) * mask_f[..., None]
+        # strip the context columns first, then the time column
+        h_out = h_out.float()[..., :h_out.shape[-1] - self.num_context]
+        if self.diffusion_cfg.condition_on_time:
+            h_out = h_out[..., :-1]
+        # a non-finite velocity anywhere zeroes the whole batch's velocity
+        vel = torch.where(torch.isfinite(vel).all(), vel, torch.zeros_like(vel))
+        _, vel = centralize(vel, node_mask)
+        return torch.cat([vel, h_out], dim=-1)
+
+    def _module_body(self, f: Dict[str, Tensor], node_mask: Tensor,
+                     dropout: Optional[DropoutDraws]) -> Tuple[Tensor, Tensor]:
+        """GCPNet as modules (JAX ``GCPNetDynamics.__call__``) -> (positions, h)."""
+        cdt = self.compute_dtype
+        f_ij, f_node = f["f_ij"].to(cdt), f["f_node"].to(cdt)
+        node_rep, edge_rep = self.gcp_embedding(
+            ScalarVector(f["h"].to(cdt), f["chi"].to(cdt)), ScalarVector(f["e_s"].to(cdt), f["e_v"].to(cdt)),
+            f_ij, f_node)
+        x = f["x_cent"]
+        for layer in self.interaction_layers:
+            node_rep, x = layer(node_rep, edge_rep, f_ij, f_node, node_mask, f["edge_mask"], x, dropout)
+        h_out, _ = self.scalar_node_projection_gcp(node_rep.scalar, node_rep.vector_cm, f_node)
+        return x, h_out
+
+    def _packed_body(self, f: Dict[str, Tensor], node_mask: Tensor, dropout=None) -> Tuple[Tensor, Tensor]:
+        """The packed forward (JAX ``gcpnet_fast.py``): the message layers
+        through the kernels -> (positions, h).  No configuration it takes has
+        dropout."""
+        mc, cdt = self.model_cfg, self.compute_dtype
+        w = self.weights() if torch.is_grad_enabled() else self.packed_weights()
+        b, n = node_mask.shape
+        v_dim, ve_dim = mc.chi_hidden_dim, mc.xi_hidden_dim
+        f_ij, mask_f, edge_mask = f["f_ij"], f["mask_f"], f["edge_mask"]
+        f_node_c = f["f_node"].to(cdt)
         # transposed frames flattened k*3+a: the kernel's layout
         frames_t = f_ij.transpose(-1, -2).reshape(b, n, n, 9).to(cdt)
 
         # ---- embeddings (compute dtype) ----
         e_emb, xi_emb = self.gcp_embedding.edge_embedding(
-            e_s.to(cdt), e_v.transpose(-1, -2).to(cdt), f_ij.to(cdt), weights=w["edge"])
+            f["e_s"].to(cdt), f["e_v"].transpose(-1, -2).to(cdt), f_ij.to(cdt), weights=w["edge"])
         s_node, v_node = self.gcp_embedding.node_embedding(
-            h.to(cdt), chi.transpose(-1, -2).to(cdt), f_node_c, weights=w["node"])
+            f["h"].to(cdt), f["chi"].transpose(-1, -2).to(cdt), f_node_c, weights=w["node"])
 
         # ---- packed edge tensor [B, N*N, Se + 3Ve + 10] ----
         epack = torch.cat([
             e_emb, xi_emb.reshape(b, n, n, 3 * ve_dim), frames_t, edge_mask[..., None].to(cdt),
         ], dim=-1).reshape(b, n * n, -1)
 
-        x = x_cent
+        x = f["x_cent"]
         node_m = mask_f[..., None].to(cdt)
         for layer, lw in zip(self.interaction_layers, w["layers"]):
             s_agg, v_agg = message_layer(
@@ -261,18 +422,7 @@ class GCPNetDynamics(nn.Module):
             x = (x + v_pu[..., :, 0].float() * self.module_cfg.node_positions_weight) * mask_f[..., None]
 
         h_out, _ = self.scalar_node_projection_gcp(s_node, v_node, f_node_c, weights=w["proj"])
-        h_out = h_out.float()
-
-        # ---- outputs ----
-        vel = (x - x_init) * mask_f[..., None]
-        # strip the context columns first, then the time column
-        h_out = h_out[..., :h_out.shape[-1] - self.num_context]
-        if self.diffusion_cfg.condition_on_time:
-            h_out = h_out[..., :-1]
-        # a non-finite velocity anywhere zeroes the whole batch's velocity
-        vel = torch.where(torch.isfinite(vel).all(), vel, torch.zeros_like(vel))
-        _, vel = centralize(vel, node_mask)
-        return torch.cat([vel, h_out], dim=-1)
+        return x, h_out
 
 
 def stack_chain_weights(mp: GCPMessagePassing, dtype) -> Tuple[Tensor, ...]:

@@ -94,3 +94,29 @@ def build_edge_mask(node_mask: Tensor) -> Tensor:
     """Edge mask of the fully-connected graph with self-loops, float32."""
     m = node_mask.to(torch.float32)
     return m[..., :, None] * m[..., None, :]
+
+
+def masked_sum(x: Tensor, mask: Tensor, dim: int) -> Tensor:
+    """Sum of ``x`` over ``dim`` counting only entries where ``mask`` is 1;
+    ``mask`` covers the leading dims of ``x`` (trailing singleton dims are
+    appended)."""
+    m = mask.to(x.dtype)
+    while m.dim() < x.dim():
+        m = m[..., None]
+    return torch.sum(x * m, dim=dim)
+
+
+def scalarize(vector_rep: Tensor, frames: Tensor) -> Tensor:
+    """Vector channels ``[..., C, 3]`` projected on frames ``[..., 3, 3]``
+    (axes on dim -2) -> invariant scalars ``[..., C*3]``, channel-major
+    (``out[..., c*3+a] = frames[a] . v[c]``).  Node inputs take per-node mean
+    frames, edge inputs per-edge frames."""
+    out = torch.einsum("...ak,...ck->...ca", frames, vector_rep)
+    return out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
+
+
+def vectorize(gate: Tensor, frames: Tensor) -> Tensor:
+    """The inverse projection: gates ``[..., C*3]`` (channel-major) times the
+    frame axes ``[..., 3, 3]`` -> vectors ``[..., C, 3]``."""
+    g = gate.reshape(gate.shape[:-1] + (gate.shape[-1] // 3, 3))
+    return torch.einsum("...ca,...ak->...ck", g, frames)

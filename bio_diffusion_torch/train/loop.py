@@ -50,6 +50,7 @@ import torch
 from bio_diffusion_torch.config.build import ExperimentConfig, build_datasets, build_evd, get_dataset_info_for
 from bio_diffusion_torch.data.batch import iterate_dense_batches
 from bio_diffusion_torch.models.distributions import NumNodesDistribution, property_normalizers
+from bio_diffusion_torch.models.gcpnet import supports_fast_path
 from bio_diffusion_torch.ops.schedules import predefined_gamma_table
 from bio_diffusion_torch.parallel.distributed import (
     DataParallel,
@@ -77,9 +78,13 @@ HALT_FILE_EXTENSION = "done"
 
 
 class Trainer:
-    """Trainer of the QM9, GEOM-Drugs and pocket DDPMs with the GCPNet denoiser
-    on one device, or on this rank's device of a data-parallel group
-    (``dp``)."""
+    """Trainer of the QM9, GEOM-Drugs and pocket DDPMs with the GCPNet (or
+    EGNN) denoiser on one device, or on this rank's device of a
+    data-parallel group (``dp``).  ``trainer.fast_train`` picks the
+    GCPNet's forward for the training steps and validation: "auto" the
+    packed forward where the configuration allows it, "off" the module
+    forward; "on" and "pallas" raise ``ValueError`` for a configuration the
+    packed forward does not implement."""
 
     def __init__(self, exp: ExperimentConfig, workdir: str, device, datasets: Optional[Dict[str, Any]] = None,
                  loggers: Optional[MetricLoggers] = None, dp: Optional[DataParallel] = None):
@@ -99,8 +104,12 @@ class Trainer:
         self.conditioning = tuple(exp.module_cfg.conditioning)
         self.props_norms, self.props_distr = property_normalizers(
             self.datasets, self.conditioning, exp.dataloader_cfg.dataset)
-        self.evd = build_evd(exp)
+        # trainer.fast_train: "off" trains (and validates) through the module
+        # forward; the sampling evaluation keeps the packed forward where the
+        # configuration allows it (_sampling_evd), as the JAX Trainer does
+        self.evd = build_evd(exp, fast=tc.fast_train)
         self.evd_ema = None
+        self._evd_sample = None
         self.state: Optional[TrainState] = None
         self.accumulate_grad_batches = max(1, int(tc.accumulate_grad_batches))
         self.train_step = make_train_step(
@@ -318,12 +327,25 @@ class Trainer:
         self.rng.bit_generator.state = rng_state
         return metrics
 
+    def _sampling_evd(self):
+        """The EMA model the sampling evaluation runs: the EMA twin itself, or,
+        where ``fast_train=off`` put a packable configuration on the module
+        forward, a packed twin carrying the EMA weights."""
+        exp = self.exp
+        if exp.trainer.fast_train != "off" or exp.diffusion_cfg.dynamics_network != "gcpnet" \
+                or not supports_fast_path(exp.module_cfg, exp.layer_cfg):
+            return self.evd_ema
+        if self._evd_sample is None:
+            self._evd_sample = build_evd(self.exp).to(self.device).eval().requires_grad_(False)
+        self._evd_sample.load_state_dict(self.evd_ema.state_dict())
+        return self._evd_sample
+
     def _evaluate_sampling(self, epoch: int, num_samples: Optional[int]) -> Dict[str, float]:
         exp = self.exp
         dc = exp.diffusion_cfg
         num_samples = num_samples or dc.num_eval_samples
         generator = torch.Generator(device=self.device).manual_seed(exp.seed + 3 + epoch)
-        sampler = SegmentedSampler(self.evd_ema, self.device)
+        sampler = SegmentedSampler(self._sampling_evd(), self.device)
         xh, node_mask, _ = sample_molecules(sampler, generator, num_samples, self.nodes_dist, self.rng,
                                             batch_size=dc.eval_batch_size, props_distr=self.props_distr)
         self.stats["sample_batches"] += sampler.runs

@@ -19,11 +19,12 @@ Off, the steps run no check and read nothing back.
 Data parallelism (``dp``, a ``parallel.distributed.DataParallel``): every
 rank is handed the same global batch and the same seeded generator, draws
 the whole batch's draws in ``loss_terms``' order (``evd.loss_draws``) and keeps
-its rows of both (``shard_rows``), so world W computes what world 1 does
-for the same seed, as a sharded array does in the JAX package.  The
-self-conditioning decision belongs to the whole batch: ``sc_take`` goes to
-every rank whole, folded with "no row of the global batch has t_int = T"
-before the split.  The
+its rows of both (``shard_rows``), and draws GCP dropout's masks at the
+global batch's shape and keeps its rows of them too, so world W computes
+what world 1 does for the same seed, as a sharded array does in the JAX
+package.  The self-conditioning decision belongs to the whole batch:
+``sc_take`` goes to every rank whole, folded with "no row of the global
+batch has t_int = T" before the split.  The
 gradients (averaged over the micro-batches first) and the step's metrics
 are all-reduced in one call before the clip, so the clip, AMSGrad and the
 EMA see the same values on every rank; there is no DDP wrapper, because
@@ -47,7 +48,7 @@ from bio_diffusion_torch.data.batch import DenseMolBatch
 from bio_diffusion_torch.models.diffusion import assemble_nll
 from bio_diffusion_torch.ops.geometry import centralize
 from bio_diffusion_torch.parallel import distributed
-from bio_diffusion_torch.parallel.distributed import DataParallel, shard_rows
+from bio_diffusion_torch.parallel.distributed import DataParallel, row_slice, shard_rows
 from bio_diffusion_torch.train.state import TrainState, adaptive_clip
 from bio_diffusion_torch.utils.debug import checked_call
 
@@ -64,14 +65,15 @@ def make_loss_fn(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloader
     tables: Dict[torch.device, Tensor] = {}
 
     def loss_fn(batch: DenseMolBatch, generator: Optional[torch.Generator], draws: Draws = None,
-                max_num_nodes: Optional[Tensor] = None):
+                max_num_nodes: Optional[Tensor] = None, dropout_rows: Optional[Tuple[int, slice]] = None):
         dev = batch.x.device
         if dev not in tables:
             tables[dev] = torch.as_tensor(log_pN_table, dtype=torch.float32, device=dev)
         table = tables[dev]
         _, x = centralize(batch.x, batch.node_mask)
         terms = evd.loss_terms(x, batch.one_hot, batch.charges, batch.node_mask, training,
-                               generator=generator, context=batch.context, **(draws or {}))
+                               generator=generator, context=batch.context, dropout_rows=dropout_rows,
+                               **(draws or {}))
         num_nodes = batch.node_mask.sum(dim=-1).long()
         log_pN = table[torch.clamp(num_nodes, 0, table.shape[0] - 1)]
         nll, info = assemble_nll(
@@ -93,10 +95,12 @@ def step_seed(seed: int, count: int) -> int:
 
 def _rank_rows(evd, dp: DataParallel, batch, generator, draws: Draws, training: bool, by_max_nodes: bool):
     """This rank's rows of a global batch and of its draws (drawn for the
-    whole batch when not given), and the batch's largest molecule where the
-    loss normalizes by it.  A self-conditioning ``sc_take`` is the global
-    batch's decision: it is folded with "no row's t_int is T" here, before
-    the split, and goes to every rank whole."""
+    whole batch when not given), the batch's largest molecule where the
+    loss normalizes by it, and the dropout masks' rows (the global batch's
+    size and this rank's rows: the masks are drawn at the global shape).  A
+    self-conditioning ``sc_take`` is the global batch's decision: it is
+    folded with "no row's t_int is T" here, before the split, and goes to
+    every rank whole."""
     if draws is None:
         draws = evd.loss_draws(batch.node_mask, generator, training)
     if draws.get("sc_take") is not None:
@@ -104,7 +108,9 @@ def _rank_rows(evd, dp: DataParallel, batch, generator, draws: Draws, training: 
         draws = dict(draws, sc_take=torch.logical_and(torch.as_tensor(draws["sc_take"], device=t_int.device),
                                                       ~(t_int == evd.T).any()))
     max_num_nodes = batch.node_mask.sum(dim=-1).max() if by_max_nodes else None
-    return shard_rows(batch, dp.rank, dp.world), shard_rows(draws, dp.rank, dp.world), max_num_nodes
+    b = batch.node_mask.shape[0]
+    return (shard_rows(batch, dp.rank, dp.world), shard_rows(draws, dp.rank, dp.world), max_num_nodes,
+            (b, row_slice(b, dp.rank, dp.world)))
 
 
 def _checked(fn: Callable, dp: Optional[DataParallel]) -> Callable:
@@ -132,10 +138,10 @@ def make_train_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloa
     by_max_nodes = diffusion_cfg.norm_training_by_max_nodes
 
     def grads_of(state: TrainState, batch, generator, draws) -> Tuple[Sequence[Tensor], Dict]:
-        max_num_nodes = None
+        max_num_nodes = rows = None
         if dp is not None:
-            batch, draws, max_num_nodes = _rank_rows(evd, dp, batch, generator, draws, True, by_max_nodes)
-        loss, info = loss_fn(batch, generator, draws, max_num_nodes)
+            batch, draws, max_num_nodes, rows = _rank_rows(evd, dp, batch, generator, draws, True, by_max_nodes)
+        loss, info = loss_fn(batch, generator, draws, max_num_nodes, rows)
         return torch.autograd.grad(loss, state.params, allow_unused=True, materialize_grads=True), info
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator], draws=None):
@@ -187,7 +193,7 @@ def make_eval_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataload
     def eval_step(batch, generator: Optional[torch.Generator], draws: Draws = None):
         max_num_nodes = None
         if dp is not None:
-            batch, draws, max_num_nodes = _rank_rows(evd, dp, batch, generator, draws, False, False)
+            batch, draws, max_num_nodes, _ = _rank_rows(evd, dp, batch, generator, draws, False, False)
         with torch.no_grad():
             _, info = loss_fn(batch, generator, draws, max_num_nodes)
         return info

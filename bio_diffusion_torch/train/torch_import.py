@@ -22,7 +22,9 @@ from torch import nn
 
 # flax module-list names whose integer suffix is a reference container index
 _INDEXED_CONTAINERS = ("interaction_layers", "message_fusion", "feedforward_network",
-                       "gcp_norm", "gcp_dropout")
+                       "gcp_norm", "gcp_dropout",
+                       # the EGNN denoiser's ModuleList and Sequentials
+                       "mpnn_layers", "edge_mlp", "node_mlp", "coors_mlp")
 # reference entries that are not parameters of the port's modules: the
 # predefined schedule's table (``gamma.gamma``; a learned schedule's
 # ``gamma.gamma_0`` / ``gamma.gamma_1`` are parameters), the size
@@ -59,7 +61,10 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
             parts = parts[:-1] + ["weight"]
         names: List[str] = []
         for p in parts:
-            if p == "dynamics":
+            m_egnn = re.fullmatch(r"egnn_mpnn_layers_(\d+)", p)
+            if m_egnn:  # one flax module for the reference's egnn.mpnn_layers.<i>
+                names.extend(["egnn", "mpnn_layers", m_egnn.group(1)])
+            elif p == "dynamics":
                 names.append("dynamics_network")
             elif p == "scalar_out_head":
                 continue
@@ -144,20 +149,36 @@ def load_reference_checkpoint(evd: nn.Module, ckpt_path: str) -> None:
 
 def init_random_weights(module: nn.Module, seed: int) -> None:
     """Draw every Linear's weight and bias from U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    (PyTorch's default Linear distribution) with a generator seeded by ``seed``,
-    then reset a learned noise schedule from the same generator (its
+    (PyTorch's default Linear distribution) with a generator seeded by
+    ``seed``, the EGNN's MLP layers (``XavierLinear``) from the JAX
+    package's xavier-normal (a normal truncated at two deviations, variance
+    2/(fan_in + fan_out)) with zero biases, and reset the norms (LayerNorm
+    and the EGNN's graph norm: ones and zeros; its ``CoorsNorm.scale``:
+    1e-2); then reset a learned noise schedule from the same generator (its
     initialization: the same distribution, weights offset by -2, endpoints
     -5 and 10), so the denoiser's weights do not depend on the schedule."""
     from bio_diffusion_torch.models.diffusion import GammaNetwork
+    from bio_diffusion_torch.models.egnn import CoorsNorm, GraphLayerNorm, XavierLinear
 
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, XavierLinear):
+                std = math.sqrt(2.0 / (m.in_features + m.out_features)) / 0.87962566103423978
+                m.weight.copy_(nn.init.trunc_normal_(torch.empty(m.weight.shape), 0.0, std, -2 * std, 2 * std,
+                                                     generator=gen))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
                 bound = 1.0 / math.sqrt(m.in_features) if m.in_features > 0 else 0.0
                 m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound, generator=gen))
                 if m.bias is not None:
                     m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound, generator=gen))
+            elif isinstance(m, (nn.LayerNorm, GraphLayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, CoorsNorm):
+                m.scale.fill_(m.scale_init)
         for m in module.modules():
             if isinstance(m, GammaNetwork):
                 m.reset_parameters(gen)

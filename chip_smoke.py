@@ -208,6 +208,19 @@
    1) = 18,009 launches, the decoded batch (positions finite, padded rows
    0, one type a real atom) and the xyz files checked; prints ms per step
    and s per reverse step.
+21. Drives the module-path denoisers (right after self-conditioning, on the
+   user path's QM9-layout files), fp32 at full QM9 width, weights from the
+   seed, in four configurations (``MODULE_PATHS``: GCP v1 with the frame
+   gate; GCP norm, dropout 0.1, 2 feedforward GCPs and the vector-sum
+   update; no frame updates and no attention; the EGNN denoiser): the
+   denoiser card against CPU and its gradients against the CPU in float64;
+   ``cli.train.main`` 3 steps at B=64 (finite losses, ms a step, peak
+   memory, no B1 or B2 launch); ``cli.mol_gen_sample.main`` of 16 molecules
+   at T=100 (a reduced depth; the molecules checked, s a reverse step, no
+   launch); then the shipped configuration's Trainer with
+   ``trainer.fast_train=off`` against ``auto`` (3 steps each on the same
+   batches and draws: step 1's loss within 1e-4 relative, 0 and 9 + 9
+   launches a step, ms a step of both).
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -259,6 +272,30 @@ TOL_DENOISER_REL = 1e-3
 # its parameter gradients, card vs CPU, float32: relative to max|CPU grad| of
 # each parameter, with a floor of 1e-6 of the largest gradient of all
 TOL_GRAD_REL = 1e-3
+# the module-path denoisers (no kernel on their path), full QM9 width: the
+# overrides of each configuration the phase drives
+MODULE_PATHS = {
+    "v1": ("model.module_cfg.selected_gcp=gcp", "model.module_cfg.frame_gate=true"),
+    "regularized": ("model.layer_cfg.use_gcp_norm=true", "model.layer_cfg.use_gcp_dropout=true",
+                    "model.model_cfg.dropout=0.1", "model.layer_cfg.num_feedforward_layers=2",
+                    "model.module_cfg.update_positions_with_vector_sum=true"),
+    "ablated": ("model.module_cfg.ablate_frame_updates=true", "model.layer_cfg.use_scalar_message_attention=false"),
+    "egnn": ("model.diffusion_cfg.dynamics_network=egnn",),
+}
+# their denoisers card vs CPU, float32 (cuBLAS against the CPU's products,
+# summation order only): the output relative to max|CPU output|; each
+# parameter's gradient against the CPU's in float64, relative to its
+# max|grad| (floor 1e-6 of the largest gradient of all), or, where the
+# CPU's own float32 gradient is farther than that from float64 (a sum of
+# terms that cancel: up to 2.5e-4 relative in EGNN's deeper coordinate
+# MLPs), within twice the CPU's float32 error
+TOL_MODULE_DENOISER_REL = 1e-5
+TOL_MODULE_GRAD_REL = 1e-4
+# a fast_train=off step against the packed forward's on the same batch and
+# draws, float32: the loss relative
+TOL_FAST_OFF_REL = 1e-4
+# the reduced depth of the module-path sampling runs
+MODULE_SAMPLE_T = 100
 
 
 def card_line() -> str:
@@ -650,10 +687,10 @@ def denoiser_inputs(torch, seed, t_value, self_condition=False):
     return xh, torch.full((b, 1), t_value), mask, sc, gen
 
 
-def check_denoiser(torch, extra=(), label="fp32"):
+def check_denoiser(torch, extra=(), label="fp32", tol=TOL_DENOISER_REL):
     """Full-width denoiser, float32: the card (kernel) against the CPU
     (plain); ``extra``: config overrides (a self-conditioned model gets a
-    nonzero estimate) -> max abs error."""
+    nonzero estimate); ``tol``: relative to max|CPU output| -> max abs error."""
     import copy
 
     from bio_diffusion_torch.cli.common import load_model
@@ -669,9 +706,9 @@ def check_denoiser(torch, extra=(), label="fp32"):
                                            **{k: v.cuda() for k, v in sc.items()}).cpu()
     err = (out_gpu - out_cpu).abs().max().item()
     ref = out_cpu.abs().max().item()
-    ok = bool(torch.isfinite(out_gpu).all()) and err <= TOL_DENOISER_REL * ref
+    ok = bool(torch.isfinite(out_gpu).all()) and err <= tol * ref
     print(f"denoiser card-vs-cpu {label} B={b} N={n}: max_abs_err={err:.6g} max|cpu|={ref:.6g} "
-          f"tol={TOL_DENOISER_REL:g} {'ok' if ok else 'FAIL'}")
+          f"tol={tol:g} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"full-width denoiser ({label}) on the card disagrees with the CPU")
     return err
@@ -794,10 +831,11 @@ def check_bwd_kernel(torch, evd):
     return result
 
 
-def check_denoiser_grad(torch, extra=(), label="fp32"):
+def check_denoiser_grad(torch, extra=(), label="fp32", tol=TOL_GRAD_REL):
     """Full-width denoiser, float32: parameter gradients on the card (both
     kernels) against the CPU (plain versions); ``extra`` as
-    ``check_denoiser`` -> worst relative error."""
+    ``check_denoiser``; ``tol``: relative to max|CPU grad| of each parameter
+    -> worst relative error."""
     import copy
 
     from bio_diffusion_torch.cli.common import load_model
@@ -813,20 +851,21 @@ def check_denoiser_grad(torch, extra=(), label="fp32"):
         dyn = evd.dynamics_network
         out = dyn(xh.to(dev), t.to(dev), mask.to(dev), **{k: v.to(dev) for k, v in sc.items()})
         params = [p for _, p in dyn.named_parameters()]
-        grads.append([g.cpu() for g in torch.autograd.grad((out * w.to(dev)).sum(), params)])
+        grads.append([g.cpu() for g in torch.autograd.grad((out * w.to(dev)).sum(), params, allow_unused=True,
+                                                           materialize_grads=True)])
     names = [k for k, _ in evd_cpu.dynamics_network.named_parameters()]
     floor = 1e-6 * max(g.abs().max().item() for g in grads[0])
     worst, worst_name = 0.0, ""
     for name, g_cpu, g_gpu in zip(names, *grads):
         err = (g_gpu - g_cpu).abs().max().item()
         scale = max(g_cpu.abs().max().item(), floor)
-        if not bool(torch.isfinite(g_gpu).all()) or err > TOL_GRAD_REL * scale:
+        if not bool(torch.isfinite(g_gpu).all()) or err > tol * scale:
             raise AssertionError(f"denoiser gradient of {name} on the card disagrees with the CPU: "
                                  f"err {err:.3g}, max|cpu| {scale:.3g}")
         if err / scale >= worst:
             worst, worst_name = err / scale, name
     print(f"denoiser grad card-vs-cpu {label} B={b} N={n}: {len(names)} parameters, worst {worst_name} "
-          f"rel={worst:.3g} tol={TOL_GRAD_REL:g} ok")
+          f"rel={worst:.3g} tol={tol:g} ok")
     return worst
 
 
@@ -1212,6 +1251,200 @@ def drive_sc_learned_path(torch, data_dir):
           f"steps of 2 denoiser calls, decode) took {loop_s:.3f} s = {loop_s / T:.6f} s per reverse step, "
           f"{64 / loop_s:.3f} molecules/s; the CLI call {sec:.3f} s with set-up; launches {counts['message_layer']} "
           f"(need {need}); metrics (printed, not judged) {metrics}")
+    return out, numbers
+
+
+def check_module_grads(torch, extra, label):
+    """A module-path denoiser's parameter gradients, float32, on the card and
+    on the CPU against the CPU in float64 (same weights and inputs): each
+    card gradient within TOL_MODULE_GRAD_REL of its own scale of the float64
+    one, or within twice the CPU float32 gradient's distance from it ->
+    (worst relative error, parameters judged by that second rule)."""
+    import copy
+
+    from bio_diffusion_torch.cli.common import load_model
+
+    exp = qm9_experiment("fp32", extra)
+    evd_gpu = load_model(exp, None, torch.device("cuda"), seed=2)
+    evd_cpu = copy.deepcopy(evd_gpu).to("cpu")
+    xh, t, mask, sc, gen = denoiser_inputs(torch, 4, 0.3, exp.diffusion_cfg.self_condition)
+    w = torch.randn(mask.shape + (9,), generator=gen)
+    grads = []
+    for evd, dev, dt in ((evd_cpu, "cpu", torch.float64), (evd_cpu, "cpu", torch.float32),
+                         (evd_gpu, "cuda", torch.float32)):
+        dyn = evd.dynamics_network
+        if dt == torch.float64:  # the body in float64 too
+            dyn = copy.deepcopy(dyn).to(dt)
+            dyn.compute_dtype = dt
+        out = dyn(*(a.to(dev, dt) for a in (xh, t, mask)), **{k: v.to(dev, dt) for k, v in sc.items()})
+        grads.append([g.cpu().double() for g in torch.autograd.grad(
+            (out * w.to(dev, dt)).sum(), list(dyn.parameters()), allow_unused=True, materialize_grads=True)])
+    names = [k for k, _ in evd_cpu.dynamics_network.named_parameters()]
+    floor = 1e-6 * max(g.abs().max().item() for g in grads[0])
+    worst, worst_name, conditioned = 0.0, "", []
+    for name, g64, g_cpu, g_gpu in zip(names, *grads):
+        scale = max(g64.abs().max().item(), floor)
+        err, cpu_err = (g_gpu - g64).abs().max().item(), (g_cpu - g64).abs().max().item()
+        if not bool(torch.isfinite(g_gpu).all()) or err > max(TOL_MODULE_GRAD_REL * scale, 2 * cpu_err):
+            raise AssertionError(f"{label}: the card's gradient of {name} is {err:.3g} from float64 (scale "
+                                 f"{scale:.3g}; the CPU's float32 {cpu_err:.3g})")
+        if err > TOL_MODULE_GRAD_REL * scale:
+            conditioned.append(name)
+        if err / scale >= worst:
+            worst, worst_name = err / scale, name
+    print(f"denoiser grad card-vs-cpu-f64 {label}: {len(names)} parameters, worst {worst_name} rel={worst:.3g}; "
+          f"{len(conditioned)} within twice the CPU float32's own error {conditioned[:4]} ok")
+    return worst, conditioned
+
+
+def module_step_timer(torch, steps):
+    """A ``loop.make_train_step`` that appends each step's forward and
+    backward launches and host seconds (synchronized) to ``steps``."""
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train import loop
+
+    orig_make = loop.make_train_step
+
+    def make(*a, **k):
+        step = orig_make(*a, **k)
+
+        def run(*sa, **sk):
+            torch.cuda.synchronize()
+            fwd, bwd, t0 = ml.launch_counts["message_layer"], ml.launch_counts["message_layer_bwd"], time.perf_counter()
+            result = step(*sa, **sk)
+            torch.cuda.synchronize()
+            steps.append((ml.launch_counts["message_layer"] - fwd, ml.launch_counts["message_layer_bwd"] - bwd,
+                          time.perf_counter() - t0, float(result["loss"])))
+            return result
+        return run
+
+    return make
+
+
+def fast_train_off_steps(torch, data_dir, root):
+    """The shipped QM9 configuration, fp32, B=64 on the QM9-layout files: 3
+    Trainer steps with ``trainer.fast_train=off`` (the module forward) and 3
+    with ``auto`` (the packed forward), the same weights, batches and draws.
+    Step 1's loss must agree within TOL_FAST_OFF_REL; the off steps launch
+    neither kernel, the auto steps 9 + 9 each -> (launches, numbers)."""
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.ops import message_layer as ml
+    from bio_diffusion_torch.train.loop import Trainer
+
+    runs = {}
+    for fast in ("off", "auto"):
+        cfg = load_config(default_config_dir(), "train", [
+            "experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=QM9",
+            f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+            "trainer.precision=fp32", f"trainer.fast_train={fast}"])
+        trainer = Trainer(build_experiment(cfg), os.path.join(root, f"fast_{fast}"), "cuda")
+        trainer.init_state(resume=False)
+        batches = [b.to("cuda") for _, b in zip(range(3), trainer._train_batches())]
+        steps = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            fwd, bwd, t0 = ml.launch_counts["message_layer"], ml.launch_counts["message_layer_bwd"], time.perf_counter()
+            metrics = trainer.train_step(trainer.state, batch, trainer.step_generator())
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append((ml.launch_counts["message_layer"] - fwd, ml.launch_counts["message_layer_bwd"] - bwd,
+                          time.perf_counter() - t0, loss))
+        runs[fast] = (trainer.evd.dynamics_network.packed, steps)
+        del trainer
+    (off_packed, off), (auto_packed, auto) = runs["off"], runs["auto"]
+    rel = abs(off[0][3] - auto[0][3]) / abs(auto[0][3])
+    layers = 9
+    print(f"fast_train=off: packed={off_packed}, losses {[s[3] for s in off]}, launches (fwd, bwd) "
+          f"{[s[:2] for s in off]}; auto: packed={auto_packed}, losses {[s[3] for s in auto]}, launches "
+          f"{[s[:2] for s in auto]}; step 1 loss rel diff {rel:.3g} (tol {TOL_FAST_OFF_REL:g})")
+    if off_packed or not auto_packed or rel > TOL_FAST_OFF_REL or any(s[:2] != (0, 0) for s in off) \
+            or any(s[:2] != (layers, layers) for s in auto):
+        raise AssertionError("fast_train=off did not take the module path with the packed path's step-1 loss")
+    ms_off, ms_auto = [1e3 * s[2] for s in off], [1e3 * s[2] for s in auto]
+    print(f"fast_train=off: ms/step module path {[round(v, 3) for v in ms_off]}, packed path "
+          f"{[round(v, 3) for v in ms_auto]} (host, synchronized; step 1 includes warm-up)")
+    launches = {"fwd": {"fast_train_auto_steps": sum(s[0] for s in auto), "fast_train_off_steps": 0},
+                "bwd": {"fast_train_auto_steps": sum(s[1] for s in auto), "fast_train_off_steps": 0}}
+    return launches, {"step1_loss_rel_diff": rel, "ms_per_step_off": ms_off, "ms_per_step_auto": ms_auto}
+
+
+def drive_module_paths(torch, data_dir):
+    """The module-path denoisers at full QM9 width (``qm9_mol_gen_ddpm``, 9
+    layers, S=256, V=32, Se=64, Ve=16), float32, weights from
+    ``init_random_weights``, in the four configurations of ``MODULE_PATHS``:
+    for each (a) the denoiser, card against CPU (TOL_MODULE_DENOISER_REL),
+    and its parameter gradients, card against the CPU's float64
+    (``check_module_grads``); (b) ``cli.train.main`` on
+    the user path's QM9-layout files, 3 steps at B=64 (N=29): finite losses,
+    ms a step, peak memory, no B1 or B2 launch; (c)
+    ``cli.mol_gen_sample.main`` of 16 molecules from its checkpoint at
+    ``num_timesteps=MODULE_SAMPLE_T`` (a reduced depth): the xyz molecules
+    pass ``check_molecules``, s a reverse step, no launch.  Then
+    ``fast_train_off_steps`` -> (launches by path, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import mol_gen_sample, train
+    from bio_diffusion_torch.data.dataset_info import get_dataset_info
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.train.sampling import SegmentedSampler
+
+    root = os.path.join(REPO, "outputs", "module_paths")
+    shutil.rmtree(root, ignore_errors=True)
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+    for name, extra in MODULE_PATHS.items():
+        grad_rel, conditioned = check_module_grads(torch, extra, f"module path {name} fp32")
+        n = {"denoiser_max_abs_err": check_denoiser(torch, extra, f"module path {name} fp32",
+                                                    TOL_MODULE_DENOISER_REL),
+             "denoiser_grad_worst_rel": grad_rel, "grads_within_cpu_f32_error": conditioned}
+        workdir = os.path.join(root, name, "train")
+        args = ["experiment=qm9_mol_gen_ddpm", *extra, "datamodule.dataloader_cfg.dataset=QM9",
+                f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+                "trainer.precision=fp32", "trainer.check_val_every_n_epoch=2", "trainer.limit_train_batches=3",
+                "model.diffusion_cfg.sample_during_training=false", "--device=cuda", f"--workdir={workdir}",
+                "--max-epochs=1"]
+        steps = []
+        orig_make = loop.make_train_step
+        loop.make_train_step = module_step_timer(torch, steps)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer, sec, counts = count_run(torch, lambda: train.main(args))
+        finally:
+            loop.make_train_step = orig_make
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [s[3] for s in steps]
+        print(f"module path {name}: cli.train {trainer.stats['steps']} steps (B=64, N=29), packed="
+              f"{trainer.evd.dynamics_network.packed}, losses {losses}, ms/step "
+              f"{[round(1e3 * s[2], 3) for s in steps]} (host, synchronized; step 1 includes warm-up), peak "
+              f"device memory {peak:.3f} GiB, launches fwd={counts['message_layer']} "
+              f"bwd={counts['message_layer_bwd']} (need 0, 0); {sec:.3f} s with set-up")
+        if trainer.stats["steps"] != 3 or len(steps) != 3 or trainer.evd.dynamics_network.packed \
+                or not np.all(np.isfinite(losses)) or counts["message_layer"] or counts["message_layer_bwd"]:
+            raise AssertionError(f"module path {name}: the training run is not 3 finite kernel-free steps")
+        out["fwd"][f"module_{name}_train"] = counts["message_layer"]
+        out["bwd"][f"module_{name}_train"] = counts["message_layer_bwd"]
+        n.update(train_losses=losses, train_ms_per_step=[1e3 * s[2] for s in steps], train_peak_gib=peak)
+
+        cli = [*extra, f"ckpt_path={trainer.ckpt_dir}", "device=cuda", "precision=fp32", "num_samples=16",
+               "sampling_batch_size=16", f"model.diffusion_cfg.num_timesteps={MODULE_SAMPLE_T}",
+               f"output_dir={root}/{name}/samples"]
+        del trainer
+        with spy(torch, SegmentedSampler, "run") as batches:
+            _, sec, counts = count_run(torch, lambda: mol_gen_sample.main(cli))
+        check_molecules(xyz_molecules(os.path.join(root, name, "samples"), get_dataset_info("QM9")), 16)
+        loop_s = sum(c["s"] for c in batches)
+        print(f"module path {name}: mol_gen_sample of 16 molecules at T={MODULE_SAMPLE_T} (reduced depth) in "
+              f"{len(batches)} sampler batch(es): molecules pass the checks, {loop_s:.3f} s in the sampler = "
+              f"{loop_s / MODULE_SAMPLE_T:.6f} s per reverse step; the CLI call {sec:.3f} s with set-up; launches "
+              f"{counts['message_layer']} (need 0)")
+        if counts["message_layer"] or not batches:
+            raise AssertionError(f"module path {name}: sampling launched the message-layer kernel")
+        out["fwd"][f"module_{name}_sample_cli"] = counts["message_layer"]
+        n.update(sample_s_per_step=loop_s / MODULE_SAMPLE_T, sample_cli_s=sec)
+        numbers[name] = n
+    off_launches, numbers["fast_train_off"] = fast_train_off_steps(torch, data_dir, root)
+    for kind in ("fwd", "bwd"):
+        out[kind].update(off_launches[kind])
     return out, numbers
 
 
@@ -2959,6 +3192,10 @@ def main() -> int:
     sc_numbers["phase_s"] = time.perf_counter() - t0
     print(f"self-conditioning and learned schedule phase: {sc_numbers['phase_s']:.3f} s")
     t0 = time.perf_counter()
+    mp_launches, mp_numbers = drive_module_paths(torch, os.path.join(REPO, "outputs", "user_path", "data"))
+    mp_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"module-path denoisers phase: {mp_numbers['phase_s']:.3f} s")
+    t0 = time.perf_counter()
     cond_launches, cond_numbers = drive_conditional_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
     cond_numbers["phase_s"] = time.perf_counter() - t0
     print(f"conditional path phase: {cond_numbers['phase_s']:.3f} s")
@@ -3002,10 +3239,12 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
         "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values()) + sum(dp_launches["fwd"].values())
-        + sum(sc_launches["fwd"].values()) + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
+        + sum(sc_launches["fwd"].values()) + sum(mp_launches["fwd"].values()) + sum(cond_launches["fwd"].values())
+        + sum(geom_launches["fwd"].values())
         + sum(pocket_launches["fwd"].values()) + sum(new_fwd.values()),
         "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"], **dp_launches["fwd"],
-                             **sc_launches["fwd"], **cond_launches["fwd"], **geom_launches["fwd"], **pocket_launches["fwd"], **new_fwd},
+                             **sc_launches["fwd"], **mp_launches["fwd"], **cond_launches["fwd"], **geom_launches["fwd"],
+                             **pocket_launches["fwd"], **new_fwd},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": kernel["ms"],
@@ -3021,6 +3260,7 @@ def main() -> int:
         "user_path": user_numbers,
         "data_parallel": dp_numbers,
         "sc_learned_path": sc_numbers,
+        "module_path": mp_numbers,
         "conditional_path": cond_numbers,
         "geom": geom_fwd,
         "pocket": pocket_numbers,
@@ -3032,10 +3272,10 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
         "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(dp_launches["bwd"].values())
-        + sum(sc_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
+        + sum(sc_launches["bwd"].values()) + sum(mp_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
         + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()) + sum(new_bwd.values()),
         "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **dp_launches["bwd"], **sc_launches["bwd"],
-                             **cond_launches["bwd"],
+                             **mp_launches["bwd"], **cond_launches["bwd"],
                              **geom_launches["bwd"], **pocket_launches["bwd"], **new_bwd},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],

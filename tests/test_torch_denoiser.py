@@ -121,8 +121,12 @@ def test_denoiser_bf16_body_matches_jax(models, jax_bf16_fast, seed):
 
 
 def test_unsupported_configuration_raises(models):
+    """A configuration outside the packed forward takes the module forward,
+    and raises where the packed forward is demanded (``fast_train=on``)."""
     import dataclasses
 
     mc, mod, lc, dc, dl = models[0]
-    with pytest.raises(NotImplementedError):
-        GCPNetDynamics(mc, dataclasses.replace(mod, selected_gcp="gcp"), lc, dc, dl)
+    v1 = dataclasses.replace(mod, selected_gcp="gcp")
+    assert not GCPNetDynamics(mc, v1, lc, dc, dl).packed
+    with pytest.raises(ValueError, match="not supported by the fast path"):
+        GCPNetDynamics(mc, v1, lc, dc, dl, fast="on")

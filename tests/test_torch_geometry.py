@@ -68,3 +68,17 @@ def test_orientations_and_edge_features(batch):
     js, jv = jg.edge_features(jnp.asarray(x), jg.build_edge_mask(jm))
     close(ts, js)
     close(tv, jv)
+
+
+def test_masked_sum_and_frame_projections(batch):
+    """``masked_sum``, ``scalarize`` and ``vectorize`` on per-edge frames."""
+    x, mask = batch
+    em = jg.build_edge_mask(jnp.asarray(mask), include_self_loops=True)
+    frames = jg.localize(jnp.asarray(x), em)
+    rng = np.random.default_rng(1)
+    v = rng.normal(size=frames.shape[:-2] + (4, 3)).astype(np.float32)
+    gate = rng.normal(size=frames.shape[:-2] + (12,)).astype(np.float32)
+    f_t, em_t = torch.from_numpy(np.asarray(frames)), torch.from_numpy(np.asarray(em))
+    close(tg.scalarize(torch.from_numpy(v), f_t), jg.scalarize(jnp.asarray(v), frames))
+    close(tg.vectorize(torch.from_numpy(gate), f_t), jg.vectorize(jnp.asarray(gate), frames))
+    close(tg.masked_sum(torch.from_numpy(v), em_t, dim=-3), jg.masked_sum(jnp.asarray(v), em, axis=-3))

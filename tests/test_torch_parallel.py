@@ -10,7 +10,9 @@
   1e-6 on the loss, as ``test_accumulated_step_equals_the_big_batch_step``;
   and a self-conditioned model's 2 steps, one where only rank 1's rows
   hold t_int = T (the pass is the global batch's decision, taken by no
-  rank) and one where the pass runs, and 2 from a seeded generator.
+  rank) and one where the pass runs, and 2 from a seeded generator; and a
+  model with GCP dropout 0.1 (the module forward) from a seeded generator:
+  each rank draws the masks at the global batch's shape and keeps its rows.
 * The same steps against the JAX step on a 2-device CPU mesh
   (``make_mesh(num_devices=2)`` + ``shard_batch``) with JAX's draws, at the
   tolerances of ``test_three_train_steps_match_jax``.
@@ -249,13 +251,16 @@ def step_setup(tmp_path_factory):
     cases["self_condition"] = {"state_dict": reference_state_dict(sc_evd), "table": table, "accum": 1,
                                "draws": sc_draws, "steps": [first, second], "diffusion": {"self_condition": True}}
     cases["self_condition_seeded"] = dict(cases["self_condition"], draws=None, seed=5)
+    # GCP dropout (the module forward; no parameters of its own): each rank
+    # draws the masks at the global batch's shape and keeps its rows
+    cases["dropout"] = dict(cases["seeded"], model={"dropout": 0.1}, layer={"use_gcp_dropout": True})
     world1 = {name: run_steps(None, case) for name, case in cases.items()}
     world2 = run_group("train_steps", 2, str(tmp_path_factory.mktemp("dp_steps")), cases)
     return {"cases": cases, "world1": world1, "world2": world2, "jax": jax_runs, "geom": geom}
 
 
 @pytest.mark.parametrize("name", ["accum1", "accum2", "seeded", "ragged", "geom", "max_nodes", "checked",
-                                  "self_condition", "self_condition_seeded"])
+                                  "self_condition", "self_condition_seeded", "dropout"])
 def test_dp_step_equals_world_one(step_setup, name):
     """Two steps at world 2 equal two steps at world 1 on the global batches
     with the same draws; the two ranks hold identical states."""
@@ -270,6 +275,12 @@ def test_dp_step_equals_world_one(step_setup, name):
         for n in w1[key]:
             np.testing.assert_array_equal(r0[key][n], r1[key][n], err_msg=n)
             np.testing.assert_allclose(r0[key][n], w1[key][n], **TOL_PARAMS, err_msg=n)
+
+
+def test_dropout_case_draws_masks(step_setup):
+    """The dropout case's steps differ from the same steps without dropout."""
+    w1 = step_setup["world1"]
+    assert [m["loss"] for m in w1["dropout"]["metrics"]] != [m["loss"] for m in w1["seeded"]["metrics"]]
 
 
 def test_a_failed_invariant_raises_on_every_rank(step_setup):

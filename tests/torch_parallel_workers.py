@@ -79,23 +79,24 @@ def _main(argv):
 # -- models and steps (shared with the parent, which runs world 1) ------------------
 
 
-def tiny_cfgs(**diffusion):
+def tiny_cfgs(model=None, layer=None, **diffusion):
     """The tiny (model, module, layer, diffusion, dataloader) configs;
-    ``diffusion``: fields of the diffusion config to set."""
+    ``diffusion``: fields of the diffusion config to set, ``model`` and
+    ``layer`` those of the model and layer configs."""
     from bio_diffusion_torch.config import schema
 
     mc = schema.ModelConfig(h_hidden_dim=16, chi_hidden_dim=4, e_hidden_dim=8, xi_hidden_dim=2,
-                            num_encoder_layers=2)
-    return (mc, schema.ModuleConfig(), schema.LayerConfig(), schema.DiffusionConfig(num_timesteps=10, **diffusion),
-            schema.DataloaderConfig())
+                            num_encoder_layers=2, **(model or {}))
+    return (mc, schema.ModuleConfig(), schema.LayerConfig(**(layer or {})),
+            schema.DiffusionConfig(num_timesteps=10, **diffusion), schema.DataloaderConfig())
 
 
-def port_evd(state_dict, **diffusion):
+def port_evd(state_dict, model=None, layer=None, **diffusion):
     from bio_diffusion_torch.models.diffusion import EquivariantVariationalDiffusion
     from bio_diffusion_torch.models.gcpnet import GCPNetDynamics
     from bio_diffusion_torch.train.torch_import import load_reference_state_dict
 
-    cfgs = tiny_cfgs(**diffusion)
+    cfgs = tiny_cfgs(model, layer, **diffusion)
     evd = EquivariantVariationalDiffusion(GCPNetDynamics(*cfgs), cfgs[3], cfgs[4])
     load_reference_state_dict(evd, state_dict)
     return evd
@@ -113,10 +114,10 @@ def run_steps(dp, case):
     from bio_diffusion_torch.train.step import make_train_step
     from bio_diffusion_torch.utils.debug import InvariantError
 
-    diffusion = case.get("diffusion", {})
-    cfgs = tiny_cfgs(**diffusion)
-    evd = port_evd(case["state_dict"], **diffusion)
-    ema = port_evd(case["state_dict"], **diffusion).requires_grad_(False)
+    diffusion, nets = case.get("diffusion", {}), {k: case.get(k) for k in ("model", "layer")}
+    cfgs = tiny_cfgs(**nets, **diffusion)
+    evd = port_evd(case["state_dict"], **nets, **diffusion)
+    ema = port_evd(case["state_dict"], **nets, **diffusion).requires_grad_(False)
     state = TrainState(list(evd.parameters()), list(ema.parameters()), OptimizerConfig())
     step = make_train_step(evd, cfgs[3], cfgs[4], case["table"], accumulate_grad_batches=case["accum"], dp=dp)
     generator = torch.Generator().manual_seed(case.get("seed", 0))
