@@ -39,6 +39,7 @@ PHASES = (
     ("data parallel", "data parallel phase"),
     ("self-conditioning and learned schedule", "self-conditioning and learned schedule phase"),
     ("module-path denoisers", "module-path denoisers phase"),
+    ("tools", "tools phase"),
     ("conditional path", "conditional path phase"),
     ("GEOM path", "GEOM path phase"),
     ("pocket path", "pocket path phase"),

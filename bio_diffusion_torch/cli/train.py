@@ -21,8 +21,14 @@ fallback to the CPU.  Checkpoints go to ``<workdir>/<trainer.ckpt_dir>``
 (``step_<n>.pt``); a second run on the same workdir resumes from the newest
 (the train state, not the data order), and ``trainer.warm_start_ckpt=PATH``
 (with ``trainer.warm_start_source=params|ema_params``) warm-starts a fresh
-run.  Metrics go to ``<workdir>/metrics.csv`` (and the ``logger`` group's
-other backends).  ``test=true`` evaluates the test split after training.
+run.  Metrics go to ``<workdir>/metrics.csv`` and the ``logger`` group's
+other backends (``logger=many_loggers``: csv, TensorBoard event files under
+``<workdir>/tensorboard``, ``metrics.jsonl``; wandb, mlflow, comet and
+neptune where their packages import), closed when ``fit`` ends, also on an
+error.  On rank 0 ``extras.enforce_tags`` makes missing ``tags`` an error
+(a warning without it) and ``extras.print_config`` prints the composed
+config as a tree to stderr.  ``test=true`` evaluates the test split after
+training.
 
 ``trainer.detect_anomaly=true`` (or ``debug=default``) checks the loss's
 invariants every step (``utils/debug.py``): masked inputs, CoM-free
@@ -70,7 +76,13 @@ from bio_diffusion_torch.parallel.distributed import (
     shutdown,
 )
 from bio_diffusion_torch.train.loop import Trainer
-from bio_diffusion_torch.utils.logging import MetricLoggers, build_loggers, get_logger
+from bio_diffusion_torch.utils.logging import (
+    MetricLoggers,
+    build_loggers,
+    enforce_tags,
+    get_logger,
+    print_config_tree,
+)
 from bio_diffusion_torch.utils.profiling import dump_computation_graph, profile_trace
 
 log = get_logger(__name__)
@@ -104,8 +116,16 @@ def main(argv=None) -> Trainer:
             raise ValueError(f"launched with WORLD_SIZE={world} but trainer.use_mesh=false: set "
                              "trainer.use_mesh=true for data parallelism, or launch one process")
     main_rank = dp is None or dp.is_main
-    loggers = build_loggers(cfg.get("logger"), workdir) if main_rank else MetricLoggers()
+    loggers = MetricLoggers()
     try:
+        extras = cfg.get("extras") or {}
+        strict_tags = bool(extras.get("enforce_tags"))
+        if main_rank or strict_tags:  # a strict check fails on every rank alike
+            enforce_tags(cfg, strict=strict_tags)
+        if main_rank:
+            if extras.get("print_config"):
+                print_config_tree(cfg)
+            loggers = build_loggers(cfg.get("logger"), workdir)
         trainer = Trainer(exp, workdir, device, loggers=loggers, dp=dp)
         if "dump-graph" in flags:
             if trainer.state is None:  # a collective under data parallelism: every rank
@@ -123,6 +143,7 @@ def main(argv=None) -> Trainer:
         if cfg.get("test"):
             log.info("test metrics: %s", trainer.validate(epoch=-1, split="test"))
     finally:
+        loggers.finish()
         if dp is not None:
             shutdown()
     return trainer

@@ -5,8 +5,10 @@ Copy of ``bio_diffusion_tpu/data/batch.py`` without jax: a
 molecule of a batch to one node count (QM9: the dataset's 29, or a bucket).
 ``DenseDataset`` carries what the QM9 loader and the sampling evaluation
 read.  A batch of a property-conditioned model carries its context: the
-normalized property values of each molecule broadcast to its nodes.  The
-compiled ``native_loader`` collation (ROADMAP A7) is not ported.
+normalized property values of each molecule broadcast to its nodes.
+:func:`iterate_dense_batches` collates through the compiled
+``data/native_loader.py::collate_dense_native`` as the JAX package's does,
+bit for bit what :func:`collate_numpy` gives.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from bio_diffusion_torch.data import native_loader
 
 
 @dataclasses.dataclass
@@ -95,6 +99,27 @@ class DenseDataset:
         return out
 
 
+def collate_numpy(dataset: "DenseDataset", sel: np.ndarray, n_pad: int
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The molecules ``sel`` of ``dataset`` padded to ``n_pad`` nodes with
+    numpy -> ``(x [B, n_pad, 3], one_hot [B, n_pad, K], charges [B, n_pad, 1],
+    mask [B, n_pad])``, float32; a row is real where its charge is > 0."""
+    positions, charges, one_hot = (dataset.data[k] for k in ("positions", "charges", "one_hot"))
+    b = len(sel)
+    x = np.zeros((b, n_pad, 3), dtype=np.float32)
+    oh = np.zeros((b, n_pad, one_hot.shape[-1]), dtype=np.float32)
+    ch = np.zeros((b, n_pad, 1), dtype=np.float32)
+    mask = np.zeros((b, n_pad), dtype=np.float32)
+    src_n = min(n_pad, positions.shape[1])
+    x[:, :src_n] = positions[sel][:, :src_n]
+    oh[:, :src_n] = one_hot[sel][:, :src_n]
+    ch[:, :src_n, 0] = charges[sel][:, :src_n]
+    mask[:, :src_n] = (charges[sel][:, :src_n] > 0).astype(np.float32)
+    x *= mask[..., None]  # missing nodes carry no geometry
+    oh *= mask[..., None]
+    return x, oh, ch, mask
+
+
 def iterate_dense_batches(
     dataset: DenseDataset,
     batch_size: int,
@@ -110,7 +135,13 @@ def iterate_dense_batches(
     """Yield numpy ``DenseMolBatch``es from a ``DenseDataset`` (shuffled by
     ``rng`` when ``shuffle``), each padded to ``pad_to`` or to its bucket.
     With ``conditioning`` (property names), each batch carries the context
-    ``(value - mean) / mad`` of those properties (``property_norms``)."""
+    ``(value - mean) / mad`` of those properties (``property_norms``).
+
+    Collation: ``native_loader.collate_dense_native`` wherever a host C++
+    compiler is found (``native_available``); its library is built on the
+    first batch, and a failed build raises.  It reads the dataset's float64
+    positions and int64 charges in place; other dtypes, and a machine
+    without a compiler, collate with :func:`collate_numpy`."""
     if conditioning and property_norms is None:
         raise ValueError("conditioning requires property_norms")
     m = len(dataset)
@@ -119,9 +150,7 @@ def iterate_dense_batches(
         if rng is None:
             raise ValueError("shuffle requires an rng")
         rng.shuffle(idx)
-    positions = dataset.data["positions"]
-    charges = dataset.data["charges"]
-    one_hot = dataset.data["one_hot"]
+    use_native = native_loader.native_available()
     for start in range(0, m, batch_size):
         sel = idx[start: start + batch_size]
         if len(sel) < batch_size and drop_last:
@@ -129,18 +158,15 @@ def iterate_dense_batches(
         num_atoms = dataset.data["num_atoms"][sel]
         n_pad = pad_to if pad_to is not None else select_bucket(
             int(num_atoms.max()), bucket_sizes, pad_to_multiple)
-        b = len(sel)
-        x = np.zeros((b, n_pad, 3), dtype=np.float32)
-        oh = np.zeros((b, n_pad, one_hot.shape[-1]), dtype=np.float32)
-        ch = np.zeros((b, n_pad, 1), dtype=np.float32)
-        mask = np.zeros((b, n_pad), dtype=np.float32)
-        src_n = min(n_pad, positions.shape[1])
-        x[:, :src_n] = positions[sel][:, :src_n]
-        oh[:, :src_n] = one_hot[sel][:, :src_n]
-        ch[:, :src_n, 0] = charges[sel][:, :src_n]
-        mask[:, :src_n] = (charges[sel][:, :src_n] > 0).astype(np.float32)
-        x *= mask[..., None]  # missing nodes carry no geometry
-        oh *= mask[..., None]
+        collated = None
+        if use_native:
+            collated = native_loader.collate_dense_native(
+                dataset.data["positions"], dataset.data["charges"], sel, n_pad, dataset.included_species)
+        if collated is not None:
+            x, oh, ch, mask = collated
+            ch = ch[..., None]
+        else:
+            x, oh, ch, mask = collate_numpy(dataset, sel, n_pad)
         ctx = None
         if conditioning:
             cols = [(dataset.data[p][sel].astype(np.float32) - property_norms[p]["mean"])

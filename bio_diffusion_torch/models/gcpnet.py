@@ -47,7 +47,7 @@ from bio_diffusion_torch.ops.geometry import (
     build_edge_mask, centralize, edge_features, localize, masked_sum, node_mean_frames, orientations,
 )
 from bio_diffusion_torch.ops.message_layer import (
-    cast_parameters, detached, message_layer, pack_message_stack, stack_chain,
+    cast_parameters, detached, message_layer, message_layer_plain, pack_message_stack, stack_chain,
 )
 from bio_diffusion_torch.ops.scalar_vector import ScalarVector
 
@@ -250,12 +250,19 @@ class GCPNetDynamics(nn.Module):
     counters, which every in-place update bumps: optimizer steps, EMA
     updates, ``load_state_dict``).  ``dropout`` (the training loss's draws)
     applies GCP dropout on the module forward; without it the forward is
-    deterministic."""
+    deterministic.
+
+    ``use_kernels=False`` runs the packed forward's message layers through
+    their plain PyTorch version (``message_layer_plain``, autograd for the
+    backward) on any device, the JAX package's ``use_pallas=False``: for
+    comparison and measurement (``cli/bench_train_step.py``'s ``plain``
+    path); no entry point of the main path sets it."""
 
     def __init__(self, model_cfg: ModelConfig, module_cfg: ModuleConfig, layer_cfg: LayerConfig,
                  diffusion_cfg: DiffusionConfig, dataloader_cfg: DataloaderConfig,
-                 compute_dtype: Optional[str] = None, fast: str = "auto"):
+                 compute_dtype: Optional[str] = None, fast: str = "auto", use_kernels: bool = True):
         super().__init__()
+        self.use_kernels = use_kernels
         supported = supports_fast_path(module_cfg, layer_cfg)
         if fast in ("on", "pallas") and not supported:
             raise ValueError(f"trainer.fast_train={fast} but the model config is not supported by the fast path")
@@ -409,8 +416,9 @@ class GCPNetDynamics(nn.Module):
 
         x = f["x_cent"]
         node_m = mask_f[..., None].to(cdt)
+        layer_fn = message_layer if self.use_kernels else message_layer_plain
         for layer, lw in zip(self.interaction_layers, w["layers"]):
-            s_agg, v_agg = message_layer(
+            s_agg, v_agg = layer_fn(
                 s_node, v_node.reshape(b, n, 3 * v_dim), epack, lw["g1"], lw["chain"], ve_dim=ve_dim)
             s_ff, v_ff = layer.feedforward_network[0](
                 torch.cat([s_agg, s_node], dim=-1),

@@ -1,10 +1,14 @@
-"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ctypes.
+"""Build the sources under ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
-use into ``bio_diffusion_torch/build/lib<name>-<digest>.so`` (the directory is
-git-ignored; the digest covers the source, every header it includes with
-``#include "..."`` and the flags, so an edited source or header never loads a
-stale library).  Nothing is built when a module is imported.
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
+``nvcc`` on first use into ``bio_diffusion_torch/build/lib<name>-<digest>.so``
+(the directory is git-ignored; the digest covers the source, every header it
+includes with ``#include "..."`` and the flags, so an edited source or header
+never loads a stale library).  The host-side C++ sources (``csrc/<name>.cc``:
+the xyz parser and batch collation of ``data/native_loader.py``) are
+compiled the same way with ``g++`` (:func:`compile_host_source`).  Nothing
+is built when a module is imported; a failed build raises with the
+compiler's message.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -69,22 +75,45 @@ def source_digest(src: Path, flags: Sequence[str] = NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(src: Path, find_compiler, flags: Sequence[str], build_dir: Path) -> Tuple[Path, str]:
+    """Compile ``src`` with the compiler ``find_compiler()`` and ``flags`` into
+    ``build_dir/lib<stem>-<digest>.so`` unless that library is built -> (its
+    path, the compiler's report, empty if it was built already); a failed
+    compile raises ``RuntimeError`` with the compiler's message."""
+    src, build_dir = Path(src), Path(build_dir)
+    out = build_dir / f"lib{src.stem}-{source_digest(src, flags)}.so"
+    if out.exists():
+        return out, ""
+    compiler = find_compiler()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, (proc.stdout + proc.stderr).strip()
+
+
 def compile_source(src: Path, defines: Sequence[str] = ()) -> Tuple[Path, str]:
     """Compile one CUDA source with ``-D`` for each of ``defines`` into the
     build directory unless that library is built -> ``(its path, the
     compiler's report, empty if it was built already)``."""
-    src = Path(src)
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
-    out = BUILD_DIR / f"lib{src.stem}-{source_digest(src, flags)}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([find_nvcc(), *flags, "-o", str(tmp), str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, (proc.stdout + proc.stderr).strip()
+    return _compile(src, find_nvcc, NVCC_FLAGS + [f"-D{d}" for d in defines], BUILD_DIR)
+
+
+def find_gxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` on the path."""
+    for cand in (os.environ.get("CXX"), "g++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError("g++ not found (set CXX); the host-side C++ sources cannot be built")
+
+
+def compile_host_source(src: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile one host C++ source with ``g++`` (``GXX_FLAGS``) into
+    ``build_dir`` unless that library is built -> its path."""
+    return _compile(src, find_gxx, GXX_FLAGS, build_dir)[0]
 
 
 def _build(name: str) -> Path:

@@ -221,6 +221,30 @@
    ``trainer.fast_train=off`` against ``auto`` (3 steps each on the same
    batches and draws: step 1's loss within 1e-4 relative, 0 and 9 + 9
    launches a step, ms a step of both).
+22. Drives the tools (right after the module-path denoisers, on the user
+   path's QM9-layout files), full QM9 width, each call's launches read
+   around it: (a) ``cli.train.main`` fp32 B=64, 2 steps, with
+   ``logger=many_loggers`` and ``extras.print_config=true``: the
+   TensorBoard event file (read back by ``read_scalar_events``) and
+   ``metrics.jsonl`` hold the steps and scalars of ``metrics.csv``, every
+   batch came through the native collation (``data/native_loader.py``,
+   built by g++ from ``csrc/xyz_parser.cc``), and each step's batch equals
+   the numpy collation of the same molecules bit for bit; (b)
+   ``cli.hparam_search`` with 2 random trials of 2 steps: ``study.json``
+   holds 2 complete trials and a best one; (c)
+   ``cli.generate_grid_search_runs`` on a 2-run space, then
+   ``cli.generate_k8s_jobs`` on its manifest: the YAML parses and asks for
+   ``nvidia.com/gpu`` under torchrun; (d) ``cli.bench_shape_sweep --cross
+   --steps 20 --batches 32 250 --nodes 19 29`` (bf16): 9 launches a
+   denoiser call of every run, evals/s, us a molecule-step and the fitted
+   N exponent; (e) ``cli.bench_train_step --batch 64 --nodes 29 --precision
+   fp32 --steps 3 --split``: the kernel path 9 + 9 launches a step, the
+   module and plain paths none, their step-1 losses within 1e-5 relative,
+   ms a step of each and the split; (f) ``cli.first_contact`` on a
+   reference-layout ``.ckpt`` written from seed weights, 16 molecules at
+   T=100: the import holds every parameter, every target metric has its
+   tolerance, and the verdict is a fail (exit code 1), as seed weights
+   must give; the seconds of each phase.
 
 Prints one JSON line of per-kernel results (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s in bf16 or
@@ -231,6 +255,7 @@ the exit code is non-zero.
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import os
 import shutil
@@ -296,6 +321,9 @@ TOL_MODULE_GRAD_REL = 1e-4
 TOL_FAST_OFF_REL = 1e-4
 # the reduced depth of the module-path sampling runs
 MODULE_SAMPLE_T = 100
+# the tools phase: the train-step benchmark's step-1 losses of its three
+# paths from the same weights and draws, float32, relative
+TOL_TOOLS_LOSS_REL = 1e-5
 
 
 def card_line() -> str:
@@ -1445,6 +1473,228 @@ def drive_module_paths(torch, data_dir):
     off_launches, numbers["fast_train_off"] = fast_train_off_steps(torch, data_dir, root)
     for kind in ("fwd", "bwd"):
         out[kind].update(off_launches[kind])
+    return out, numbers
+
+
+def batch_recorder(torch, batches):
+    """A ``loop.make_train_step`` that appends each step's batch (numpy
+    copies of its tensors) to ``batches``."""
+    from bio_diffusion_torch.train import loop
+
+    orig_make = loop.make_train_step
+
+    def make(*a, **k):
+        step = orig_make(*a, **k)
+
+        def run(state, batch, *sa, **sk):
+            batches.append([getattr(batch, f).detach().cpu().numpy() for f in ("x", "one_hot", "charges", "node_mask")])
+            return step(state, batch, *sa, **sk)
+        return run
+
+    return make
+
+
+def tools_train(torch, data_dir, root, card):
+    """Phase (a) of ``drive_tools`` -> (its launches, numbers)."""
+    import numpy as np
+
+    from bio_diffusion_torch.cli import train
+    from bio_diffusion_torch.data import batch as batch_mod
+    from bio_diffusion_torch.data import native_loader
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.utils.logging import read_scalar_events
+
+    workdir = os.path.join(root, "train")
+    args = ["experiment=qm9_mol_gen_ddpm", "logger=many_loggers", "extras.print_config=true",
+            "datamodule.dataloader_cfg.dataset=QM9", f"datamodule.dataloader_cfg.data_dir={data_dir}",
+            "datamodule.dataloader_cfg.batch_size=64", "trainer.precision=fp32", "trainer.limit_train_batches=2",
+            "trainer.check_val_every_n_epoch=2", "model.diffusion_cfg.sample_during_training=false",
+            "--device=cuda", f"--workdir={workdir}", "--max-epochs=1"]
+    collated, batches = [], []
+    orig_collate, orig_make = native_loader.collate_dense_native, loop.make_train_step
+
+    def collate(positions, charges, sel, n_pad, species):
+        out = orig_collate(positions, charges, sel, n_pad, species)
+        collated.append((positions, np.array(sel), n_pad, out))
+        return out
+
+    native_loader.collate_dense_native = collate
+    loop.make_train_step = batch_recorder(torch, batches)
+    try:
+        trainer, sec, counts = count_run(torch, lambda: train.main(args))
+    finally:
+        native_loader.collate_dense_native, loop.make_train_step = orig_collate, orig_make
+    # every batch through the native collation, each equal to numpy's of its molecules
+    by_positions = {id(ds.data["positions"]): ds for ds in trainer.datasets.values()}
+    train_calls = [c for c in collated if by_positions[id(c[0])] is trainer.datasets["train"]]
+    if trainer.stats["steps"] != 2 or len(batches) != 2 or len(train_calls) < 2 or any(c[3] is None for c in collated):
+        raise AssertionError(f"tools (a): {trainer.stats['steps']} steps, {len(batches)} step batches, "
+                             f"{len(train_calls)} native train collations (need 2, 2, >= 2, none refused)")
+    for i, (positions, sel, n_pad, out) in enumerate(collated):
+        x, oh, ch, mask = batch_mod.collate_numpy(by_positions[id(positions)], sel, n_pad)
+        native = (out[0], out[1], out[2][..., None], out[3])
+        if not all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(native, (x, oh, ch, mask))):
+            raise AssertionError(f"tools (a): native collation {i} differs from numpy's for the same molecules")
+    for step_batch, (_, _, _, out) in zip(batches, train_calls):
+        native = (out[0], out[1], out[2][..., None], out[3])
+        if not all(a.tobytes() == b.tobytes() for a, b in zip(step_batch, native)):
+            raise AssertionError("tools (a): a step's batch is not its native collation")
+    # the logs: metrics.jsonl and the event file hold metrics.csv's steps and scalars
+    with open(os.path.join(workdir, "metrics.csv")) as f:
+        csv_rows = list(csv.DictReader(f))
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        jsonl_rows = [json.loads(line) for line in f]
+    want = [(int(r["step"]), k, float(v)) for r in csv_rows for k, v in r.items()
+            if k not in ("step", "epoch", "time") and v not in ("", None)]
+    got_jsonl = [(r["step"], k, v) for r in jsonl_rows for k, v in r.items()
+                 if k not in ("step", "epoch", "time") and v is not None]
+    events = read_scalar_events(os.path.join(workdir, "tensorboard"))
+    if not want or got_jsonl != want or [(s, t, np.float32(v)) for s, t, v in events] != \
+            [(s, t, np.float32(v)) for s, t, v in want]:
+        raise AssertionError(f"tools (a): the logs differ: csv {want[:4]}..., jsonl {got_jsonl[:4]}..., "
+                             f"events {events[:4]}...")
+    print(f"tools (a) cli.train logger=many_loggers, 2 steps at B=64 (fp32): {len(want)} scalars over steps "
+          f"{sorted({w[0] for w in want})} equal in metrics.csv, metrics.jsonl and {len(events)} TensorBoard "
+          f"events; {len(collated)} native collations ({len(train_calls)} train), each equal to numpy's bit for bit, "
+          f"the 2 step batches among them; launches fwd={counts['message_layer']} bwd={counts['message_layer_bwd']} "
+          f"(need 18, 18); {sec:.3f} s with set-up [{card}]")
+    if counts["message_layer"] != 18 or counts["message_layer_bwd"] != 18:
+        raise AssertionError("tools (a): the training run's launch counts are not 9 + 9 a step")
+    return counts, {"train_s": sec, "scalars": len(want), "native_collations": len(collated)}
+
+
+def drive_tools(torch, data_dir):
+    """The tools phase at full QM9 width on the user path's QM9-layout files
+    (docstring item 22) -> (launches by path, numbers)."""
+    import numpy as np
+    import yaml
+
+    from bio_diffusion_torch.cli import (
+        bench_shape_sweep,
+        bench_train_step,
+        first_contact,
+        generate_grid_search_runs,
+        generate_k8s_jobs,
+        hparam_search,
+    )
+    from bio_diffusion_torch.cli.common import load_model
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.train.checkpoints import reference_state_dict
+    from bio_diffusion_torch.train.torch_import import init_random_weights
+
+    root = os.path.join(REPO, "outputs", "tools")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    card = card_line()
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+
+    def keep(path, counts):
+        out["fwd"][path], out["bwd"][path] = counts["message_layer"], counts["message_layer_bwd"]
+
+    counts, numbers["train"] = tools_train(torch, data_dir, root, card)
+    keep("tools_train", counts)
+
+    # (b) the hyperparameter search: 2 random trials of 2 steps
+    space = os.path.join(root, "space.json")
+    with open(space, "w") as f:
+        json.dump({"model.optimizer.lr": "choice(0.001, 0.0001)"}, f)
+    search = os.path.join(root, "search")
+    _, sec, counts = count_run(torch, lambda: hparam_search.main([
+        space, search, "--n-trials", "2", "--metric", "train/loss", "--sampler", "random", "--max-steps", "2",
+        "--device", "cuda", "--", "experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=QM9",
+        f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
+        "trainer.precision=fp32", "trainer.check_val_every_n_epoch=2",
+        "model.diffusion_cfg.sample_during_training=false", "extras.print_config=false"]))
+    with open(os.path.join(search, "study.json")) as f:
+        study = json.load(f)
+    done = [t for t in study["trials"] if t.get("value") is not None and np.isfinite(t["value"])]
+    with open(os.path.join(search, "best_trial.json")) as f:
+        best = json.load(f)
+    print(f"tools (b) cli.hparam_search: {len(done)} complete trials of 2 steps (values "
+          f"{[t['value'] for t in done]}), best trial {best['number']}; launches fwd={counts['message_layer']} "
+          f"bwd={counts['message_layer_bwd']} (need 36, 36); {sec:.3f} s [{card}]")
+    if len(study["trials"]) != 2 or len(done) != 2 or best["value"] != min(t["value"] for t in done) \
+            or counts["message_layer"] != 36 or counts["message_layer_bwd"] != 36:
+        raise AssertionError("tools (b): the study is not 2 complete trials of 2 kernel steps with a best one")
+    keep("tools_hparam_search", counts)
+    numbers["hparam_search_s"] = sec
+
+    # (c) a 2-run grid and its GPU Jobs
+    grid = os.path.join(root, "grid.json")
+    with open(grid, "w") as f:
+        json.dump({"model.optimizer.lr": [1e-4, 4e-4]}, f)
+    manifest = generate_grid_search_runs.main([grid, os.path.join(root, "grid")])
+    paths = generate_k8s_jobs.main(["--manifest", os.path.join(root, "grid", "grid_manifest.json"),
+                                    "--out-dir", os.path.join(root, "k8s"), "--num-hosts", "2"])
+    jobs = [d for d in (yaml.safe_load(open(p)) for p in paths) if d["kind"] == "Job"]
+    ctrs = [j["spec"]["template"]["spec"]["containers"][0] for j in jobs]
+    if len(manifest) != 2 or len(jobs) != 2 or not all(
+            c["resources"]["limits"]["nvidia.com/gpu"] == 8 and c["command"][-1].startswith("torchrun ")
+            and "-m bio_diffusion_torch.cli.train " in c["command"][-1] for c in ctrs):
+        raise AssertionError("tools (c): the grid's Jobs do not ask for nvidia.com/gpu under torchrun")
+    print(f"tools (c) a 2-run grid -> {len(paths)} YAMLs (PVC, 2 Jobs, 2 headless Services) that parse; "
+          f"nvidia.com/gpu 8 a pod under torchrun")
+
+    # (d) the shape sweep, bf16
+    result, sec, counts = count_run(torch, lambda: bench_shape_sweep.main(
+        ["--cross", "--steps", "20", "--batches", "32", "250", "--nodes", "19", "29"]))
+    for r in result["rows"]:
+        print(f"tools (d) bench_shape_sweep B={r['batch']} N={r['nodes']}: {r['evals_per_s']} evals/s, "
+              f"{r['us_per_mol_step']} us a molecule-step, {r['launches']} launches (need 9 x 21) [{card}]")
+    print(f"tools (d) n_exponent {result['n_exponent']} at B={result['fit_batch']}; {sec:.3f} s [{card}]")
+    if len(result["rows"]) != 3 or any(r["launches"] != 9 * 21 for r in result["rows"]) \
+            or counts["message_layer"] != 2 * 9 * 21 * 3:
+        raise AssertionError("tools (d): the sweep's runs are not 9 launches a denoiser call")
+    keep("tools_shape_sweep", counts)
+    numbers["shape_sweep"] = result
+
+    # (e) the train-step benchmark, fp32, with the split
+    result, sec, counts = count_run(torch, lambda: bench_train_step.main(
+        ["--batch", "64", "--nodes", "29", "--precision", "fp32", "--steps", "3", "--split"]))
+    paths_out = result["paths"]
+    losses = {p: r["loss_step1"] for p, r in paths_out.items()}
+    rel = max(abs(v - losses["kernel"]) for v in losses.values()) / abs(losses["kernel"])
+    split = result["split"]
+    print("tools (e) bench_train_step B=64 N=29 fp32: ms a step " + ", ".join(
+        f"{p} {r['ms_per_step']:.3f}" for p, r in paths_out.items()) + f"; step-1 losses {losses} "
+          f"({rel:.2e} apart, need <= {TOL_TOOLS_LOSS_REL}); launches by path "
+          f"{ {p: r['launches'] for p, r in paths_out.items()} } [{card}]")
+    print(f"tools (e) split of the kernel path: fwd {split['fwd_ms']:.3f} ms, bwd {split['bwd_ms']:.3f} ms, "
+          f"clip+opt+ema {split['glue_ms']:.3f} ms, {split['flops_fwd_bwd']:.4e} FLOP fwd+bwd (module path), "
+          f"MFU(step) {100 * split['mfu_step']:.3f}% of 67 TFLOP/s fp32; {sec:.3f} s [{card}]")
+    if paths_out["kernel"]["launches"] != {"message_layer": 9 * 4, "message_layer_bwd": 9 * 4} \
+            or any(paths_out[p]["launches"] != {"message_layer": 0, "message_layer_bwd": 0} for p in ("module", "plain")) \
+            or not rel <= TOL_TOOLS_LOSS_REL or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError("tools (e): launches or step-1 losses of the three paths are off")
+    keep("tools_train_step", counts)
+    numbers["train_step"] = result
+
+    # (f) first_contact on a reference-layout checkpoint of seed weights
+    exp = build_experiment(load_config(default_config_dir(), "mol_gen_eval", []))
+    evd = load_model(exp, None, torch.device("cpu"), seed=11)
+    ckpt = os.path.join(root, "seed-EMA.ckpt")
+    torch.save({"state_dict": reference_state_dict(evd), "epoch": 0}, ckpt)
+    n_params = sum(1 for _ in evd.parameters())
+    del evd
+    report_path = os.path.join(root, "first_contact.json")
+    rc, sec, counts = count_run(torch, lambda: first_contact.main(
+        ["--ckpt", ckpt, "--num-samples", "16", "--num-timesteps", "100", "--batch", "16", "--out", report_path]))
+    with open(report_path) as f:
+        report = json.load(f)
+    checks = report["checks"]
+    print(f"tools (f) first_contact (16 molecules, T=100, seed weights): exit {rc}, pass {report['pass']}, import "
+          f"{checks['import']} of {n_params} parameters, checks " + ", ".join(
+              f"{k} {v.get('value')} (target {v.get('target')}, tolerance {v.get('tolerance')})"
+              for k, v in checks.items() if k in first_contact.TARGETS)
+          + f"; launches {counts['message_layer']} (need 9 x 101); {sec:.3f} s [{card}]")
+    if rc != 1 or report["pass"] is not False or checks["import"] != {"ok": True, "leaves": n_params} \
+            or any("tolerance" not in checks.get(k, {}) for k in first_contact.TARGETS) \
+            or counts["message_layer"] != 9 * 101:
+        raise AssertionError("tools (f): first_contact's report is not an import of every parameter and a failed "
+                             "verdict with every target's tolerance")
+    keep("tools_first_contact", counts)
+    numbers["first_contact_s"] = sec
     return out, numbers
 
 
@@ -3196,6 +3446,10 @@ def main() -> int:
     mp_numbers["phase_s"] = time.perf_counter() - t0
     print(f"module-path denoisers phase: {mp_numbers['phase_s']:.3f} s")
     t0 = time.perf_counter()
+    tools_launches, tools_numbers = drive_tools(torch, os.path.join(REPO, "outputs", "user_path", "data"))
+    tools_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"tools phase: {tools_numbers['phase_s']:.3f} s")
+    t0 = time.perf_counter()
     cond_launches, cond_numbers = drive_conditional_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
     cond_numbers["phase_s"] = time.perf_counter() - t0
     print(f"conditional path phase: {cond_numbers['phase_s']:.3f} s")
@@ -3239,11 +3493,12 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:619",
         "launches": serve_launches + train_fwd + sum(user_launches["fwd"].values()) + sum(dp_launches["fwd"].values())
-        + sum(sc_launches["fwd"].values()) + sum(mp_launches["fwd"].values()) + sum(cond_launches["fwd"].values())
-        + sum(geom_launches["fwd"].values())
+        + sum(sc_launches["fwd"].values()) + sum(mp_launches["fwd"].values()) + sum(tools_launches["fwd"].values())
+        + sum(cond_launches["fwd"].values()) + sum(geom_launches["fwd"].values())
         + sum(pocket_launches["fwd"].values()) + sum(new_fwd.values()),
         "launches_by_path": {"serve": serve_launches, "train": train_fwd, **user_launches["fwd"], **dp_launches["fwd"],
-                             **sc_launches["fwd"], **mp_launches["fwd"], **cond_launches["fwd"], **geom_launches["fwd"],
+                             **sc_launches["fwd"], **mp_launches["fwd"], **tools_launches["fwd"], **cond_launches["fwd"],
+                             **geom_launches["fwd"],
                              **pocket_launches["fwd"], **new_fwd},
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
@@ -3261,6 +3516,7 @@ def main() -> int:
         "data_parallel": dp_numbers,
         "sc_learned_path": sc_numbers,
         "module_path": mp_numbers,
+        "tools": tools_numbers,
         "conditional_path": cond_numbers,
         "geom": geom_fwd,
         "pocket": pocket_numbers,
@@ -3272,10 +3528,11 @@ def main() -> int:
         "source": "bio_diffusion_torch/csrc/message_layer_bwd.cu",
         "replaces": "bio_diffusion_tpu/ops/pallas/gcp_kernel.py:1142",
         "launches": train_bwd + sum(user_launches["bwd"].values()) + sum(dp_launches["bwd"].values())
-        + sum(sc_launches["bwd"].values()) + sum(mp_launches["bwd"].values()) + sum(cond_launches["bwd"].values())
+        + sum(sc_launches["bwd"].values()) + sum(mp_launches["bwd"].values()) + sum(tools_launches["bwd"].values())
+        + sum(cond_launches["bwd"].values())
         + sum(geom_launches["bwd"].values()) + sum(pocket_launches["bwd"].values()) + sum(new_bwd.values()),
         "launches_by_path": {"train": train_bwd, **user_launches["bwd"], **dp_launches["bwd"], **sc_launches["bwd"],
-                             **mp_launches["bwd"], **cond_launches["bwd"],
+                             **mp_launches["bwd"], **tools_launches["bwd"], **cond_launches["bwd"],
                              **geom_launches["bwd"], **pocket_launches["bwd"], **new_bwd},
         "max_abs_err": kernel_bwd["max_abs_err"],
         "max_rel_err": kernel_bwd["max_rel_err"],

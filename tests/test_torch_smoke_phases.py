@@ -61,3 +61,15 @@ def test_run_stamps_a_checkout_smoke(tmp_path, capsys):
 def test_main_refuses_unknown_arguments():
     assert smoke_phases.main(["walk"]) == 2
     assert smoke_phases.main(["--help"]) == 0
+
+
+def test_tools_phase_follows_the_module_path_denoisers():
+    """The "tools" phase runs after "module-path denoisers" and ends on its
+    own line, which cuts its seconds out of a stamped output."""
+    names = [name for name, _ in smoke_phases.PHASES]
+    assert names.index("tools") == names.index("module-path denoisers") + 1
+    ends = [end for _, end in smoke_phases.PHASES]
+    assert dict(smoke_phases.PHASES)["tools"] == "tools phase"
+    lines = _stamped(ends)
+    assert "tools phase 1.000 s\n" in [l.split(None, 1)[1] for l in lines]
+    assert smoke_phases.phase_seconds(lines)["tools"] == pytest.approx(10.0)
