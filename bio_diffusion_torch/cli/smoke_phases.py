@@ -37,6 +37,7 @@ PHASES = (
     ("trainer fp32 and bf16", "train bf16: the two kernels"),
     ("user path", "user path phase"),
     ("data parallel", "data parallel phase"),
+    ("model axis", "model axis phase"),
     ("self-conditioning and learned schedule", "self-conditioning and learned schedule phase"),
     ("module-path denoisers", "module-path denoisers phase"),
     ("tools", "tools phase"),

@@ -10,7 +10,8 @@ Usage:
       [datamodule.dataloader_cfg.data_dir=DIR] [k=v ...] \\
       [--max-steps=K] [--max-epochs=E] [--workdir=DIR] [--device=cuda|cpu] \\
       [trainer.detect_anomaly=true] [trainer.profile=true] [--profile=DIR] [--dump-graph]
-  torchrun --nproc_per_node=K -m bio_diffusion_torch.cli.train ... [--dist-init=URL] [--dist-timeout=S]
+  torchrun --nproc_per_node=K -m bio_diffusion_torch.cli.train ... [--dist-init=URL] [--dist-timeout=S] \
+      [trainer.num_model_shards=M]
 
 QM9 is read from ``<data_dir>/QM9``: the processed ``train/valid/test.npz``
 or the GDB9 tarball with ``uncharacterized.txt`` and ``atomref.txt``;
@@ -52,9 +53,13 @@ where torchrun's variables are absent.  ``--dist-init=URL`` gives the
 rendezvous (e.g. ``file:///path``) in place of ``MASTER_ADDR`` /
 ``MASTER_PORT``; ``--dist-timeout=S`` bounds every wait in a collective
 (default 7200 s: the ranks wait while rank 0 runs the sampling
-evaluation).  ``trainer.use_mesh=false`` under ``WORLD_SIZE > 1`` and
-``trainer.num_model_shards > 1`` (parameter sharding, not ported) raise.
-Without a launcher, training runs on ``--device`` alone.
+evaluation).  ``trainer.use_mesh=false`` under ``WORLD_SIZE > 1`` raises.
+``trainer.num_model_shards=M`` lays the K ranks out as K/M data groups by M
+model shards (``parallel/mesh.py``): the ranks of a model group share one
+copy of the parameters, EMA and optimizer moments, each holding its slices,
+and every step gathers the parameters and reduce-scatters the gradients;
+a K that M does not divide raises ``ValueError``.  Without a launcher (or
+at K = 1), training runs on ``--device`` alone, unsharded, whatever M.
 """
 
 from __future__ import annotations
@@ -68,13 +73,7 @@ import torch
 
 from bio_diffusion_torch.cli.common import parse_cli
 from bio_diffusion_torch.config.build import build_experiment
-from bio_diffusion_torch.parallel.distributed import (
-    DEFAULT_TIMEOUT_S,
-    check_model_shards,
-    init_distributed,
-    launched_world,
-    shutdown,
-)
+from bio_diffusion_torch.parallel.distributed import DEFAULT_TIMEOUT_S, init_distributed, launched_world, shutdown
 from bio_diffusion_torch.train.loop import Trainer
 from bio_diffusion_torch.utils.logging import (
     MetricLoggers,
@@ -103,18 +102,22 @@ def main(argv=None) -> Trainer:
     log.info("Experiment: dataset=%s, layers=%d, precision=%s, device=%s, workdir=%s",
              exp.dataloader_cfg.dataset, exp.model_cfg.num_encoder_layers, exp.trainer.precision,
              device, workdir)
-    check_model_shards(exp.trainer.num_model_shards)
+    num_model_shards = int(exp.trainer.num_model_shards)
     dp = None
     world = launched_world()
     if world is not None or exp.trainer.multihost:
         if exp.trainer.use_mesh:
             dp = init_distributed(torch.device(device).type, init_method=flags.get("dist-init"),
-                                  timeout_s=float(flags.get("dist-timeout") or DEFAULT_TIMEOUT_S))
+                                  timeout_s=float(flags.get("dist-timeout") or DEFAULT_TIMEOUT_S),
+                                  num_model_shards=num_model_shards)
             device = dp.device
-            log.info("Data parallel: rank %d of %d on %s (%s)", dp.rank, dp.world, device, dp.backend)
+            log.info("Data parallel: rank %d of %d on %s (%s), mesh %d data x %d model", dp.rank, dp.world, device,
+                     dp.backend, dp.data, dp.model)
         elif (world or 1) > 1:
             raise ValueError(f"launched with WORLD_SIZE={world} but trainer.use_mesh=false: set "
                              "trainer.use_mesh=true for data parallelism, or launch one process")
+    if num_model_shards > 1 and (dp is None or dp.model == 1):
+        log.info("trainer.num_model_shards=%d on one process: no model axis, training unsharded", num_model_shards)
     main_rank = dp is None or dp.is_main
     loggers = MetricLoggers()
     try:
@@ -130,8 +133,9 @@ def main(argv=None) -> Trainer:
         if "dump-graph" in flags:
             if trainer.state is None:  # a collective under data parallelism: every rank
                 trainer.init_state(resume=not exp.trainer.fast_dev_run)
-            if main_rank:
-                log.info("Wrote computation graphs: %s", dump_denoiser_graph(trainer))
+            with trainer.state.gathered(ema=False):  # every rank of a model group
+                if main_rank:
+                    log.info("Wrote computation graphs: %s", dump_denoiser_graph(trainer))
         profile_dir = flags.get("profile") or (os.path.join(workdir, "profile") if exp.trainer.profile else None)
         t_start = time.time()
         with profile_trace(profile_dir if main_rank else None):

@@ -8,7 +8,8 @@ read.  A batch of a property-conditioned model carries its context: the
 normalized property values of each molecule broadcast to its nodes.
 :func:`iterate_dense_batches` collates through the compiled
 ``data/native_loader.py::collate_dense_native`` as the JAX package's does,
-bit for bit what :func:`collate_numpy` gives.
+bit for bit what :func:`collate_numpy` gives; :func:`collate_dense` pads a
+list of molecules of their own sizes.
 """
 
 from __future__ import annotations
@@ -65,6 +66,30 @@ def broadcast_context(context: np.ndarray, node_mask: np.ndarray) -> np.ndarray:
     b, n = node_mask.shape
     out = np.broadcast_to(context[:, None, :], (b, n, context.shape[-1])).copy()
     return out * np.asarray(node_mask, dtype=np.float32)[..., None]
+
+
+def collate_dense(positions: Sequence[np.ndarray], one_hot: Sequence[np.ndarray],
+                  charges: Optional[Sequence[np.ndarray]], pad_to: int,
+                  context: Optional[np.ndarray] = None) -> DenseMolBatch:
+    """Per-molecule arrays (``positions[i] [n_i, 3]``, ``one_hot[i] [n_i, K]``,
+    ``charges[i]`` with n_i values or None) padded into a ``DenseMolBatch``
+    of ``pad_to`` nodes (float32 numpy; ``charges [B, N, 1]``, zeros without
+    them); ``context [B, C]`` per molecule is broadcast to its nodes
+    (``broadcast_context``, the reference's ``prepare_context``)."""
+    b = len(positions)
+    x = np.zeros((b, pad_to, 3), dtype=np.float32)
+    oh = np.zeros((b, pad_to, one_hot[0].shape[-1]), dtype=np.float32)
+    ch = np.zeros((b, pad_to, 1), dtype=np.float32)
+    mask = np.zeros((b, pad_to), dtype=np.float32)
+    for i, (p, o) in enumerate(zip(positions, one_hot)):
+        n = len(p)
+        x[i, :n] = p
+        oh[i, :n] = o
+        mask[i, :n] = 1.0
+        if charges is not None:
+            ch[i, :n, 0] = np.asarray(charges[i]).reshape(-1)[:n]
+    ctx = None if context is None else broadcast_context(context, mask)
+    return DenseMolBatch(x=x, one_hot=oh, charges=ch, node_mask=mask, context=ctx)
 
 
 class DenseDataset:

@@ -146,8 +146,12 @@ class GammaNetwork(nn.Module):
     def _apply(self, fn, *args, **kwargs):
         # moving or casting replaces the parameters' data without bumping
         # their version counters
-        self._table = None
+        self.drop_weight_cache()
         return super()._apply(fn, *args, **kwargs)
+
+    def drop_weight_cache(self) -> None:
+        """Forget :meth:`table` (e.g. when the parameters' storage is released)."""
+        self._table = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -669,13 +673,17 @@ class EquivariantVariationalDiffusion(nn.Module):
     def mol_gen_optimize(self, x: Tensor, h_cat: Tensor, node_mask: Tensor, num_timesteps: int,
                          context: Optional[Tensor] = None,
                          generator: Optional[torch.Generator] = None,
-                         noises: Optional[Sequence[Tensor]] = None) -> Tensor:
+                         noises: Optional[Sequence[Tensor]] = None,
+                         norm_with_original_timesteps: bool = False) -> Tensor:
         """Guided round trip of existing molecules: normalize ``(x, h_cat)``
         (CoM-free positions, one-hot types), run the last ``num_timesteps``
         reverse steps from there, decode and centralize -> ``[x | one_hot]``
         on the data scale.  Only for models without the charge channel (the
         conditional QM9 model).  ``noises``: ``draws_per_step`` raw draws a
-        step and one for the decode instead of drawing from ``generator``."""
+        step and one for the decode instead of drawing from ``generator``.
+        The steps run at s / ``num_timesteps``, or, with
+        ``norm_with_original_timesteps``, at s / T (the model's last
+        ``num_timesteps`` steps)."""
         if self.include_charges:
             raise ValueError(
                 "mol_gen_optimize requires an include_charges=False model (the guided-optimization "
@@ -685,8 +693,9 @@ class EquivariantVariationalDiffusion(nn.Module):
             raise ValueError(f"noises: need {count} draws, got {len(noises)}")
         x_n, h_cat_n, _ = self.normalize(x, h_cat, torch.zeros_like(x[..., :1]), node_mask)
         z = torch.cat([x_n, h_cat_n], dim=-1)
+        denom = np.float32(self.T if norm_with_original_timesteps else num_timesteps)
         s_values = np.arange(num_timesteps - 1, -1, -1, dtype=np.float32)
-        z, self_cond = self.reverse_segment(z, s_values / num_timesteps, (s_values + 1) / num_timesteps, node_mask,
+        z, self_cond = self.reverse_segment(z, s_values / denom, (s_values + 1) / denom, node_mask,
                                             generator, noises=None if noises is None else noises[:-1],
                                             context=context)
         return self.decode_sample(z, node_mask, generator, noise=None if noises is None else noises[-1],

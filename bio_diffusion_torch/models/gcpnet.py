@@ -296,8 +296,12 @@ class GCPNetDynamics(nn.Module):
     def _apply(self, fn, *args, **kwargs):
         # moving or casting replaces the parameters' data without bumping
         # their version counters
-        self._packed = None
+        self.drop_weight_cache()
         return super()._apply(fn, *args, **kwargs)
+
+    def drop_weight_cache(self) -> None:
+        """Forget :meth:`packed_weights` (e.g. when the parameters' storage is released)."""
+        self._packed = None
 
     def weights(self) -> Dict[str, Any]:
         """Every weight in the compute dtype, message layers packed for the

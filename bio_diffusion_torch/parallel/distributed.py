@@ -15,8 +15,11 @@ Backends: NCCL with one rank a card, gloo on the CPU (or, explicitly, over
 CUDA tensors when two ranks share one card, which NCCL refuses; PyTorch's
 gloo takes CUDA tensors, so nothing is staged through host memory here).
 
-The ``model`` axis (FSDP-style parameter sharding, ``param_sharding_rules``)
-is not ported: ``num_model_shards > 1`` raises (ROADMAP.md A12).
+With ``num_model_shards = M > 1`` the group is also a ``data x model`` mesh
+(``parallel/mesh.py``): the ranks of a model group share one copy of the
+train state, each keeping its slices, and the step gathers the parameters
+and reduce-scatters the gradients; the rows of a batch are still split
+over the whole world.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bio_diffusion_torch.parallel.mesh import mesh_layout, new_mesh_groups
+
 Tensor = torch.Tensor
 
 # the longest a rank waits in a collective: the other ranks wait at a
@@ -43,17 +48,27 @@ DEFAULT_TIMEOUT_S = 7200.0
 class DataParallel:
     """This process's place in the data-parallel group: ``rank`` of
     ``world``, the card (or CPU) it computes on, the process group (None:
-    the default one) and its backend."""
+    the default one) and its backend; with ``model > 1`` the world is a
+    ``data x model`` mesh (``parallel/mesh.py``) and ``model_group`` /
+    ``data_group`` are this rank's row and column of it."""
 
     rank: int
     world: int
     device: torch.device
     group: Any = None
     backend: str = "gloo"
+    model: int = 1
+    model_group: Any = None
+    data_group: Any = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def data(self) -> int:
+        """The number of data groups: copies of the train state."""
+        return self.world // self.model
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -71,7 +86,7 @@ def launched_world() -> Optional[int]:
 
 def init_distributed(device_type: str = "cuda", backend: Optional[str] = None, device=None,
                      init_method: Optional[str] = None, rank: Optional[int] = None, world: Optional[int] = None,
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> DataParallel:
+                     timeout_s: float = DEFAULT_TIMEOUT_S, num_model_shards: int = 1) -> DataParallel:
     """Join the process group -> this rank's ``DataParallel`` record
     (counterpart of ``initialize_multihost``).
 
@@ -81,7 +96,12 @@ def init_distributed(device_type: str = "cuda", backend: Optional[str] = None, d
     / ``JAX_COORDINATOR_ADDRESS``.  ``backend`` defaults to NCCL for
     ``device_type="cuda"`` and gloo for the CPU.  Without ``device``, a CUDA
     rank takes ``cuda:LOCAL_RANK`` and raises where two ranks of a host would
-    share a card.  A group that is already up is joined as it is."""
+    share a card.  A group that is already up is joined as it is.
+
+    ``num_model_shards = M`` lays the world out as ``W/M x M``
+    (``mesh.mesh_layout``: one rank has no model axis, a world that ``M``
+    does not divide raises ``ValueError``) and creates the model and data
+    sub-groups (``mesh.new_mesh_groups``; every rank must call this)."""
     if not dist.is_available():
         raise RuntimeError("torch.distributed is not available in this build")
     rank = rank if rank is not None else _env_int("RANK", "JAX_PROCESS_ID")
@@ -115,23 +135,23 @@ def init_distributed(device_type: str = "cuda", backend: Optional[str] = None, d
         if world is not None:
             kwargs["world_size"] = world
         dist.init_process_group(backend, **kwargs)
-    return DataParallel(rank=dist.get_rank(), world=dist.get_world_size(), device=device,
-                        backend=dist.get_backend())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        layout = mesh_layout(world, num_model_shards)
+    except ValueError:
+        shutdown()
+        raise
+    model_group = data_group = None
+    if layout.model > 1:
+        model_group, data_group = new_mesh_groups(layout, rank)
+    return DataParallel(rank=rank, world=world, device=device, backend=dist.get_backend(), model=layout.model,
+                        model_group=model_group, data_group=data_group)
 
 
 def shutdown() -> None:
     """Leave the process group (where one is up)."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
-
-
-def check_model_shards(num_model_shards: int) -> None:
-    """``num_model_shards > 1`` (the JAX package's FSDP-style ``model`` axis)
-    is not ported: raise rather than ignore it."""
-    if int(num_model_shards) > 1:
-        raise NotImplementedError(
-            f"trainer.num_model_shards={num_model_shards}: parameter sharding over a 'model' axis is not ported "
-            "to the PyTorch package (ROADMAP.md A12); use num_model_shards=1 (data parallelism only)")
 
 
 # -- rows -------------------------------------------------------------------------

@@ -15,6 +15,10 @@ temporary name and moved into place with ``os.replace``; the newest
 * ``gradnorm``: the adaptive clipping's grad-norm queue and its position;
 * ``step``: the optimizer step the checkpoint was taken at.
 
+The tensors are whole whatever the run's ``trainer.num_model_shards``: a
+sharded run gathers its state for the save, and a restore loads the whole
+state, which the Trainer then shards, so a file resumes at any shard count.
+
 An orbax directory of the JAX package crosses over only as a reference
 ``.ckpt`` (``bio_diffusion_tpu/train/torch_import.py::export_state_dict``).
 """
@@ -28,7 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from bio_diffusion_torch.train.state import TrainState
+from bio_diffusion_torch.train.state import MOMENTS, TrainState
 from bio_diffusion_torch.train.torch_import import load_reference_checkpoint, load_reference_state_dict
 
 PREFIX = "ddpm."
@@ -63,13 +67,17 @@ def _atomic_save(payload: Dict[str, Any], path: str) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, evd: nn.Module, evd_ema: nn.Module, state: TrainState,
-                    step: Optional[int] = None, max_to_keep: int = 3) -> str:
+                    step: Optional[int] = None, max_to_keep: int = 3,
+                    moments: Optional[Dict[str, List[torch.Tensor]]] = None) -> str:
     """Write ``step_<n>.pt`` (``n`` the optimizer step unless given) and drop
-    all but the newest ``max_to_keep``; returns the file's path."""
+    all but the newest ``max_to_keep``; returns the file's path.  ``evd``
+    and ``evd_ema`` hold full weights; ``moments``: the AMSGrad moments at
+    full shapes (``TrainState.full_moments``, which a sharded state needs),
+    else the state's own."""
     step = state.count if step is None else int(step)
     names = [PREFIX + n for n, _ in evd.named_parameters()]
-    moments = {key: {n: t.detach().cpu() for n, t in zip(names, getattr(state, key))}
-               for key in ("mu", "nu", "nu_max")}
+    moments = {key: getattr(state, key) for key in MOMENTS} if moments is None else moments
+    moments = {key: {n: t.detach().cpu() for n, t in zip(names, moments[key])} for key in MOMENTS}
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
     _atomic_save({
@@ -96,13 +104,14 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]
 def restore_checkpoint(ckpt_dir: str, evd: nn.Module, evd_ema: nn.Module, state: TrainState,
                        step: Optional[int] = None) -> int:
     """Restore the weights, EMA weights, optimizer and clipping state in
-    place, exactly; returns the checkpoint's step."""
+    place, exactly, into an unsharded state (the Trainer puts it on a model
+    axis after); returns the checkpoint's step."""
     payload = load_checkpoint(ckpt_dir, step)
     load_reference_state_dict(evd, payload["state_dict"])
     load_reference_state_dict(evd_ema, payload["ema_state_dict"])
     names = [PREFIX + n for n, _ in evd.named_parameters()]
     opt = payload["optimizer"]
-    for key in ("mu", "nu", "nu_max"):
+    for key in MOMENTS:
         if set(opt[key]) != set(names):
             raise KeyError(f"checkpoint optimizer state {key!r} does not match the model's parameters")
         for name, t in zip(names, getattr(state, key)):

@@ -35,6 +35,17 @@ writes the checkpoints, the halt file and the metrics; a barrier follows
 each checkpoint.  Every decision the host takes (early stopping, the
 non-finite loss, ``max_steps``, a failed invariant) reads reduced values,
 so all ranks take it together.
+
+The ``model`` axis (``dp.model > 1``, ``trainer.num_model_shards``; the
+JAX Trainer's ``shard_pytree(param_sharding_rules(state))``): after the
+broadcast ``init_state`` puts the train state on it (``TrainState.shard_``:
+each rank keeps its slices of the parameters, EMA and moments, the full
+parameters released).  Every step gathers and releases the parameters
+(``train/step.py``); validation, the sampling evaluation (every rank of a
+model group gathers, rank 0 samples), a checkpoint and the end of ``fit``
+gather the EMA twin's and the model's weights for as long as they need
+them.  Checkpoints hold full tensors in the one format, so a run resumes
+at any shard count.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from bio_diffusion_torch.parallel.distributed import (
     broadcast_,
     broadcast_object,
 )
+from bio_diffusion_torch.parallel.mesh import ModelShards
 from bio_diffusion_torch.train.checkpoints import (
     latest_step,
     reference_state_dict,
@@ -153,7 +165,9 @@ class Trainer:
         ``train.torch_import.state_dict_from_jax_params``) or drawn from the
         seed, or warm-started from ``trainer.warm_start_ckpt``; then the EMA
         twin and the optimizer state on the device; then, with ``resume``,
-        the newest checkpoint's train state, exactly."""
+        the newest checkpoint's train state, exactly; then, data-parallel,
+        rank 0's state on every rank, and on a model axis each rank's
+        slices of it (the full parameters released)."""
         tc = self.exp.trainer
         if state_dict is not None:
             load_reference_state_dict(self.evd, state_dict)
@@ -179,6 +193,11 @@ class Trainer:
             log.info("Resumed from checkpoint step %d", self.start_step)
         if self.dp is not None:
             self._broadcast_state()
+            if self.dp.model > 1:
+                self.state.shard_(ModelShards(self.state.params, self.dp),
+                                  (self.evd, self.evd_ema))
+                log.info("Model axis: rank %d holds shard %d of %d (%s)", self.dp.rank,
+                         self.dp.rank % self.dp.model, self.dp.model, self.state.shards.describe())
         return self.state
 
     def _broadcast_state(self) -> None:
@@ -280,11 +299,12 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(exp.seed + 2)
         limit = exp.trainer.limit_test_batches if split == "test" else exp.trainer.limit_val_batches
         accs: Dict[str, list] = {}
-        for batch in self._limited(self._batch_iter(split, shuffle=False), limit, split=split):
-            info = eval_step(batch.to(self.device), generator)
-            self.stats["eval_batches"] += 1
-            for k, v in info.items():
-                accs.setdefault(k, []).append(v)
+        with self.state.gathered(params=not use_ema, ema=use_ema):
+            for batch in self._limited(self._batch_iter(split, shuffle=False), limit, split=split):
+                info = eval_step(batch.to(self.device), generator)
+                self.stats["eval_batches"] += 1
+                for k, v in info.items():
+                    accs.setdefault(k, []).append(v)
         if self.dp is None:
             means = torch.stack([torch.stack(vs).float().mean() for vs in accs.values()]).tolist()
         else:
@@ -318,11 +338,15 @@ class Trainer:
         first ``num_visualization_samples`` as xyz files under
         ``<workdir>/media/epoch_<epoch>``, with a PNG each where matplotlib
         is installed.  Under data parallelism rank 0 alone samples; every
-        rank returns its metrics and continues with its numpy generator."""
+        rank returns its metrics and continues with its numpy generator.  On
+        a model axis every rank gathers the EMA weights for it."""
         if self.dp is None:
             return self._evaluate_sampling(epoch, num_samples)
-        metrics = self._evaluate_sampling(epoch, num_samples) if self.is_main else None
-        barrier(self.dp)
+        with self.state.gathered(params=False, ema=True):
+            metrics = self._evaluate_sampling(epoch, num_samples) if self.is_main else None
+            barrier(self.dp)
+            if self.state.shards is not None:
+                self._evd_sample = None  # a packed twin would keep the full EMA weights
         metrics, rng_state = broadcast_object((metrics, self.rng.bit_generator.state), self.dp)
         self.rng.bit_generator.state = rng_state
         return metrics
@@ -374,10 +398,13 @@ class Trainer:
     # -- fit --------------------------------------------------------------------
 
     def save(self) -> None:
-        """A checkpoint of the current step, unless one was written at it."""
+        """A checkpoint of the current step, unless one was written at it (on
+        a model axis of the gathered state, in the one format)."""
         if self._saved_step != self.state.count:
-            if self.is_main:
-                save_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state)
+            with self.state.gathered():
+                moments = self.state.full_moments()
+                if self.is_main:
+                    save_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state, moments=moments)
             if self.dp is not None:
                 barrier(self.dp)
             self._saved_step = self.state.count
@@ -393,6 +420,7 @@ class Trainer:
             m = self.train_epoch(0)
             v = self.validate(0)
             log.info("fast_dev_run: train=%.4f val=%.4f", m.get("loss", float("nan")), v["loss"])
+            self.state.gather_params_(params=True, ema=True)
             return self.state
         if self.state is None:
             self.init_state()
@@ -438,6 +466,8 @@ class Trainer:
 
         self.save()
         self._write_halt_file()
+        # the trained model and its EMA twin whole again for the caller
+        self.state.gather_params_(params=True, ema=True)
         if self.dp is not None:
             barrier(self.dp)
         return self.state

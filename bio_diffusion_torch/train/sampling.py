@@ -49,7 +49,7 @@ class SegmentedSampler:
     @torch.inference_mode()
     def run(self, node_mask, generator: torch.Generator, num_timesteps: Optional[int] = None,
             fix_noise: bool = False, context=None, noises: Optional[Sequence[torch.Tensor]] = None,
-            frame_steps: Optional[Sequence[int]] = None):
+            frame_steps: Optional[Sequence[int]] = None, norm_with_original_timesteps: bool = False):
         """Sample xh ``[B, N, 3+F]`` on the data scale (numpy, float32);
         ``context [B, N, C]`` for a property-conditioned model; ``noises``:
         the raw draws instead of drawing from ``generator``, one for the
@@ -61,7 +61,10 @@ class SegmentedSampler:
         step), gathered on the device and copied to the host once.
         ``fix_noise`` shares every draw over the batch, a self-conditioned
         model's second steps and the decode included (the JAX sampler's
-        ``fix_self_conditioning_noise``).
+        ``fix_self_conditioning_noise``).  ``num_timesteps`` T_s below the
+        model's T takes T_s steps over [0, 1] (step s at s / T_s), or, with
+        ``norm_with_original_timesteps``, the last T_s steps of the
+        model's T (s / T).
 
         The replicas take each reverse step in turn, and a step reads
         nothing back to the host, so one thread's launches overlap across
@@ -82,8 +85,9 @@ class SegmentedSampler:
         slot = {} if frame_steps is None else {int(k): i for i, k in enumerate(frame_steps)}
         frames = None if frame_steps is None else [
             torch.empty((len(frame_steps),) + z.shape, dtype=z.dtype, device=z.device) for z in zs]
+        denom = np.float32(evd.T if norm_with_original_timesteps else T_s)
         s_values = np.arange(T_s - 1, -1, -1, dtype=np.float32)
-        s_norm, t_norm = s_values / T_s, (s_values + 1) / T_s
+        s_norm, t_norm = s_values / denom, (s_values + 1) / denom
         for k in range(T_s):
             for i, m in enumerate(reps.modules):
                 zs[i], self_conds[i] = m.reverse_segment(
@@ -124,6 +128,7 @@ def sample_molecules(
     pad_to: Optional[int] = None,
     num_timesteps: Optional[int] = None,
     props_distr=None,
+    context_fn=None,
     bucket_sizes: Optional[Sequence[int]] = None,
     pad_to_multiple: int = 2,
     sort_sizes: bool = True,
@@ -136,7 +141,8 @@ def sample_molecules(
     dataset's largest molecule).  ``pad_to`` pins one padded size for every
     batch and keeps the drawn order.  A conditioned model's contexts come
     from ``props_distr`` (one ``sample_batch`` per batch from ``rng``, after
-    the sizes)."""
+    the sizes), else from ``context_fn(num_nodes, node_mask) -> [b, N, C]``
+    where given."""
     sizes_all = nodes_dist.sample(num_samples, rng)
     if pad_to is None and sort_sizes:
         sizes_all = np.sort(sizes_all)[::-1]
@@ -152,6 +158,8 @@ def sample_molecules(
         context = None
         if props_distr is not None:
             context = broadcast_context(props_distr.sample_batch(num_nodes, rng), node_mask)
+        elif context_fn is not None:
+            context = context_fn(num_nodes, node_mask)
         xs.append(sampler.run(node_mask, generator, num_timesteps=num_timesteps, context=context))
         masks.append(node_mask)
         sizes.append(num_nodes)
@@ -306,7 +314,8 @@ def inpaint_rows(reps: Replicas, inputs: Sequence, num_resamplings: int, jump_le
 
 def mol_gen_optimize_rows(reps: Replicas, x: torch.Tensor, h_cat: torch.Tensor, node_mask: torch.Tensor,
                           num_timesteps: int, context: Optional[torch.Tensor],
-                          generator: Optional[torch.Generator]) -> torch.Tensor:
+                          generator: Optional[torch.Generator],
+                          norm_with_original_timesteps: bool = False) -> torch.Tensor:
     """``evd.mol_gen_optimize`` on ``reps``, each replica its rows and its
     rows of the one-device run's draws (``evd.draws_per_step`` a step, one
     for the decode) -> ``[B, N, 3+K]`` on the first device."""
@@ -314,6 +323,7 @@ def mol_gen_optimize_rows(reps: Replicas, x: torch.Tensor, h_cat: torch.Tensor, 
     b, n = node_mask.shape
     draws = reps.draws(b, (b, n, evd.num_x_dims + evd.num_node_scalar_features),
                        evd.draws_per_step * int(num_timesteps) + 1, generator)
-    out = reps.map(lambda m, args, eps: m.mol_gen_optimize(args[0], args[1], args[2], num_timesteps, args[3],
-                                                           noises=eps), [x, h_cat, node_mask, context], draws)
+    out = reps.map(lambda m, args, eps: m.mol_gen_optimize(
+        args[0], args[1], args[2], num_timesteps, args[3], noises=eps,
+        norm_with_original_timesteps=norm_with_original_timesteps), [x, h_cat, node_mask, context], draws)
     return torch.as_tensor(out, device=reps.devices[0])

@@ -34,6 +34,17 @@ reduced too, so a failed check raises on every rank together.  The eval
 step keeps its rows and returns its local means (``Trainer.validate``
 reduces them once).  ``make_eval_step(devices=[...])`` splits a batch over
 the devices of one process instead (the inference CLIs' NLL).
+
+On a model axis (``dp.model > 1``, a ``state`` put on it by
+``TrainState.shard_``) the step gathers the full parameters from the model
+group's shards first, computes on this rank's rows as above, releases them
+after the backward, and reduces the gradients with
+``parallel.mesh.ModelShards.reduce_gradients`` (reduce-scatter inside the
+model group, all-reduce across the data group; the replicated leaves and
+the metrics over the world); the clip, AMSGrad and the EMA then run on the
+shards.  The kernels run unchanged on the gathered weights.  The eval step
+runs on whatever weights the model holds (the Trainer gathers the EMA
+twin's for validation).
 """
 
 from __future__ import annotations
@@ -145,6 +156,7 @@ def make_train_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloa
         return torch.autograd.grad(loss, state.params, allow_unused=True, materialize_grads=True), info
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator], draws=None):
+        state.gather_params_()
         if k == 1:
             grads, info = grads_of(state, batch, generator, draws)
             grads = list(grads)
@@ -158,8 +170,11 @@ def make_train_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloa
                 infos.append(info)
             torch._foreach_div_(grads, float(k))
             info = {key: torch.stack([m[key] for m in infos]).mean() for key in infos[0]}
+        state.release_params_()
         metrics = {key: v.detach() for key, v in info.items()}
-        if dp is not None:
+        if state.shards is not None:
+            grads = state.shards.reduce_gradients(grads, list(metrics.values()))
+        elif dp is not None:
             # one all-reduce: the gradients and the step's metrics
             distributed.all_reduce_mean_(list(grads) + list(metrics.values()), dp)
         grads, grad_norm, max_norm = adaptive_clip(state, grads, enabled=clip_gradients)

@@ -1698,6 +1698,11 @@ def drive_tools(torch, data_dir):
     return out, numbers
 
 
+# the conditional evaluation's reverse steps (the model's T is 1000): depth
+# cut for the smoke's time
+COND_EVAL_T = 500
+
+
 def drive_conditional_path(torch, data_dir):
     """Property conditioning from end to end at full width in float32, on
     the user path's QM9-layout files: the conditional model's training
@@ -1774,15 +1779,18 @@ def drive_conditional_path(torch, data_dir):
     with spy(torch, SegmentedSampler, "run") as batches:
         metrics, sec, counts = run(lambda: mol_gen_eval_conditional_qm9.main(cli + [
             f"generator_model_filepath={trainer.ckpt_dir}", "iterations=1", "batch_size=100",
-            f"output_dir={root}/eval"]))
-    if len(batches) != 1 or counts["message_layer"] != layers * (T + 1) or not np.isfinite(metrics["mae"]):
+            f"num_timesteps={COND_EVAL_T}", f"output_dir={root}/eval"]))
+    if len(batches) != 1 or counts["message_layer"] != layers * (COND_EVAL_T + 1) \
+            or not np.isfinite(metrics["mae"]):
         raise AssertionError(f"mol_gen_eval_conditional_qm9 launched {counts['message_layer']} in {len(batches)} "
-                             f"sampler batch(es), need {layers * (T + 1)} in one; MAE {metrics['mae']}")
+                             f"sampler batch(es), need {layers * (COND_EVAL_T + 1)} in one; MAE {metrics['mae']}")
     out["fwd"]["cond_eval_cli"] = counts["message_layer"]
     loop_s = batches[0]["s"]
-    numbers.update(cond_sample_s_per_step=loop_s / T, cond_sample_mol_per_s=100 / loop_s, cond_eval_cli_s=sec)
-    print(f"conditional mol_gen_eval_conditional_qm9: the sampler's batch of 100 (prior, T={T} reverse steps with "
-          f"contexts, decode) took {loop_s:.3f} s = {loop_s / T:.6f} s per reverse step, {100 / loop_s:.3f} "
+    numbers.update(cond_sample_s_per_step=loop_s / COND_EVAL_T, cond_sample_mol_per_s=100 / loop_s,
+                   cond_eval_cli_s=sec)
+    print(f"conditional mol_gen_eval_conditional_qm9: the sampler's batch of 100 (prior, {COND_EVAL_T} of T={T} "
+          f"reverse steps with contexts, decode) took {loop_s:.3f} s = {loop_s / COND_EVAL_T:.6f} s per reverse "
+          f"step, {100 / loop_s:.3f} "
           f"molecules/s; the CLI call {sec:.3f} s with set-up; launches {counts['message_layer']}; classifier MAE "
           f"{metrics['mae']:.6g} (printed, not judged)")
 
@@ -2510,9 +2518,10 @@ def check_frames(frames, mask, what):
 
 def drive_chain_path(torch):
     """``cli.mol_gen_sample.main ddpm_mode=chain`` on ``qm9_mol_gen_ddpm`` at
-    full width, fp32, seed weights: one molecule of 19 atoms, T=1000,
-    ``keep_frames=100`` -> 100 kept states (every 10th step from the first)
-    written with the last one repeated 10 times = 110 xyz files, 9 x 1,001
+    full width, fp32, seed weights: one molecule of 19 atoms, 500 reverse
+    steps (the model's T=1000; depth cut for the smoke's time),
+    ``keep_frames=100`` -> 100 kept states (every 5th step from the first)
+    written with the last one repeated 10 times = 110 xyz files, 9 x 501
     launches; the kept states finite, CoM-free, padded rows 0 (none at
     N=19) -> (launches by path, numbers)."""
     from bio_diffusion_torch.cli import mol_gen_sample
@@ -2523,8 +2532,8 @@ def drive_chain_path(torch):
     with spy(torch, SegmentedSampler, "run") as calls:
         metrics, sec, counts = count_run(torch, lambda: mol_gen_sample.main([
             "device=cuda", "precision=fp32", "ddpm_mode=chain", "num_nodes=19", "keep_frames=100",
-            f"output_dir={root}"]))
-    layers, T = 9, 1000
+            "num_timesteps=500", f"output_dir={root}"]))
+    layers, T = 9, 500
     if len(calls) != 1 or counts["message_layer"] != layers * (T + 1) or counts["message_layer_bwd"]:
         raise AssertionError(f"the chain mode launched {counts} in {len(calls)} run(s), need {layers * (T + 1)}")
     xh, frames = calls[0]["result"]
@@ -2541,7 +2550,7 @@ def drive_chain_path(torch):
     print(f"chain path: mol_gen_sample ddpm_mode=chain, 1 molecule of 19 atoms, T={T}, fp32: {s:.3f} s = "
           f"{s / (T + 1):.6f} s per reverse step at B=1 (card synchronized); the CLI {sec:.3f} s with set-up; "
           f"launches {counts['message_layer']}; {len(files)} frame files (100 kept states + 10 repeats of the "
-          f"last kept one, the state after step 990); frames finite, CoM-free, no padded row at N=19; GIF "
+          f"last kept one, the state after step {T - T // 100}); frames finite, CoM-free, no padded row at N=19; GIF "
           f"written: {gif}; metrics (printed, not judged) {metrics}")
     return {"fwd": {"chain_cli": counts["message_layer"]}}, {"s_per_step": s / (T + 1), "cli_s": sec, "gif": gif}
 
@@ -3194,22 +3203,24 @@ def dp_cli_rank(out_dir, args):
     st, dp = trainer.stats, trainer.dp
     with open(os.path.join(out_dir, f"rank{dp.rank}.json"), "w") as f:
         json.dump({"rank": dp.rank, "world": dp.world, "backend": dp.backend, "device": str(dp.device),
+                   "model": dp.model,
                    "counts": dict(ml.launch_counts), "count": trainer.state.count, "micro_batches": st["micro_batches"],
                    "eval_batches": st["eval_batches"], "layers": trainer.exp.model_cfg.num_encoder_layers}, f)
     return 0
 
 
-def drive_dp_cli(torch, data_dir, root, nproc):
+def drive_dp_cli(torch, data_dir, root, nproc, model=1):
     """Phase (b): ``cli.train`` under ``torch.distributed.run --standalone``
-    with ``nproc`` ranks (NCCL, one a card), 2 steps and one EMA validation
-    batch -> launch counts by rank."""
+    with ``nproc`` ranks (NCCL, one a card) as ``nproc / model`` data x
+    ``model`` model shards, 2 steps and one EMA validation batch -> launch
+    counts by rank."""
     out_dir, workdir = os.path.join(root, f"cli_{nproc}"), os.path.join(root, f"cli_{nproc}", "train")
     os.makedirs(out_dir, exist_ok=True)
     args = ["experiment=qm9_mol_gen_ddpm", "datamodule.dataloader_cfg.dataset=QM9",
             f"datamodule.dataloader_cfg.data_dir={data_dir}", "datamodule.dataloader_cfg.batch_size=64",
             "trainer.precision=fp32", "trainer.check_val_every_n_epoch=1", "trainer.limit_train_batches=2",
             "trainer.limit_val_batches=1", "model.diffusion_cfg.sample_during_training=false", "--device=cuda",
-            f"--workdir={workdir}", "--max-steps=2", "--max-epochs=1"]
+            f"--workdir={workdir}", "--max-steps=2", "--max-epochs=1", f"trainer.num_model_shards={model}"]
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                            f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--dp-cli", out_dir, *args],
@@ -3227,9 +3238,10 @@ def drive_dp_cli(torch, data_dir, root, nproc):
         need_fwd = rk["layers"] * (rk["micro_batches"] + 2 * rk["eval_batches"])
         need_bwd = rk["layers"] * rk["micro_batches"]
         print(f"data parallel (b) cli.train nproc={nproc} rank {rk['rank']} of {rk['world']} on {rk['device']} "
-              f"({rk['backend']}): {rk['count']} steps, launches fwd {rk['counts']['message_layer']} (need "
-              f"{need_fwd}), bwd {rk['counts']['message_layer_bwd']} (need {need_bwd})")
-        if rk["backend"] != "nccl" or rk["world"] != nproc or rk["count"] != 2 \
+              f"({rk['backend']}, {rk['model']} model shards): {rk['count']} steps, launches fwd "
+              f"{rk['counts']['message_layer']} (need {need_fwd}), bwd {rk['counts']['message_layer_bwd']} (need "
+              f"{need_bwd})")
+        if rk["backend"] != "nccl" or rk["world"] != nproc or rk["count"] != 2 or rk["model"] != model \
                 or rk["counts"]["message_layer"] != need_fwd or rk["counts"]["message_layer_bwd"] != need_bwd:
             raise AssertionError(f"cli.train under torch.distributed.run (nproc {nproc}) is not as planned: {rk}")
     if ckpts != ["step_2.pt"]:
@@ -3244,7 +3256,8 @@ def drive_data_parallel(torch, data_dir):
     against one process on the whole batches; (b) ``cli.train`` under
     ``torch.distributed.run`` at world 1 over NCCL (and world 2 on two
     cards); (c) the multi-device sampler against one device -> (launches by
-    path of the forward and backward kernels, numbers)."""
+    path of the forward and backward kernels, numbers, the one-process run
+    of (a): its metrics, final parameters, learning rate and layers)."""
     import numpy as np
 
     from bio_diffusion_torch.cli.common import load_model
@@ -3262,6 +3275,7 @@ def drive_data_parallel(torch, data_dir):
     ref_metrics, ref_counts, ref_s, ref_shapes = dp_steps(torch, reference, DP_STEPS)
     ref_params = [p.detach().cpu() for p in reference.state.params]
     layers, lr = reference.exp.model_cfg.num_encoder_layers, reference.exp.optimizer.lr
+    one_process = {"metrics": ref_metrics, "params": ref_params, "lr": lr, "layers": layers, "s": ref_s}
     del reference
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3381,6 +3395,198 @@ def drive_data_parallel(torch, data_dir):
                                  "cannot see it")
         out["fwd"]["dp_sample"] += counts["message_layer"]
         numbers[f"sample_{names}"] = entry
+    return out, numbers, one_process
+
+
+# the model-axis phase: four ranks on one card as 2 data groups x 2 model
+# shards, the data-parallel phase's configuration and steps (its one-process
+# run is the reference, held at TOL_DP_REL and 2 lr a step as there)
+MA_WORLD, MA_SHARDS = 4, 2
+
+
+def ma_train_rank(rank, world, init_file, data_dir, out_dir):
+    """One rank of the model-axis phase (a), in a process of its own: gloo
+    over CUDA tensors, ``trainer.num_model_shards`` = ``MA_SHARDS``, the
+    Trainer's steps on its rows of each global batch with the gather and
+    the gradient reduction timed around each call (the card synchronized
+    before and after); then a checkpoint (rank 0 writes it) and the
+    gathered state.  Writes its metrics, counts, bytes and state."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bio_diffusion_torch.parallel import distributed, mesh
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.train.state import MOMENTS, TrainState
+    from bio_diffusion_torch.utils.logging import MetricLoggers
+
+    dp = distributed.init_distributed(device=torch.device("cuda", 0), backend="gloo",
+                                      init_method=f"file://{init_file}", rank=rank, world=world,
+                                      timeout_s=DP_TIMEOUT_S, num_model_shards=MA_SHARDS)
+    timings = {"gather_": [], "reduce_gradients": []}
+
+    def timed(name):
+        fn = getattr(mesh.ModelShards, name)
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timings[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        setattr(mesh.ModelShards, name, wrapped)
+
+    for name in timings:
+        timed(name)
+    mem, shard_ = {}, TrainState.shard_
+
+    def measured_shard_(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        mem["full_state"] = torch.cuda.memory_allocated()
+        shard_(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        mem["sharded"] = torch.cuda.memory_allocated()
+
+    TrainState.shard_ = measured_shard_
+    trainer = loop.Trainer(dp_experiment(data_dir), os.path.join(out_dir, f"rank{rank}"), dp.device,
+                           loggers=MetricLoggers(), dp=dp)
+    metrics, counts, sec, shapes = dp_steps(torch, trainer, DP_STEPS)
+    step_timings = {name: list(ts) for name, ts in timings.items()}
+    torch.cuda.synchronize()
+    mem["at_rest"] = torch.cuda.memory_allocated()
+    # a second reading after one more allocation: blocks freed but waiting
+    # on another stream's events (the collectives') leave the count there,
+    # blocks still held do not
+    settle = torch.empty(1, device=dp.device)
+    mem["at_rest_settled"] = torch.cuda.memory_allocated() - settle.untyped_storage().nbytes()
+    del settle
+    st = trainer.state
+    copies = [st.param_shards, st.ema_shards] + [getattr(st, key) for key in MOMENTS]
+    sharded, replicated = st.shards.sharded, st.shards.replicated
+    elements = [p.numel() for p in st.params]
+    result = {
+        "rank": dp.rank, "world": dp.world, "mesh": (dp.data, dp.model), "collectives": st.shards.describe(),
+        "metrics": metrics, "counts": counts, "s": sec, "shapes": shapes, "timings": step_timings, "memory": mem,
+        "copies_bytes": sum(t.untyped_storage().nbytes() for ts in copies for t in ts),
+        "released_bytes": sum(st.params[i].untyped_storage().nbytes() + st.ema_params[i].untyped_storage().nbytes()
+                              for i in sharded),
+        "world1_bytes": 5 * 4 * sum(elements),
+        "expected_bytes": 5 * 4 * (sum(elements[i] for i in replicated) + sum(elements[i] for i in sharded)
+                                   // MA_SHARDS),
+        "sharded_leaves": len(sharded), "replicated_leaves": len(replicated)}
+    trainer.save()  # step_3.pt, rank 0's workdir
+    with st.gathered():
+        result["params"] = [p.detach().cpu() for p in st.params]
+        result["ema"] = [p.detach().cpu() for p in st.ema_params]
+    result["moments"] = {key: [t.cpu() for t in ts] for key, ts in st.full_moments().items()}
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def drive_model_axis(torch, data_dir, reference):
+    """The model-axis phase: (a) ``MA_WORLD`` ranks, processes on one card
+    laid out as 2 data groups x ``MA_SHARDS`` model shards, the Trainer's
+    ``DP_STEPS`` steps at full QM9 width (fp32, global B=64, N=29) held
+    against the data-parallel phase's one process (``reference``) on the
+    same batches and seed; bytes of the five state copies at rest, the
+    gather and gradient-reduction ms a step; the checkpoint of step 3
+    restored at world 1 equal to the gathered state; (b) ``cli.train``
+    under ``torch.distributed.run`` at world 2 with
+    ``trainer.num_model_shards=2`` over NCCL where there are two cards ->
+    (launches by path of the forward and backward kernels, numbers)."""
+    from bio_diffusion_torch.train.loop import Trainer
+    from bio_diffusion_torch.train.state import MOMENTS
+    from bio_diffusion_torch.utils.logging import MetricLoggers
+
+    root = os.path.join(REPO, "outputs", "model_axis")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, numbers = {"fwd": {}, "bwd": {}}, {}
+    t0 = time.perf_counter()
+    run_ranks(ma_train_rank, MA_WORLD, (os.path.join(root, "store"), data_dir, root))
+    numbers["ranks_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(MA_WORLD)]
+    need, rows = reference["layers"] * DP_STEPS, 64 // MA_WORLD
+    print(f"model axis (a): {MA_WORLD} ranks on one card as {ranks[0]['mesh'][0]} data x {ranks[0]['mesh'][1]} "
+          f"model ({ranks[0]['collectives']}, CUDA tensors); {ranks[0]['sharded_leaves']} leaves sharded, "
+          f"{ranks[0]['replicated_leaves']} replicated")
+    for rk in ranks:
+        c, m, tm = rk["counts"], rk["memory"], rk["timings"]
+        print(f"model axis (a) rank {rk['rank']}: denoiser rows {rk['shapes']}, launches fwd {c['message_layer']} "
+              f"bwd {c['message_layer_bwd']} (need {need} and {need}), {DP_STEPS} steps in {rk['s']:.3f} s "
+              f"({1e3 * rk['s'] / DP_STEPS:.3f} ms a step); gather ms {[round(t, 3) for t in tm['gather_']]}, "
+              f"gradient reduce-scatter + all-reduce ms {[round(t, 3) for t in tm['reduce_gradients']]}; the five "
+              f"state copies at rest {rk['copies_bytes']:,} B of tensor storage (world 1: {rk['world1_bytes']:,} B; "
+              f"expected replicated + sharded/{MA_SHARDS} = {rk['expected_bytes']:,} B), released parameters "
+              f"{rk['released_bytes']} B; memory_allocated {m['full_state']:,} B with the full state, "
+              f"{m['sharded']:,} B sharded, {m['at_rest']:,} B at rest after step {DP_STEPS} "
+              f"({m['at_rest_settled']:,} B after one more allocation)")
+        if c["message_layer"] != need or c["message_layer_bwd"] != need or rk["shapes"] != [(rows, 29)] * DP_STEPS:
+            raise AssertionError(f"model axis rank {rk['rank']}: launches {c} or rows {rk['shapes']} not as planned")
+        if rk["copies_bytes"] != rk["expected_bytes"] or rk["released_bytes"] != 0 \
+                or m["full_state"] - m["sharded"] <= 0:
+            raise AssertionError(f"model axis rank {rk['rank']}: the state at rest is not replicated + sharded/"
+                                 f"{MA_SHARDS}, or the full parameters were not released")
+        out["fwd"][f"ma_train_rank{rk['rank']}"] = c["message_layer"]
+        out["bwd"][f"ma_train_rank{rk['rank']}"] = c["message_layer_bwd"]
+    r0 = ranks[0]
+    for rk in ranks[1:]:
+        if rk["metrics"] != r0["metrics"] or not all(torch.equal(p, q) for p, q in zip(rk["params"], r0["params"])):
+            raise AssertionError(f"model axis rank {rk['rank']}: metrics or gathered parameters differ from rank 0's")
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(r0["metrics"], reference["metrics"])):
+        for k in ("loss", "grad_norm"):
+            rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            worst = max(worst, rel)
+            if rel > TOL_DP_REL:
+                raise AssertionError(f"model axis step {s} {k}: {a[k]} vs one process {b[k]} (rel {rel:.3g})")
+    diffs = torch.cat([(p - q).abs().flatten() for p, q in zip(r0["params"], reference["params"])])
+    param_tol = 2 * reference["lr"] * DP_STEPS
+    max_diff, median_diff = float(diffs.max()), float(diffs.median())
+    print(f"model axis (a): per-step loss and grad norm {r0['metrics']} vs one process {reference['metrics']} "
+          f"(worst rel {worst:.3g}, tol {TOL_DP_REL}); gathered parameters max |diff| {max_diff:.3g} (tol 2 lr "
+          f"steps = {param_tol:.3g}), median {median_diff:.3g}; every rank's equal to rank 0's")
+    if max_diff > param_tol or median_diff > 1e-3 * reference["lr"]:
+        raise AssertionError("the model-axis ranks' parameters are not the one process's")
+
+    # the checkpoint of step 3, restored at world 1, is the gathered state
+    restored = Trainer(dp_experiment(data_dir), os.path.join(root, "rank0"), "cuda", loggers=MetricLoggers())
+    st = restored.init_state()
+    pairs = [(st.params, r0["params"]), (st.ema_params, r0["ema"])] + [
+        (getattr(st, key), r0["moments"][key]) for key in MOMENTS]
+    same = st.count == DP_STEPS and all(torch.equal(p.detach().cpu(), q) for a, b in pairs for p, q in zip(a, b))
+    print(f"model axis (a): checkpoint step_{restored.start_step}.pt restored at world 1 bit-equal to the gathered "
+          f"parameters, EMA and moments: {same}")
+    if not same:
+        raise AssertionError("the model-axis checkpoint does not restore the gathered state at world 1")
+    del restored, st
+
+    steady = [t for rk in ranks for t in rk["timings"]["gather_"][1:]]
+    reduce = [t for rk in ranks for t in rk["timings"]["reduce_gradients"][1:]]
+    numbers.update(world=MA_WORLD, mesh=list(r0["mesh"]), collectives=r0["collectives"], steps=DP_STEPS,
+                   step_ms=[1e3 * rk["s"] / DP_STEPS for rk in ranks],
+                   one_process_step_ms=1e3 * reference["s"] / DP_STEPS,
+                   gather_ms_per_step=statistics.mean(steady), reduce_ms_per_step=statistics.mean(reduce),
+                   gather_ms_first=[rk["timings"]["gather_"][0] for rk in ranks],
+                   reduce_ms_first=[rk["timings"]["reduce_gradients"][0] for rk in ranks],
+                   copies_bytes=r0["copies_bytes"], world1_bytes=r0["world1_bytes"],
+                   expected_bytes=r0["expected_bytes"], memory_allocated=[rk["memory"] for rk in ranks],
+                   max_rel_err=worst, param_max_abs_diff=max_diff, param_median_abs_diff=median_diff)
+    print(f"model axis (a): gather {numbers['gather_ms_per_step']:.3f} ms and gradient reduction "
+          f"{numbers['reduce_ms_per_step']:.3f} ms a step (mean of steps 2-{DP_STEPS} of the {MA_WORLD} ranks; "
+          f"{MA_WORLD} ranks on one card, gloo: no scaling figure), ms a step by rank "
+          f"{[round(t, 3) for t in numbers['step_ms']]} (the first {DP_STEPS} steps of a fresh process, "
+          f"collective timers included; the one process {1e3 * reference['s'] / DP_STEPS:.3f} ms on that basis)")
+
+    # (b) cli.train at world 2 with two model shards over NCCL, on two cards
+    if torch.cuda.device_count() >= 2:
+        cli_ranks, numbers["cli_2_s"] = drive_dp_cli(torch, data_dir, root, 2, model=2)
+        out["fwd"]["ma_cli"] = sum(rk["counts"]["message_layer"] for rk in cli_ranks)
+        out["bwd"]["ma_cli"] = sum(rk["counts"]["message_layer_bwd"] for rk in cli_ranks)
+    else:
+        print("model axis (b): one card, so no cli.train run at world 2 with trainer.num_model_shards=2 over NCCL")
     return out, numbers
 
 
@@ -3434,9 +3640,16 @@ def main() -> int:
     user_launches, user_numbers = drive_user_path(torch)
     print(f"user path phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    dp_launches, dp_numbers = drive_data_parallel(torch, os.path.join(REPO, "outputs", "user_path", "data"))
+    dp_launches, dp_numbers, one_process = drive_data_parallel(torch, os.path.join(REPO, "outputs", "user_path",
+                                                                                   "data"))
     dp_numbers["phase_s"] = time.perf_counter() - t0
     print(f"data parallel phase: {dp_numbers['phase_s']:.3f} s")
+    t0 = time.perf_counter()
+    ma_launches, ma_numbers = drive_model_axis(torch, os.path.join(REPO, "outputs", "user_path", "data"), one_process)
+    ma_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"model axis phase: {ma_numbers['phase_s']:.3f} s")
+    for key in ("fwd", "bwd"):  # the model axis's launches join the data-parallel paths'
+        dp_launches[key].update(ma_launches[key])
     t0 = time.perf_counter()
     sc_launches, sc_numbers = drive_sc_learned_path(torch, os.path.join(REPO, "outputs", "user_path", "data"))
     sc_numbers["phase_s"] = time.perf_counter() - t0
@@ -3514,6 +3727,7 @@ def main() -> int:
         "reverse_step_ms_b250": step_ms_b250,
         "user_path": user_numbers,
         "data_parallel": dp_numbers,
+        "model_axis": ma_numbers,
         "sc_learned_path": sc_numbers,
         "module_path": mp_numbers,
         "tools": tools_numbers,

@@ -102,10 +102,15 @@ def test_row_rules_keep_scalars_whole():
     assert half["sc_take"] is take and half["flag"] is False and half["t_int"].flatten().tolist() == [3, 4, 5]
 
 
-def test_model_shards_raise():
-    distributed.check_model_shards(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        distributed.check_model_shards(2)
+def test_a_world_that_model_shards_do_not_divide_raises(tmp_path):
+    """World 2 with ``num_model_shards=3`` raises ``ValueError`` on both
+    ranks when the group is built, naming both numbers (JAX's ``make_mesh``
+    assert); one rank has no model axis, as JAX's ``default_mesh``."""
+    from bio_diffusion_torch.parallel.mesh import MeshLayout, mesh_layout
+
+    errors = run_group("mesh_error", 2, str(tmp_path), 3)
+    assert all(e is not None and "world of 2 ranks" in e and "num_model_shards=3" in e for e in errors), errors
+    assert mesh_layout(1, 2) == MeshLayout(1, 1) and mesh_layout(8, 2) == MeshLayout(4, 2)
 
 
 def test_inference_devices(monkeypatch):

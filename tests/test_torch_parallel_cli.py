@@ -16,7 +16,8 @@ go through ``cli.train.main`` in this process without a launcher (world 1):
   (``trainer.overfit_batches=2``, the same two batches every epoch), 2
   steps and a resumed run to 4 equal 4 uninterrupted steps, at world 1 (bit
   for bit) and at world 2;
-* early stopping stops both ranks at the same epoch as world 1.
+* early stopping stops both ranks at the same epoch as world 1;
+* one process with ``trainer.num_model_shards=2`` trains as with 1.
 """
 
 import os
@@ -133,8 +134,23 @@ def test_use_mesh_false_under_a_launcher_raises(monkeypatch, tmp_path):
         train.main(BASE + ["trainer.use_mesh=false", "--max-steps=1", f"--workdir={tmp_path}"])
 
 
-def test_model_shards_raise_in_the_cli(tmp_path):
+def test_model_shards_on_one_process_train_unsharded(runs, tmp_path):
+    """One process with ``trainer.num_model_shards=2`` has no model axis (JAX's
+    ``default_mesh`` is None on one device): it trains exactly as
+    ``num_model_shards=1`` does and says so in one log line."""
+    import logging
+
     from bio_diffusion_torch.cli import train
 
-    with pytest.raises(NotImplementedError, match="num_model_shards"):
-        train.main(BASE + ["trainer.num_model_shards=2", "--max-steps=1", f"--workdir={tmp_path}"])
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    train.log.addHandler(handler)
+    try:
+        ours = trainer_summary(train.main(BASE + ["trainer.num_model_shards=2", "--max-steps=2",
+                                                  f"--workdir={tmp_path}"]))
+    finally:
+        train.log.removeHandler(handler)
+    assert sum("training unsharded" in r.getMessage() for r in records) == 1
+    assert ours["count"] == 2 and ours["start_step"] == 0
+    assert_same_state(ours, runs["world1"]["two_steps"], "num_model_shards=2 vs 1 on one process")

@@ -73,3 +73,16 @@ def test_tools_phase_follows_the_module_path_denoisers():
     lines = _stamped(ends)
     assert "tools phase 1.000 s\n" in [l.split(None, 1)[1] for l in lines]
     assert smoke_phases.phase_seconds(lines)["tools"] == pytest.approx(10.0)
+
+
+def test_model_axis_phase_follows_data_parallel():
+    """The "model axis" phase runs after "data parallel" (whose one-process
+    run it reuses) and ends on its own line; its rank lines ("model axis
+    (a) ...") do not end it."""
+    names = [name for name, _ in smoke_phases.PHASES]
+    assert names.index("model axis") == names.index("data parallel") + 1
+    ends = [end for _, end in smoke_phases.PHASES]
+    lines = _stamped(ends)
+    at = lines.index(f"{10.0 * (names.index('model axis') + 1):9.3f} model axis phase 1.000 s\n")
+    lines.insert(at, f"{10.0 * names.index('model axis') + 6:9.3f} model axis (a) rank 0: 27 launches\n")
+    assert smoke_phases.phase_seconds(lines)["model axis"] == pytest.approx(10.0)

@@ -108,8 +108,12 @@ def run_steps(dp, case):
     to draw from a generator seeded ``seed``), ``accum``, optionally
     ``diffusion`` (diffusion config fields) -> per-step loss and grad norm,
     the parameters and the EMA after the steps; ``{"error": message}``
-    where an invariant check failed."""
+    where an invariant check failed.  On a model axis (``dp.model > 1``)
+    the state is sharded as the Trainer shards it and ``at_rest`` says what
+    the rank held after the last step; the parameters, EMA and moments
+    returned are the gathered ones."""
     from bio_diffusion_torch.config.schema import OptimizerConfig
+    from bio_diffusion_torch.parallel.mesh import ModelShards
     from bio_diffusion_torch.train.state import TrainState
     from bio_diffusion_torch.train.step import make_train_step
     from bio_diffusion_torch.utils.debug import InvariantError
@@ -119,6 +123,8 @@ def run_steps(dp, case):
     evd = port_evd(case["state_dict"], **nets, **diffusion)
     ema = port_evd(case["state_dict"], **nets, **diffusion).requires_grad_(False)
     state = TrainState(list(evd.parameters()), list(ema.parameters()), OptimizerConfig())
+    if dp is not None and dp.model > 1:
+        state.shard_(ModelShards(state.params, dp), (evd, ema))
     step = make_train_step(evd, cfgs[3], cfgs[4], case["table"], accumulate_grad_batches=case["accum"], dp=dp)
     generator = torch.Generator().manual_seed(case.get("seed", 0))
     metrics = []
@@ -129,17 +135,38 @@ def run_steps(dp, case):
         except InvariantError as e:
             return {"error": str(e)}
         metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "max_grad_norm")})
+    at_rest = None if state.shards is None else at_rest_elements(state)
+    state.gather_params_(params=True, ema=True)
+    names = [n for n, _ in evd.named_parameters()]
     return {"metrics": metrics,
             "params": {n: p.detach().numpy().copy() for n, p in evd.named_parameters()},
             "ema": {n: p.detach().numpy().copy() for n, p in ema.named_parameters()},
-            "count": state.count}
+            "moments": {key: {n: t.detach().numpy().copy() for n, t in zip(names, ts)}
+                        for key, ts in state.full_moments().items()},
+            "count": state.count, "at_rest": at_rest}
 
 
-def train_steps(rank, world, init, cases):
-    """``run_steps`` of each case on this rank of a gloo group."""
+def at_rest_elements(state):
+    """Elements a rank's storage holds at rest: of the five copies (the
+    parameter and EMA shards, the three moments), of the model's and the
+    EMA twin's sharded parameters (released: 0), and the shard dims."""
+    from bio_diffusion_torch.train.state import MOMENTS
+
+    def stored(t):
+        return t.untyped_storage().nbytes() // t.element_size()
+
+    copies = [state.param_shards, state.ema_shards] + [getattr(state, k) for k in MOMENTS]
+    fulls = [t for ts in (state.params, state.ema_params) for i, t in enumerate(ts) if state.shards.dims[i] is not None]
+    return {"copies": sum(stored(t) for ts in copies for t in ts), "released": sum(stored(t) for t in fulls),
+            "dims": list(state.shards.dims), "shapes": [tuple(p.shape) for p in state.params]}
+
+
+def train_steps(rank, world, init, cases, num_model_shards=1):
+    """``run_steps`` of each case on this rank of a gloo group (a
+    ``data x model`` mesh with ``num_model_shards``)."""
     from bio_diffusion_torch.parallel.distributed import init_distributed, shutdown
 
-    dp = init_distributed("cpu", init_method=init, rank=rank, world=world)
+    dp = init_distributed("cpu", init_method=init, rank=rank, world=world, num_model_shards=num_model_shards)
     try:
         return {name: run_steps(dp, case) for name, case in cases.items()}
     finally:
@@ -195,6 +222,65 @@ def cli_runs(rank, world, init, runs):
         trainer = train.main(args + [f"--dist-init={init}.{i}"])
         out.append(trainer_summary(trainer, saves, epochs))
     return out
+
+
+def chain(rank, world, init, calls):
+    """``calls`` (``(function name, args)`` pairs) in order on this rank, each
+    joining a group of its own -> their results."""
+    return [globals()[name](rank, world, f"{init}.{i}", *args) for i, (name, args) in enumerate(calls)]
+
+
+def mesh_error(rank, world, init, num_model_shards):
+    """``init_distributed(num_model_shards=)`` on this rank -> the message of
+    the ``ValueError`` it raised, or None."""
+    from bio_diffusion_torch.parallel.distributed import init_distributed, shutdown
+
+    try:
+        init_distributed("cpu", init_method=init, rank=rank, world=world, num_model_shards=num_model_shards)
+    except ValueError as e:
+        return str(e)
+    shutdown()
+    return None
+
+
+def sampling_around_a_step(rank, world, init, overrides, num_model_shards):
+    """A Trainer at the tiny width (``overrides`` added; at world 1 without a
+    group, ``init`` naming its workdir): a sampling evaluation, one train
+    step, another sampling evaluation -> the two evaluations' molecules
+    (rank 0's; None on the others)."""
+    from bio_diffusion_torch.config.build import build_experiment
+    from bio_diffusion_torch.config.loader import default_config_dir, load_config
+    from bio_diffusion_torch.parallel.distributed import init_distributed, shutdown
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.utils.logging import MetricLoggers
+
+    dp = None
+    if world > 1:
+        dp = init_distributed("cpu", init_method=init, rank=rank, world=world, num_model_shards=num_model_shards)
+    samples, sample = [], loop.sample_molecules
+
+    def recorded(*args, **kwargs):
+        out = sample(*args, **kwargs)
+        samples.append(out[0])
+        return out
+
+    loop.sample_molecules = recorded
+    try:
+        cfg = load_config(default_config_dir(), "train", TINY_OVERRIDES + list(overrides))
+        trainer = loop.Trainer(build_experiment(cfg), f"{init[len('file://'):]}.wd{rank}", "cpu",
+                               loggers=MetricLoggers(), dp=dp)
+        trainer.init_state(resume=False)
+        sizes = trainer.rng.bit_generator.state
+        trainer.evaluate_sampling(0)
+        batch = next(trainer._train_batches()).to(trainer.device)
+        trainer.train_step(trainer.state, batch, trainer.step_generator())
+        trainer.rng.bit_generator.state = sizes  # the same molecule sizes and draws again
+        trainer.evaluate_sampling(0)
+        return samples or None
+    finally:
+        loop.sample_molecules = sample
+        if dp is not None:
+            shutdown()
 
 
 def trainer_summary(trainer, saves=(), epochs=()):
