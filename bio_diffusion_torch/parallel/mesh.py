@@ -213,11 +213,9 @@ class ModelShards:
         """The L2 norm of the full leaves from this rank's shards: the
         sharded leaves' squares summed over the model group, each
         replicated leaf counted once."""
-        def squares(ts):
-            if not ts:
-                return torch.zeros((), dtype=torch.float32, device=shards[0].device)
-            return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
+        from bio_diffusion_torch.train.state import squared_norm
 
-        total = squares([shards[i] for i in self.sharded])
+        device = shards[0].device
+        total = squared_norm([shards[i] for i in self.sharded], device)
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=self.dp.model_group)
-        return torch.sqrt(total + squares([shards[i] for i in self.replicated]))
+        return torch.sqrt(total + squared_norm([shards[i] for i in self.replicated], device))

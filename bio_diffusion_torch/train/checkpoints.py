@@ -67,16 +67,14 @@ def _atomic_save(payload: Dict[str, Any], path: str) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, evd: nn.Module, evd_ema: nn.Module, state: TrainState,
-                    step: Optional[int] = None, max_to_keep: int = 3,
-                    moments: Optional[Dict[str, List[torch.Tensor]]] = None) -> str:
+                    moments: Dict[str, List[torch.Tensor]], step: Optional[int] = None,
+                    max_to_keep: int = 3) -> str:
     """Write ``step_<n>.pt`` (``n`` the optimizer step unless given) and drop
     all but the newest ``max_to_keep``; returns the file's path.  ``evd``
-    and ``evd_ema`` hold full weights; ``moments``: the AMSGrad moments at
-    full shapes (``TrainState.full_moments``, which a sharded state needs),
-    else the state's own."""
+    and ``evd_ema`` hold full weights, ``moments`` the AMSGrad moments at
+    full shapes (``TrainState.full_moments``)."""
     step = state.count if step is None else int(step)
     names = [PREFIX + n for n, _ in evd.named_parameters()]
-    moments = {key: getattr(state, key) for key in MOMENTS} if moments is None else moments
     moments = {key: {n: t.detach().cpu() for n, t in zip(names, moments[key])} for key in MOMENTS}
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)

@@ -404,7 +404,7 @@ class Trainer:
             with self.state.gathered():
                 moments = self.state.full_moments()
                 if self.is_main:
-                    save_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state, moments=moments)
+                    save_checkpoint(self.ckpt_dir, self.evd, self.evd_ema, self.state, moments)
             if self.dp is not None:
                 barrier(self.dp)
             self._saved_step = self.state.count

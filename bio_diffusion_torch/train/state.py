@@ -214,8 +214,16 @@ class TrainState:
         torch._foreach_add_(self.ema_shards, self.param_shards, alpha=1.0 - decay)
 
 
+def squared_norm(tensors: Sequence[Tensor], device=None) -> Tensor:
+    """The sum of the squares of every element of ``tensors``, in float32
+    (0 on ``device`` for none)."""
+    if not tensors:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack(torch._foreach_norm([t.float() for t in tensors])).square().sum()
+
+
 def global_norm(tensors: Sequence[Tensor]) -> Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([t.float() for t in tensors])))
+    return torch.sqrt(squared_norm(tensors))
 
 
 @torch.no_grad()

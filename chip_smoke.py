@@ -1698,11 +1698,6 @@ def drive_tools(torch, data_dir):
     return out, numbers
 
 
-# the conditional evaluation's reverse steps (the model's T is 1000): depth
-# cut for the smoke's time
-COND_EVAL_T = 500
-
-
 def drive_conditional_path(torch, data_dir):
     """Property conditioning from end to end at full width in float32, on
     the user path's QM9-layout files: the conditional model's training
@@ -1779,18 +1774,15 @@ def drive_conditional_path(torch, data_dir):
     with spy(torch, SegmentedSampler, "run") as batches:
         metrics, sec, counts = run(lambda: mol_gen_eval_conditional_qm9.main(cli + [
             f"generator_model_filepath={trainer.ckpt_dir}", "iterations=1", "batch_size=100",
-            f"num_timesteps={COND_EVAL_T}", f"output_dir={root}/eval"]))
-    if len(batches) != 1 or counts["message_layer"] != layers * (COND_EVAL_T + 1) \
-            or not np.isfinite(metrics["mae"]):
+            f"output_dir={root}/eval"]))
+    if len(batches) != 1 or counts["message_layer"] != layers * (T + 1) or not np.isfinite(metrics["mae"]):
         raise AssertionError(f"mol_gen_eval_conditional_qm9 launched {counts['message_layer']} in {len(batches)} "
-                             f"sampler batch(es), need {layers * (COND_EVAL_T + 1)} in one; MAE {metrics['mae']}")
+                             f"sampler batch(es), need {layers * (T + 1)} in one; MAE {metrics['mae']}")
     out["fwd"]["cond_eval_cli"] = counts["message_layer"]
     loop_s = batches[0]["s"]
-    numbers.update(cond_sample_s_per_step=loop_s / COND_EVAL_T, cond_sample_mol_per_s=100 / loop_s,
-                   cond_eval_cli_s=sec)
-    print(f"conditional mol_gen_eval_conditional_qm9: the sampler's batch of 100 (prior, {COND_EVAL_T} of T={T} "
-          f"reverse steps with contexts, decode) took {loop_s:.3f} s = {loop_s / COND_EVAL_T:.6f} s per reverse "
-          f"step, {100 / loop_s:.3f} "
+    numbers.update(cond_sample_s_per_step=loop_s / T, cond_sample_mol_per_s=100 / loop_s, cond_eval_cli_s=sec)
+    print(f"conditional mol_gen_eval_conditional_qm9: the sampler's batch of 100 (prior, T={T} reverse steps with "
+          f"contexts, decode) took {loop_s:.3f} s = {loop_s / T:.6f} s per reverse step, {100 / loop_s:.3f} "
           f"molecules/s; the CLI call {sec:.3f} s with set-up; launches {counts['message_layer']}; classifier MAE "
           f"{metrics['mae']:.6g} (printed, not judged)")
 
@@ -2518,10 +2510,9 @@ def check_frames(frames, mask, what):
 
 def drive_chain_path(torch):
     """``cli.mol_gen_sample.main ddpm_mode=chain`` on ``qm9_mol_gen_ddpm`` at
-    full width, fp32, seed weights: one molecule of 19 atoms, 500 reverse
-    steps (the model's T=1000; depth cut for the smoke's time),
-    ``keep_frames=100`` -> 100 kept states (every 5th step from the first)
-    written with the last one repeated 10 times = 110 xyz files, 9 x 501
+    full width, fp32, seed weights: one molecule of 19 atoms, T=1000,
+    ``keep_frames=100`` -> 100 kept states (every 10th step from the first)
+    written with the last one repeated 10 times = 110 xyz files, 9 x 1,001
     launches; the kept states finite, CoM-free, padded rows 0 (none at
     N=19) -> (launches by path, numbers)."""
     from bio_diffusion_torch.cli import mol_gen_sample
@@ -2532,8 +2523,8 @@ def drive_chain_path(torch):
     with spy(torch, SegmentedSampler, "run") as calls:
         metrics, sec, counts = count_run(torch, lambda: mol_gen_sample.main([
             "device=cuda", "precision=fp32", "ddpm_mode=chain", "num_nodes=19", "keep_frames=100",
-            "num_timesteps=500", f"output_dir={root}"]))
-    layers, T = 9, 500
+            f"output_dir={root}"]))
+    layers, T = 9, 1000
     if len(calls) != 1 or counts["message_layer"] != layers * (T + 1) or counts["message_layer_bwd"]:
         raise AssertionError(f"the chain mode launched {counts} in {len(calls)} run(s), need {layers * (T + 1)}")
     xh, frames = calls[0]["result"]
@@ -2550,7 +2541,7 @@ def drive_chain_path(torch):
     print(f"chain path: mol_gen_sample ddpm_mode=chain, 1 molecule of 19 atoms, T={T}, fp32: {s:.3f} s = "
           f"{s / (T + 1):.6f} s per reverse step at B=1 (card synchronized); the CLI {sec:.3f} s with set-up; "
           f"launches {counts['message_layer']}; {len(files)} frame files (100 kept states + 10 repeats of the "
-          f"last kept one, the state after step {T - T // 100}); frames finite, CoM-free, no padded row at N=19; GIF "
+          f"last kept one, the state after step 990); frames finite, CoM-free, no padded row at N=19; GIF "
           f"written: {gif}; metrics (printed, not judged) {metrics}")
     return {"fwd": {"chain_cli": counts["message_layer"]}}, {"s_per_step": s / (T + 1), "cli_s": sec, "gif": gif}
 
@@ -3400,8 +3391,56 @@ def drive_data_parallel(torch, data_dir):
 
 # the model-axis phase: four ranks on one card as 2 data groups x 2 model
 # shards, the data-parallel phase's configuration and steps (its one-process
-# run is the reference, held at TOL_DP_REL and 2 lr a step as there)
-MA_WORLD, MA_SHARDS = 4, 2
+# run is the reference, held at TOL_DP_REL and 2 lr a step as there), and
+# MA_STEADY steps more after them, timed without the collective timers
+MA_WORLD, MA_SHARDS, MA_STEADY = 4, 2, 3
+
+
+def ma_rest_memory(torch, device):
+    """``memory_allocated`` after the steps, and a second reading after one
+    more allocation: blocks freed but waiting on another stream's events
+    (the collectives') leave the count there, blocks still held do not."""
+    torch.cuda.synchronize()
+    at_rest = torch.cuda.memory_allocated()
+    settle = torch.empty(1, device=device)
+    return {"at_rest": at_rest, "at_rest_settled": torch.cuda.memory_allocated() - settle.untyped_storage().nbytes()}
+
+
+def ma_steady_ms(torch, trainer, steps):
+    """The ms of each of ``steps`` more train steps (on the first train
+    batches again), after the measured ones, which were their warm-up; the
+    card synchronized at each step's end."""
+    batches = [b.to(trainer.device) for _, b in zip(range(steps), trainer._train_batches())]
+    out = []
+    torch.cuda.synchronize()
+    for b in batches:
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, b, trainer.generator)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def ma_world1(rank, world, data_dir, out_dir):
+    """World 1 of the model-axis phase in a process of its own, on a rank's
+    basis: the same ``DP_STEPS`` steps, ``memory_allocated`` at rest after
+    them, then ``MA_STEADY`` steps timed.  Writes its metrics and readings."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bio_diffusion_torch.train import loop
+    from bio_diffusion_torch.utils.logging import MetricLoggers
+
+    device = torch.device("cuda", 0)
+    trainer = loop.Trainer(dp_experiment(data_dir), os.path.join(out_dir, "world1"), device,
+                           loggers=MetricLoggers())
+    metrics, counts, sec, shapes = dp_steps(torch, trainer, DP_STEPS)
+    memory = ma_rest_memory(torch, device)
+    steady = ma_steady_ms(torch, trainer, MA_STEADY)
+    torch.save({"metrics": metrics, "counts": counts, "s": sec, "shapes": shapes, "memory": memory,
+                "steady_ms": steady}, os.path.join(out_dir, "world1.pt"))
 
 
 def ma_train_rank(rank, world, init_file, data_dir, out_dir):
@@ -3409,8 +3448,9 @@ def ma_train_rank(rank, world, init_file, data_dir, out_dir):
     over CUDA tensors, ``trainer.num_model_shards`` = ``MA_SHARDS``, the
     Trainer's steps on its rows of each global batch with the gather and
     the gradient reduction timed around each call (the card synchronized
-    before and after); then a checkpoint (rank 0 writes it) and the
-    gathered state.  Writes its metrics, counts, bytes and state."""
+    before and after); then a checkpoint (rank 0 writes it), the gathered
+    state, and ``MA_STEADY`` steps timed with the collective timers off.
+    Writes its metrics, counts, bytes, state and times."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -3424,12 +3464,14 @@ def ma_train_rank(rank, world, init_file, data_dir, out_dir):
     dp = distributed.init_distributed(device=torch.device("cuda", 0), backend="gloo",
                                       init_method=f"file://{init_file}", rank=rank, world=world,
                                       timeout_s=DP_TIMEOUT_S, num_model_shards=MA_SHARDS)
-    timings = {"gather_": [], "reduce_gradients": []}
+    timings, timers_on = {"gather_": [], "reduce_gradients": []}, [True]
 
     def timed(name):
         fn = getattr(mesh.ModelShards, name)
 
         def wrapped(*args, **kwargs):
+            if not timers_on[0]:
+                return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -3454,14 +3496,7 @@ def ma_train_rank(rank, world, init_file, data_dir, out_dir):
                            loggers=MetricLoggers(), dp=dp)
     metrics, counts, sec, shapes = dp_steps(torch, trainer, DP_STEPS)
     step_timings = {name: list(ts) for name, ts in timings.items()}
-    torch.cuda.synchronize()
-    mem["at_rest"] = torch.cuda.memory_allocated()
-    # a second reading after one more allocation: blocks freed but waiting
-    # on another stream's events (the collectives') leave the count there,
-    # blocks still held do not
-    settle = torch.empty(1, device=dp.device)
-    mem["at_rest_settled"] = torch.cuda.memory_allocated() - settle.untyped_storage().nbytes()
-    del settle
+    mem.update(ma_rest_memory(torch, dp.device))
     st = trainer.state
     copies = [st.param_shards, st.ema_shards] + [getattr(st, key) for key in MOMENTS]
     sharded, replicated = st.shards.sharded, st.shards.replicated
@@ -3481,6 +3516,8 @@ def ma_train_rank(rank, world, init_file, data_dir, out_dir):
         result["params"] = [p.detach().cpu() for p in st.params]
         result["ema"] = [p.detach().cpu() for p in st.ema_params]
     result["moments"] = {key: [t.cpu() for t in ts] for key, ts in st.full_moments().items()}
+    timers_on[0] = False
+    result["steady_ms"] = ma_steady_ms(torch, trainer, MA_STEADY)
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     distributed.shutdown()
 
@@ -3490,8 +3527,9 @@ def drive_model_axis(torch, data_dir, reference):
     laid out as 2 data groups x ``MA_SHARDS`` model shards, the Trainer's
     ``DP_STEPS`` steps at full QM9 width (fp32, global B=64, N=29) held
     against the data-parallel phase's one process (``reference``) on the
-    same batches and seed; bytes of the five state copies at rest, the
-    gather and gradient-reduction ms a step; the checkpoint of step 3
+    same batches and seed; bytes of the five state copies at rest beside
+    world 1's in a process of its own, the gather and gradient-reduction ms
+    a step, the ms a step after a warm-up; the checkpoint of step 3
     restored at world 1 equal to the gathered state; (b) ``cli.train``
     under ``torch.distributed.run`` at world 2 with
     ``trainer.num_model_shards=2`` over NCCL where there are two cards ->
@@ -3505,10 +3543,23 @@ def drive_model_axis(torch, data_dir, reference):
     os.makedirs(root)
     out, numbers = {"fwd": {}, "bwd": {}}, {}
     t0 = time.perf_counter()
+    run_ranks(ma_world1, 1, (data_dir, root))
+    numbers["world1_s"] = time.perf_counter() - t0
+    w1 = torch.load(os.path.join(root, "world1.pt"), weights_only=False)
+    t0 = time.perf_counter()
     run_ranks(ma_train_rank, MA_WORLD, (os.path.join(root, "store"), data_dir, root))
     numbers["ranks_s"] = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(MA_WORLD)]
     need, rows = reference["layers"] * DP_STEPS, 64 // MA_WORLD
+    w1_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for a, b in zip(w1["metrics"], reference["metrics"])
+                 for k in ("loss", "grad_norm"))
+    if w1_rel > TOL_DP_REL or w1["counts"]["message_layer"] != need or w1["counts"]["message_layer_bwd"] != need:
+        raise AssertionError(f"world 1 in a process of its own is not the one process: {w1['metrics']}, "
+                             f"{w1['counts']}")
+    print(f"model axis (a) world 1 (a process of its own, the same {DP_STEPS} steps, loss and grad norm within rel "
+          f"{w1_rel:.3g} of the one process's): memory_allocated {w1['memory']['at_rest']:,} B at rest after step {DP_STEPS} "
+          f"({w1['memory']['at_rest_settled']:,} B after one more allocation); {MA_STEADY} steps after them "
+          f"{[round(t, 3) for t in w1['steady_ms']]} ms")
     print(f"model axis (a): {MA_WORLD} ranks on one card as {ranks[0]['mesh'][0]} data x {ranks[0]['mesh'][1]} "
           f"model ({ranks[0]['collectives']}, CUDA tensors); {ranks[0]['sharded_leaves']} leaves sharded, "
           f"{ranks[0]['replicated_leaves']} replicated")
@@ -3522,7 +3573,10 @@ def drive_model_axis(torch, data_dir, reference):
               f"expected replicated + sharded/{MA_SHARDS} = {rk['expected_bytes']:,} B), released parameters "
               f"{rk['released_bytes']} B; memory_allocated {m['full_state']:,} B with the full state, "
               f"{m['sharded']:,} B sharded, {m['at_rest']:,} B at rest after step {DP_STEPS} "
-              f"({m['at_rest_settled']:,} B after one more allocation)")
+              f"({m['at_rest_settled']:,} B after one more allocation; world 1 "
+              f"{w1['memory']['at_rest']:,} B, difference {m['at_rest'] - w1['memory']['at_rest']:,} B, the "
+              f"copies' {rk['expected_bytes'] - rk['world1_bytes']:,} B); {MA_STEADY} steps after them "
+              f"{[round(t, 3) for t in rk['steady_ms']]} ms")
         if c["message_layer"] != need or c["message_layer_bwd"] != need or rk["shapes"] != [(rows, 29)] * DP_STEPS:
             raise AssertionError(f"model axis rank {rk['rank']}: launches {c} or rows {rk['shapes']} not as planned")
         if rk["copies_bytes"] != rk["expected_bytes"] or rk["released_bytes"] != 0 \
@@ -3568,6 +3622,8 @@ def drive_model_axis(torch, data_dir, reference):
     numbers.update(world=MA_WORLD, mesh=list(r0["mesh"]), collectives=r0["collectives"], steps=DP_STEPS,
                    step_ms=[1e3 * rk["s"] / DP_STEPS for rk in ranks],
                    one_process_step_ms=1e3 * reference["s"] / DP_STEPS,
+                   steady_step_ms=statistics.mean(t for rk in ranks for t in rk["steady_ms"]),
+                   world1_steady_step_ms=statistics.mean(w1["steady_ms"]), world1_memory=w1["memory"],
                    gather_ms_per_step=statistics.mean(steady), reduce_ms_per_step=statistics.mean(reduce),
                    gather_ms_first=[rk["timings"]["gather_"][0] for rk in ranks],
                    reduce_ms_first=[rk["timings"]["reduce_gradients"][0] for rk in ranks],
@@ -3578,7 +3634,9 @@ def drive_model_axis(torch, data_dir, reference):
           f"{numbers['reduce_ms_per_step']:.3f} ms a step (mean of steps 2-{DP_STEPS} of the {MA_WORLD} ranks; "
           f"{MA_WORLD} ranks on one card, gloo: no scaling figure), ms a step by rank "
           f"{[round(t, 3) for t in numbers['step_ms']]} (the first {DP_STEPS} steps of a fresh process, "
-          f"collective timers included; the one process {1e3 * reference['s'] / DP_STEPS:.3f} ms on that basis)")
+          f"collective timers included; the one process {1e3 * reference['s'] / DP_STEPS:.3f} ms on that basis); "
+          f"after them, timers off: {numbers['steady_step_ms']:.3f} ms a step (mean of {MA_STEADY} steps of the "
+          f"{MA_WORLD} ranks), world 1 {numbers['world1_steady_step_ms']:.3f} ms")
 
     # (b) cli.train at world 2 with two model shards over NCCL, on two cards
     if torch.cuda.device_count() >= 2:

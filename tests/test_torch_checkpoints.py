@@ -76,7 +76,8 @@ def test_max_to_keep(tmp_path):
     trainer = port_trainer(tmp_path)
     trainer.init_state()
     for step in range(1, 6):
-        ck.save_checkpoint(trainer.ckpt_dir, trainer.evd, trainer.evd_ema, trainer.state, step=step)
+        ck.save_checkpoint(trainer.ckpt_dir, trainer.evd, trainer.evd_ema, trainer.state,
+                           trainer.state.full_moments(), step=step)
     assert sorted(os.listdir(trainer.ckpt_dir)) == ["step_3.pt", "step_4.pt", "step_5.pt"]
     assert ck.latest_step(trainer.ckpt_dir) == 5 and ck.latest_step(str(tmp_path / "none")) is None
     with pytest.raises(FileNotFoundError):

@@ -22,7 +22,9 @@ run once for the module:
   and shapes;
 * a sampling evaluation after a sharded step (a learned schedule, so both
   caches of weights are on the path) equals world 1's bit for bit and
-  differs from the same evaluation before the step.
+  differs from the same evaluation before the step; so does one after a
+  change to the sharded EMA leaves alone, which moves no version counter
+  that the caches could key on.
 """
 
 import os
@@ -294,16 +296,20 @@ def test_resume_across_shard_counts(setup, uninterrupted, tmp_path, resumed):
 
 
 def test_sampling_evaluation_after_a_sharded_step(setup, tmp_path):
-    """A sampling evaluation, a step, the same sampling evaluation again at
+    """A sampling evaluation, a step, the same sampling evaluation again,
+    then the sharded EMA leaves scaled and the evaluation once more, at
     world 2 with two model shards equal the same at world 1 bit for bit;
-    the second reads the updated EMA weights (it differs from the first),
-    so neither the packed weights nor the learned schedule's table may be
-    stale."""
+    each evaluation reads the EMA weights of its time (each differs from
+    the one before).  The third changes only sharded leaves, whose full
+    tensors the gather rewrites while every replicated leaf, and so every
+    version counter outside the gather, stays as it was: a packed-weight
+    cache or a learned schedule's table kept across it would be stale."""
     from torch_parallel_workers import sampling_around_a_step
 
     ref = sampling_around_a_step(0, 1, f"file://{tmp_path}/w1", SAMPLING, 2)
     ours = setup["sampling"]
-    assert len(ours) == len(ref) == 2
+    assert len(ours) == len(ref) == 3
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(a, b)
     assert not np.array_equal(ref[1], ref[0])
+    assert not np.array_equal(ref[2], ref[1])

@@ -246,11 +246,15 @@ def mesh_error(rank, world, init, num_model_shards):
 def sampling_around_a_step(rank, world, init, overrides, num_model_shards):
     """A Trainer at the tiny width (``overrides`` added; at world 1 without a
     group, ``init`` naming its workdir): a sampling evaluation, one train
-    step, another sampling evaluation -> the two evaluations' molecules
-    (rank 0's; None on the others)."""
+    step, another sampling evaluation, then the EMA leaves that
+    ``num_model_shards`` shards scaled by 0.9 (their shards alone on a model
+    axis, where no version counter of the model's parameters moves) and a
+    third evaluation -> the three evaluations' molecules (rank 0's; None on
+    the others)."""
     from bio_diffusion_torch.config.build import build_experiment
     from bio_diffusion_torch.config.loader import default_config_dir, load_config
     from bio_diffusion_torch.parallel.distributed import init_distributed, shutdown
+    from bio_diffusion_torch.parallel.mesh import shard_dim
     from bio_diffusion_torch.train import loop
     from bio_diffusion_torch.utils.logging import MetricLoggers
 
@@ -275,6 +279,13 @@ def sampling_around_a_step(rank, world, init, overrides, num_model_shards):
         batch = next(trainer._train_batches()).to(trainer.device)
         trainer.train_step(trainer.state, batch, trainer.step_generator())
         trainer.rng.bit_generator.state = sizes  # the same molecule sizes and draws again
+        trainer.evaluate_sampling(0)
+        state = trainer.state
+        with torch.no_grad():
+            for shard, full in zip(state.ema_shards, state.ema_params):
+                if shard_dim(full.shape, num_model_shards) is not None:
+                    shard.mul_(0.9)
+        trainer.rng.bit_generator.state = sizes
         trainer.evaluate_sampling(0)
         return samples or None
     finally:
