@@ -36,6 +36,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from bio_diffusion_torch.utils.profiling import span
+
 Tensor = torch.Tensor
 
 # launches of each hand-written kernel of the port (this module's two,
@@ -683,7 +685,7 @@ def _message_layer_bwd_cuda(s_node, v_node, epack, g1, chain, cotangents, ve_dim
         ptrs_in = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
         ptrs_out = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
         chunk_dims = dims(b1 - b0)
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), span("message_layer.backward.chunk"):
             err = fn(ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), rows.data_ptr(),
                      partials.data_ptr(), tickets.data_ptr(), ctypes.addressof(chunk_dims), int(b0 > 0), stream)
         if err != 0:
@@ -736,15 +738,17 @@ class MessageLayerFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_s_agg, d_v_agg):
-        s_node, v_node, epack, *weights = ctx.saved_tensors
-        d_s, d_v, d_ep, d_g1, d_chain = fused_message_layer_bwd(
-            s_node, v_node, epack, dict(zip(G1_KEYS, weights[:10])), tuple(weights[10:]),
-            (d_s_agg.contiguous(), d_v_agg.contiguous()), ve_dim=ctx.ve_dim)
-        return (None, d_s, d_v, d_ep, *[d_g1[k] for k in G1_KEYS], *d_chain)
+        with span("message_layer.backward"):
+            s_node, v_node, epack, *weights = ctx.saved_tensors
+            d_s, d_v, d_ep, d_g1, d_chain = fused_message_layer_bwd(
+                s_node, v_node, epack, dict(zip(G1_KEYS, weights[:10])), tuple(weights[10:]),
+                (d_s_agg.contiguous(), d_v_agg.contiguous()), ve_dim=ctx.ve_dim)
+            return (None, d_s, d_v, d_ep, *[d_g1[k] for k in G1_KEYS], *d_chain)
 
 
 def message_layer(s_node: Tensor, v_node: Tensor, epack: Tensor, g1: Dict[str, Tensor],
                   chain: tuple, *, ve_dim: int) -> Tuple[Tensor, Tensor]:
     """Differentiable :func:`fused_message_layer` (the kernels in both directions on CUDA)."""
-    return MessageLayerFunction.apply(ve_dim, s_node, v_node, epack,
-                                      *[g1[k] for k in G1_KEYS], *chain)
+    with span("message_layer.forward"):
+        return MessageLayerFunction.apply(ve_dim, s_node, v_node, epack,
+                                          *[g1[k] for k in G1_KEYS], *chain)

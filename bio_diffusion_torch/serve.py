@@ -71,6 +71,12 @@ class MoleculeServer:
     batch_size : fixed device batch; every executed batch has this shape
     buckets : node-count ladder; default multiples of 2 up to the dataset max
     num_timesteps : default denoising steps (None = the model's T)
+
+    ``stats`` (``describe()``, the HTTP front end's ``GET /stats``) counts
+    requests, molecules, batches and the jobs in them; ``device_s`` sums the
+    wall time of the batches' ``sampler.run`` calls, the read-back of each
+    result to the host included; ``queue_wait_s`` sums each job's wait from
+    its enqueue to the start of its batch, ``max_queue_wait_s`` the longest.
     """
 
     def __init__(
@@ -113,8 +119,8 @@ class MoleculeServer:
         self._running = True
         self.stats: Dict[str, Any] = {
             "requests": 0, "molecules": 0, "batches": 0,
-            "batched_jobs": 0, "device_s": 0.0, "started": time.time(),
-            "bucket_batches": {},
+            "batched_jobs": 0, "device_s": 0.0, "queue_wait_s": 0.0, "max_queue_wait_s": 0.0,
+            "started": time.time(), "bucket_batches": {},
         }
         self._stats_lock = threading.Lock()
         self._executor = threading.Thread(target=self._run_loop, daemon=True)
@@ -313,6 +319,7 @@ class MoleculeServer:
             self._execute_chunk(jobs[start: start + self.batch_size], generator)
 
     def _execute_chunk(self, jobs: List[_Job], generator: torch.Generator):
+        waits = [time.time() - j.t_enq for j in jobs]
         sizes = [j.size for j in jobs]
         bucket = _bucket_for(max(sizes), self.buckets)
         # pad the batch with copies of the last size: the shape is always
@@ -342,6 +349,8 @@ class MoleculeServer:
             self.stats["batches"] += 1
             self.stats["batched_jobs"] += len(jobs)
             self.stats["device_s"] += device_s
+            self.stats["queue_wait_s"] += sum(waits)
+            self.stats["max_queue_wait_s"] = max(self.stats["max_queue_wait_s"], *waits)
             bb = self.stats["bucket_batches"]
             bb[bucket] = bb.get(bucket, 0) + 1
 

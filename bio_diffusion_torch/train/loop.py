@@ -83,6 +83,7 @@ from bio_diffusion_torch.train.state import TrainState
 from bio_diffusion_torch.train.step import make_eval_step, make_train_step, step_seed
 from bio_diffusion_torch.train.torch_import import init_random_weights, load_reference_state_dict
 from bio_diffusion_torch.utils.logging import MetricLoggers, build_loggers, get_logger
+from bio_diffusion_torch.utils.profiling import span
 
 log = get_logger(__name__)
 
@@ -261,35 +262,42 @@ class Trainer:
         return self.generator.manual_seed(step_seed(self.exp.seed, self.state.count))
 
     def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> Dict[str, float]:
-        accum = self.accumulate_grad_batches
-        metrics_acc: Dict[str, list] = {}
-        micro: list = []
-        for batch in self._train_batches():
-            batch = batch.to(self.device)
-            if accum > 1:
-                micro.append(batch)
-                if len(micro) < accum:
-                    continue
-                metrics = self.train_step(self.state, micro, self.step_generator())
-                micro = []
-            else:
-                metrics = self.train_step(self.state, batch, self.step_generator())
-            self.stats["steps"] += 1
-            self.stats["micro_batches"] += accum
-            for k, v in metrics.items():
-                metrics_acc.setdefault(k, []).append(v)
-            if max_steps is not None and self.state.count >= max_steps:
-                break
-        if not metrics_acc:
-            log.warning("epoch %d: no optimizer steps ran", epoch)
-            return {}
-        # one device-to-host read per epoch
-        means = torch.stack([torch.stack(vs).float().mean() for vs in metrics_acc.values()]).tolist()
-        out = dict(zip(metrics_acc, means))
-        if not np.isfinite(out["loss"]):
-            raise FloatingPointError(f"Non-finite training loss at epoch {epoch}: {out['loss']}")
-        self.loggers.log({f"train/{k}": v for k, v in out.items()}, self.state.count, epoch)
-        return out
+        with span("trainer.epoch"):
+            accum = self.accumulate_grad_batches
+            metrics_acc: Dict[str, list] = {}
+            micro: list = []
+            batches = self._train_batches()
+            while True:
+                with span("trainer.data"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with span("trainer.h2d"):
+                    batch = batch.to(self.device)
+                if accum > 1:
+                    micro.append(batch)
+                    if len(micro) < accum:
+                        continue
+                    batch, micro = micro, []
+                with span("trainer.step"):
+                    metrics = self.train_step(self.state, batch, self.step_generator())
+                self.stats["steps"] += 1
+                self.stats["micro_batches"] += accum
+                for k, v in metrics.items():
+                    metrics_acc.setdefault(k, []).append(v)
+                if max_steps is not None and self.state.count >= max_steps:
+                    break
+            if not metrics_acc:
+                log.warning("epoch %d: no optimizer steps ran", epoch)
+                return {}
+            with span("trainer.readback"):
+                # one device-to-host read per epoch
+                means = torch.stack([torch.stack(vs).float().mean() for vs in metrics_acc.values()]).tolist()
+                out = dict(zip(metrics_acc, means))
+                if not np.isfinite(out["loss"]):
+                    raise FloatingPointError(f"Non-finite training loss at epoch {epoch}: {out['loss']}")
+                self.loggers.log({f"train/{k}": v for k, v in out.items()}, self.state.count, epoch)
+            return out
 
     def validate(self, epoch: int, split: str = "valid", use_ema: bool = True) -> Dict[str, float]:
         exp = self.exp

@@ -28,6 +28,7 @@ from bio_diffusion_torch.chem.stability import batch_molecular_stability, ensure
 from bio_diffusion_torch.data.batch import broadcast_context
 from bio_diffusion_torch.models.distributions import CategoricalDistribution, NumNodesDistribution
 from bio_diffusion_torch.parallel.distributed import Replicas
+from bio_diffusion_torch.utils.profiling import span
 
 
 class SegmentedSampler:
@@ -79,8 +80,9 @@ class SegmentedSampler:
         masks, ctxs = reps.scatter(node_mask, b), reps.scatter(context, b)
         nf = evd.num_x_dims + evd.num_node_scalar_features
         per = evd.draws_per_step
-        draws = reps.draws(b, (1 if fix_noise else b, n, nf), per * T_s + 2, generator, noises)
-        zs = [m.init_sample_noise(mask, None, fix_noise, d[0]) for m, mask, d in zip(reps.modules, masks, draws)]
+        with span("sampler.prior"):
+            draws = reps.draws(b, (1 if fix_noise else b, n, nf), per * T_s + 2, generator, noises)
+            zs = [m.init_sample_noise(mask, None, fix_noise, d[0]) for m, mask, d in zip(reps.modules, masks, draws)]
         self_conds = [None] * len(zs)
         slot = {} if frame_steps is None else {int(k): i for i, k in enumerate(frame_steps)}
         frames = None if frame_steps is None else [
@@ -89,18 +91,22 @@ class SegmentedSampler:
         s_values = np.arange(T_s - 1, -1, -1, dtype=np.float32)
         s_norm, t_norm = s_values / denom, (s_values + 1) / denom
         for k in range(T_s):
-            for i, m in enumerate(reps.modules):
-                zs[i], self_conds[i] = m.reverse_segment(
-                    zs[i], s_norm[k: k + 1], t_norm[k: k + 1], masks[i], None, fix_noise,
-                    draws[i][1 + per * k: 1 + per * (k + 1)], context=ctxs[i], self_cond=self_conds[i])
-                if k in slot:
-                    frames[i][slot[k]].copy_(m.unnormalize_z(zs[i], masks[i]))
-        xh = reps.gather([m.decode_sample(z, mask, None, fix_noise, d[-1], context=c, self_cond=sc)
-                          for m, z, mask, d, c, sc in zip(reps.modules, zs, masks, draws, ctxs, self_conds)], b)
+            with span("sampler.step"):
+                for i, m in enumerate(reps.modules):
+                    zs[i], self_conds[i] = m.reverse_segment(
+                        zs[i], s_norm[k: k + 1], t_norm[k: k + 1], masks[i], None, fix_noise,
+                        draws[i][1 + per * k: 1 + per * (k + 1)], context=ctxs[i], self_cond=self_conds[i])
+                    if k in slot:
+                        frames[i][slot[k]].copy_(m.unnormalize_z(zs[i], masks[i]))
+        with span("sampler.decode"):
+            outs = [m.decode_sample(z, mask, None, fix_noise, d[-1], context=c, self_cond=sc)
+                    for m, z, mask, d, c, sc in zip(reps.modules, zs, masks, draws, ctxs, self_conds)]
+        with span("sampler.readback"):
+            xh = reps.gather(outs, b)
+            if frames is not None:
+                frames = np.concatenate([f.cpu().numpy() for f in frames], axis=1)[:, :b]
         self.runs += 1
-        if frames is None:
-            return xh
-        return xh, np.concatenate([f.cpu().numpy() for f in frames], axis=1)[:, :b]
+        return xh if frames is None else (xh, frames)
 
 
 def make_node_mask(num_nodes: Sequence[int], pad_to: Optional[int] = None) -> np.ndarray:

@@ -62,6 +62,7 @@ from bio_diffusion_torch.parallel import distributed
 from bio_diffusion_torch.parallel.distributed import DataParallel, row_slice, shard_rows
 from bio_diffusion_torch.train.state import TrainState, adaptive_clip
 from bio_diffusion_torch.utils.debug import checked_call
+from bio_diffusion_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 Draws = Optional[Dict[str, Tensor]]
@@ -152,8 +153,11 @@ def make_train_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloa
         max_num_nodes = rows = None
         if dp is not None:
             batch, draws, max_num_nodes, rows = _rank_rows(evd, dp, batch, generator, draws, True, by_max_nodes)
-        loss, info = loss_fn(batch, generator, draws, max_num_nodes, rows)
-        return torch.autograd.grad(loss, state.params, allow_unused=True, materialize_grads=True), info
+        with span("step.forward"):
+            loss, info = loss_fn(batch, generator, draws, max_num_nodes, rows)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, state.params, allow_unused=True, materialize_grads=True)
+        return grads, info
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator], draws=None):
         state.gather_params_()
@@ -173,13 +177,18 @@ def make_train_step(evd, diffusion_cfg: DiffusionConfig, dataloader_cfg: Dataloa
         state.release_params_()
         metrics = {key: v.detach() for key, v in info.items()}
         if state.shards is not None:
-            grads = state.shards.reduce_gradients(grads, list(metrics.values()))
+            with span("step.reduce"):
+                grads = state.shards.reduce_gradients(grads, list(metrics.values()))
         elif dp is not None:
             # one all-reduce: the gradients and the step's metrics
-            distributed.all_reduce_mean_(list(grads) + list(metrics.values()), dp)
-        grads, grad_norm, max_norm = adaptive_clip(state, grads, enabled=clip_gradients)
-        state.apply_gradients(grads)
-        state.update_ema(ema_decay)
+            with span("step.reduce"):
+                distributed.all_reduce_mean_(list(grads) + list(metrics.values()), dp)
+        with span("step.clip"):
+            grads, grad_norm, max_norm = adaptive_clip(state, grads, enabled=clip_gradients)
+        with span("step.optimizer"):
+            state.apply_gradients(grads)
+        with span("step.ema"):
+            state.update_ema(ema_decay)
         metrics["grad_norm"] = grad_norm
         metrics["max_grad_norm"] = max_norm
         return metrics

@@ -1,14 +1,48 @@
-"""Profiling hooks: ``torch.profiler`` traces, a step timer, a graph dump.
+"""Profiling hooks: the program's spans, ``torch.profiler`` traces, a graph dump.
 
 Port of ``bio_diffusion_tpu/utils/profiling.py``:
+
+* ``span(name)`` marks a piece of the program's work for a profiler that
+  runs: ``torch.profiler.record_function(name)``, so the span shares the
+  clock of the card's events in the same trace.  With no profiler running
+  it is one C call and a shared no-op.  The spans, each around exactly the
+  work it names:
+
+  ================================  ==============================================
+  ``trainer.epoch``                 ``train/loop.py::Trainer.train_epoch``, the whole call
+  ``trainer.data``                  each ``next()`` on the epoch's batch iterator:
+                                    collation (``data/native_loader.py``)
+  ``trainer.h2d``                   each batch's ``.to(device)``
+  ``trainer.step``                  each call of the train step
+  ``trainer.readback``              the epoch's one device-to-host read of its step
+                                    metrics, the finiteness check and the loggers
+  ``step.forward``                  ``train/step.py``: the loss, once a micro-batch
+  ``step.backward``                 ``torch.autograd.grad`` of it, once a micro-batch
+  ``step.reduce``                   data-parallel only: the all-reduce of the
+                                    gradients and metrics, or on a model axis
+                                    ``ModelShards.reduce_gradients``
+  ``step.clip``                     ``adaptive_clip``
+  ``step.optimizer``                AMSGrad's update, ``TrainState.apply_gradients``
+  ``step.ema``                      ``TrainState.update_ema``
+  ``sampler.prior``                 ``train/sampling.py::SegmentedSampler.run``: the
+                                    draws and each replica's ``init_sample_noise``
+  ``sampler.step``                  each reverse step over all replicas, the copy
+                                    of a kept frame included
+  ``sampler.decode``                ``decode_sample`` on each replica
+  ``sampler.readback``              the result's gather to the host and the kept
+                                    frames' copy
+  ``message_layer.forward``         each call of ``ops/message_layer.py::message_layer``
+  ``message_layer.backward``        each ``MessageLayerFunction.backward`` (on a
+                                    card, on autograd's device thread)
+  ``message_layer.backward.chunk``  each kernel call of that backward on a card,
+                                    one a chunk of whole molecules
+  ================================  ==============================================
 
 * ``profile_trace(log_dir)`` records host ops and, where a card is present,
   its kernels (CPU and CUDA activities) and writes a Chrome trace
   (``trace.json``, loadable in Perfetto or ``chrome://tracing``) under
   ``log_dir``; ``None`` is a no-op.  Unlike the JAX package's, a profiler
   that cannot start raises instead of warning and going on untraced.
-* ``StepTimer`` times steps on the host clock, synchronizing the device it
-  measures before it reads the clock.
 * ``dump_computation_graph`` is the counterpart of the JAX package's jaxpr /
   HLO dump: the module tree and the op sequence of one call.
 """
@@ -17,15 +51,24 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
-import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
 
 from bio_diffusion_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs, else
+    one shared no-op context."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _activities():
@@ -55,37 +98,6 @@ def profile_trace(log_dir: Optional[str]):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Rolling wall-clock step timer; ``stop`` synchronizes ``device`` (a
-    CUDA device) before it reads the clock."""
-
-    def __init__(self, window: int = 50, device=None):
-        self.window = window
-        self.device = torch.device(device) if device is not None else None
-        self.times: List[float] = []
-        self._t0 = None
-
-    def _sync(self):
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def start(self):
-        self._sync()
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        self._sync()
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else float("nan")
 
 
 def dump_computation_graph(fn, args, out_dir: str, name: str = "forward") -> Dict[str, str]:

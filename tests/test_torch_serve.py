@@ -57,6 +57,8 @@ def test_generate_answers_requests(server):
     assert server.stats["batches"] >= 3  # 3 jobs at batch 2, then 2 more
     desc = server.describe()
     assert desc["device"] == "cpu" and desc["batch_size"] == 2 and desc["buckets"] == [6]
+    # the third job waited at least for the first batch's run
+    assert desc["stats"]["queue_wait_s"] >= desc["stats"]["max_queue_wait_s"] > 0
 
 
 def test_seeded_request_repeats_exactly(server):
