@@ -16,22 +16,33 @@
 //   chain  per stage v@wcomb 96x51 + merged@wsc 273x256 + silu@wg 256x32
 //          + vh@wu 24x96 = 85,280, three stages = 255,840
 //   attention 256
-// = 298,032 MAC = 0.60 MFLOP per row (block-diagonal zeros included).  At
-// B=8, N=19 one layer is 2,888 rows = 1.7 GFLOP, while it moves ~1.6 MB of
-// device memory in bf16: the packed edge tensor (2,888 x 122 values,
-// 0.7 MB), ~0.3 M weights (0.6 MB, read by every block, so L2-resident),
-// the node projections and the outputs (0.3 MB).  ~1,000 FLOP per byte is
-// far above the card's balance point (~295 for bf16 tensor cores, ~20 for
-// f32 FMA): the kernel is compute-bound.
+// = 298,032 MAC = 0.60 MFLOP per real row (block-diagonal zeros included),
+// a real row being an edge (i, j) whose mask is nonzero: sum_b n_b^2 rows
+// for molecules of n_b atoms, whatever N the batch is padded to.  Per real
+// row the kernel moves one packed edge row (122 values) and reads the
+// ~0.3 M weights (0.6 MB in bf16) once a block from L2; ~1,000 FLOP per
+// byte of device memory is far above the card's balance point (~295 for
+// bf16 tensor cores, ~20 for f32 FMA): the kernel is compute-bound, and the
+// least it can take is the real rows' FLOPs over the peak.
 //
 // What the design does about it.  One block per (molecule b, source node i)
-// walks the targets j in tiles of ROWS rows.  A tile's per-edge state (s, v,
-// the stage inputs and outputs) stays in shared memory in f32 for the whole
-// layer, so no per-edge intermediate ever reaches device memory; the sum over
-// j is a block-local f32 accumulation (deterministic, no atomics).  Tiling j
-// makes any N work (GEOM's 181 included) with no node padding.  The chain
-// stage and the attention are device functions in message_layer_common.cuh,
-// shared with the flat-row chain (gcp2_chain.cu).
+// first lists the targets j whose edge mask EM(i, j) is nonzero, ascending
+// (every warp ballots the mask column, warp 0 writes the list to shared
+// memory), and computes only those rows: padded atoms, and any hole in the
+// mask, cost one mask read each.  With trailing padding a real node's list
+// is 0..n_b-1 and a padded node's is empty (its outputs are the zeros the
+// block stores).  The block walks its list in tiles of ROWS rows; a tile's
+// per-edge state (s, v, the stage inputs and outputs) stays in shared memory
+// in f32 for the whole layer, so no per-edge intermediate ever reaches
+// device memory; the sum over j is a block-local f32 accumulation in
+// ascending j (deterministic, no atomics).  A row left out would add
+// rnd(x * 0), a zero, so the sums over the kept rows are bit for bit those
+// over all N, and NaN or Inf in a masked row no longer reaches them.  The
+// products are row-independent, so computing a row in another tile or
+// position changes none of its bits.  Tiling j makes any N work (GEOM's 181
+// included) with no node padding.  The chain stage and the attention are
+// device functions in message_layer_common.cuh, shared with the flat-row
+// chain (gcp2_chain.cu).
 //
 // The products.  In the bf16 instantiation the four wide kinds (the first
 // GCP's [e | vnorm | schid] @ wsx and silu @ wg, each stage's merged @ wsc
@@ -48,9 +59,9 @@
 // rows, reads the tile as broadcast float4 loads): float32 is the parity
 // mode and keeps full f32 products (no TF32).  What bounds the bf16 kernel
 // now (cli/kernel_phases.py): the wide products wait on their weights, which
-// every block reads from L2 (~0.53 MB a block, ~2.5 GB per layer at B=250,
-// N=19), and the small products on latency-bound FMA loops (~31.5k
-// multiply-adds per row), each near half of a block's time.
+// every block reads from L2 (~0.53 MB a block and tile of rows), and the
+// small products on latency-bound FMA loops (~31.5k multiply-adds per row),
+// each near half of a block's time.
 //
 // Numerics follow the TPU kernel: products accumulate in f32; in the bf16
 // instantiation every value the TPU kernel rounds to the compute dtype (stage
@@ -63,6 +74,7 @@ namespace {
 
 constexpr int ROWS = 32;      // target rows per tile
 constexpr int THREADS = 256;  // threads per block
+constexpr int RPT = 8;        // rows a thread owns in the FMA products: a tile computes nrows rounded up to RPT
 
 template <typename T>
 struct Params {
@@ -104,8 +116,10 @@ struct Layout {
   __host__ __device__ int tile_floats() const { return ROWS * (lda + ldv + ldh + ldx + ldg + 12 + 2); }
 };
 
+// Two blocks an SM (their shared memory fits): one block's barriers and
+// latency-bound FMA loops hide behind the other's products.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 message_layer_kernel(const Params<T> p) {
   using NT = Num<T>;
   extern __shared__ float4 smem4[];
@@ -120,6 +134,7 @@ message_layer_kernel(const Params<T> p) {
   float* EM = FT + ROWS * 12;       // edge mask
   float* SC = EM + ROWS;            // attention scale x mask
   float* AGG = SC + ROWS;           // [S + 3V] running sum over j
+  int* KEPT = reinterpret_cast<int*>(AGG + p.S + 3 * p.V);  // [N] targets j with EM(i, j) != 0
 
   const int i = blockIdx.x, b = blockIdx.y;
   PHASE_START();
@@ -129,17 +144,40 @@ message_layer_kernel(const Params<T> p) {
   const T* pj0 = p.proj_j + (size_t)b * N * PW;
   const T* ep_i = p.epack + ((size_t)b * N * N + (size_t)i * N) * P;
 
+  auto store = [&](int c, float x) {  // column c of s_agg[b, i] | v_agg[b, i]
+    if (c < S) p.s_agg[(size_t)(b * N + i) * S + c] = NT::st(x);
+    else p.v_agg[(size_t)(b * N + i) * V3 + c - S] = NT::st(x);
+  };
+
+  // ---- the targets to compute: j with EM(i, j) != 0, ascending; every
+  // warp counts them, warp 0 lists them (the first tile's barrier publishes
+  // the list) ----
+  const int lane = threadIdx.x % 32;
+  int kept = 0;
+  for (int jw = 0; jw < N; jw += 32) {
+    const int j = jw + lane;
+    const bool keep = j < N && NT::ld(ep_i[(size_t)j * P + Se + 3 * Ve + 9]) != 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (keep && threadIdx.x < 32) KEPT[kept + __popc(ballot & ((1u << lane) - 1u))] = j;
+    kept += __popc(ballot);
+  }
+  PHASE_ROWS(kept / ROWS * ROWS + (kept % ROWS + RPT - 1) / RPT * RPT, N);
+  if (kept == 0) {  // no target (a padded node): the sums are zero
+    for (int c = threadIdx.x; c < S + V3; c += blockDim.x) store(c, 0.f);
+    return;
+  }
   for (int c = threadIdx.x; c < S + V3; c += blockDim.x) AGG[c] = 0.f;
 
-  for (int j0 = 0; j0 < N; j0 += ROWS) {
-    const int nrows = min(ROWS, N - j0);
+  for (int j0 = 0; j0 < kept; j0 += ROWS) {
+    const int nrows = min(ROWS, kept - j0);
+    const int* J = KEPT + j0;  // this tile's targets
     __syncthreads();  // previous tile's aggregation has read every buffer
     PHASE_MARK();
 
     // ---- load the tile's edge rows (rows past nrows are zero) ----
     for (int idx = threadIdx.x; idx < ROWS * P; idx += blockDim.x) {
       const int r = idx / P, q = idx % P;
-      const float val = r < nrows ? NT::ld(ep_i[(size_t)(j0 + r) * P + q]) : 0.f;
+      const float val = r < nrows ? NT::ld(ep_i[(size_t)J[r] * P + q]) : 0.f;
       if (q < Se) A[r * L.lda + q] = val;
       else if (q < Se + 3 * Ve) X[r * L.ldx + q - Se] = val;
       else if (q < Se + 3 * Ve + 9) FT[r * 12 + q - Se - 3 * Ve] = val;
@@ -149,8 +187,8 @@ message_layer_kernel(const Params<T> p) {
     PHASE_MARK();
 
     // ---- GCP1: vh | vdf = proj_i + proj_j + xi @ wve ----
-    tile_mm<8>(X, L.ldx, nrows, 3 * Ve, p.wve, W1, [&](int r, int c, float acc) {
-      const float pj = r < nrows ? NT::ld(pj0[(size_t)(j0 + r) * PW + S + c]) : 0.f;
+    tile_mm<RPT>(X, L.ldx, nrows, 3 * Ve, p.wve, W1, [&](int r, int c, float acc) {
+      const float pj = r < nrows ? NT::ld(pj0[(size_t)J[r] * PW + S + c]) : 0.f;
       Hb[r * L.ldh + c] = (NT::ld(pi[S + c]) + pj) + acc;
     });
     __syncthreads();
@@ -159,8 +197,8 @@ message_layer_kernel(const Params<T> p) {
     __syncthreads();
     PHASE_MARK();
     // s2 = proj_i + proj_j + [e | vnorm | schid] @ wsx + bs
-    wide_mm<4, 8>(A, L.lda, nrows, Se + H1 + 9, p.wsx, S, [&](int r, int c, float acc) {
-      const float pj = r < nrows ? NT::ld(pj0[(size_t)(j0 + r) * PW + c]) : 0.f;
+    wide_mm<4, RPT>(A, L.lda, nrows, Se + H1 + 9, p.wsx, S, [&](int r, int c, float acc) {
+      const float pj = r < nrows ? NT::ld(pj0[(size_t)J[r] * PW + c]) : 0.f;
       const float s2 = (NT::ld(pi[c]) + pj) + (acc + NT::ld(p.bs1[c]));
       X[r * L.ldx + c] = NT::rnd(s2 * sigmoid_f(s2));
     });
@@ -171,7 +209,7 @@ message_layer_kernel(const Params<T> p) {
     });
     __syncthreads();
     PHASE_MARK();
-    tile_mm<8>(Hb, L.ldh, nrows, 3 * H1, p.wu1, V3, [&](int r, int c, float acc) {
+    tile_mm<RPT>(Hb, L.ldh, nrows, 3 * H1, p.wu1, V3, [&](int r, int c, float acc) {
       Vb[r * L.ldv + c] = NT::rnd(NT::rnd(acc) * Gt[r * L.ldg + c % V]);
     });
     for (int idx = threadIdx.x; idx < ROWS * S; idx += blockDim.x) {
@@ -206,12 +244,7 @@ message_layer_kernel(const Params<T> p) {
   }
   __syncthreads();
   PHASE_MARK();
-  T* so = p.s_agg + (size_t)(b * N + i) * S;
-  T* vo = p.v_agg + (size_t)(b * N + i) * V3;
-  for (int c = threadIdx.x; c < S + V3; c += blockDim.x) {
-    if (c < S) so[c] = NT::st(AGG[c]);
-    else vo[c - S] = NT::st(AGG[c]);
-  }
+  for (int c = threadIdx.x; c < S + V3; c += blockDim.x) store(c, AGG[c]);
   PHASE_MARK();
 }
 
@@ -246,7 +279,7 @@ int launch(const void* proj_i, const void* proj_j, const void* epack, const void
   p.H1 = H1; p.Hc = Hc; p.G = G;
   if (B <= 0 || N <= 0 || B > 65535 || P != Se + 3 * Ve + 10) return (int)cudaErrorInvalidValue;
   const Layout L(S, V, Se, Ve, H1, Hc);
-  const size_t smem = sizeof(float) * ((size_t)L.tile_floats() + S + 3 * V);
+  const size_t smem = sizeof(float) * ((size_t)L.tile_floats() + S + 3 * V) + sizeof(int) * N;
   cudaError_t err = cudaFuncSetAttribute(message_layer_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -258,10 +291,11 @@ int launch(const void* proj_i, const void* proj_j, const void* epack, const void
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs at these widths.
-int message_layer_smem_bytes(int S, int V, int Se, int Ve, int H1, int Hc) {
+// Bytes of dynamic shared memory one block needs at these widths and N
+// nodes a molecule.
+int message_layer_smem_bytes(int S, int V, int Se, int Ve, int H1, int Hc, int N) {
   const Layout L(S, V, Se, Ve, H1, Hc);
-  return (int)(sizeof(float) * ((size_t)L.tile_floats() + S + 3 * V));
+  return (int)(sizeof(float) * ((size_t)L.tile_floats() + S + 3 * V) + sizeof(int) * N);
 }
 
 // Blocks of the float32 (bf16 == 0) or bf16 kernel that one SM holds at

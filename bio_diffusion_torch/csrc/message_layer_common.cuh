@@ -40,9 +40,13 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-
 // chain_stage, one at the kernel's or the tile's end) and adds the cycles
 // since the previous one to that mark's counter, in the order the block
 // passes them; PHASE_FOLD starts that order again, so every tile of target
-// rows adds to the same counters.  Otherwise the marks compile to nothing.
+// rows adds to the same counters.  PHASE_ROWS(computed, covered) adds a
+// block's edge rows to the last two counters: those its products computed
+// and those its grid position covers.  Otherwise all of them compile to
+// nothing.
 #ifdef PHASE_PROBE
 constexpr int PHASE_SLOTS = 64;
+constexpr int PHASE_MARKS = PHASE_SLOTS - 2;  // the rest count rows
 __device__ unsigned long long phase_cycles[PHASE_SLOTS];
 __shared__ long long phase_t;
 __shared__ int phase_i;
@@ -54,7 +58,7 @@ __shared__ int phase_i;
   do {                                                                                    \
     if (threadIdx.x == 0) {                                                               \
       const long long t_ = clock64();                                                     \
-      if (phase_i < PHASE_SLOTS)                                                          \
+      if (phase_i < PHASE_MARKS)                                                          \
         atomicAdd(&phase_cycles[phase_i], (unsigned long long)(t_ - phase_t));            \
       ++phase_i;                                                                          \
       phase_t = t_;                                                                       \
@@ -64,10 +68,18 @@ __shared__ int phase_i;
   do {                                    \
     if (threadIdx.x == 0) phase_i = 0;    \
   } while (0)
+#define PHASE_ROWS(computed, covered)                                                    \
+  do {                                                                                   \
+    if (threadIdx.x == 0) {                                                              \
+      atomicAdd(&phase_cycles[PHASE_MARKS], (unsigned long long)(computed));             \
+      atomicAdd(&phase_cycles[PHASE_MARKS + 1], (unsigned long long)(covered));          \
+    }                                                                                    \
+  } while (0)
 #else
 #define PHASE_START() do {} while (0)
 #define PHASE_MARK() do {} while (0)
 #define PHASE_FOLD() do {} while (0)
+#define PHASE_ROWS(computed, covered) do {} while (0)
 #endif
 
 // Blocks of `kernel` that one SM holds at `threads` threads and `smem` bytes

@@ -417,6 +417,9 @@ class GCPNetDynamics(nn.Module):
         epack = torch.cat([
             e_emb, xi_emb.reshape(b, n, n, 3 * ve_dim), frames_t, edge_mask[..., None].to(cdt),
         ], dim=-1).reshape(b, n * n, -1)
+        # the layers read only the packed tensor: its pieces would otherwise
+        # stay resident through every layer (two fifths of its size again)
+        del e_emb, xi_emb, frames_t
 
         x = f["x_cent"]
         node_m = mask_f[..., None].to(cdt)

@@ -124,6 +124,16 @@ def select_bucket(n: int, bucket_sizes: Optional[Sequence[int]] = None, pad_to_m
     return int(-(-n // pad_to_multiple) * pad_to_multiple)
 
 
+def batch_pad(num_nodes: Sequence[int], nodes_dist: NumNodesDistribution,
+              bucket_sizes: Optional[Sequence[int]] = None, pad_to_multiple: int = 2) -> int:
+    """The size ``sample_molecules`` pads a batch of molecules of
+    ``num_nodes`` atoms to: its largest size's bucket (``select_bucket``),
+    never past the dataset's largest molecule unless the batch holds a
+    larger one."""
+    n = int(np.max(num_nodes))
+    return min(select_bucket(n, bucket_sizes, pad_to_multiple), max(int(nodes_dist.max_n), n))
+
+
 def sample_molecules(
     sampler: SegmentedSampler,
     generator: torch.Generator,
@@ -155,11 +165,7 @@ def sample_molecules(
     xs, masks, sizes = [], [], []
     for start in range(0, num_samples, batch_size):
         num_nodes = sizes_all[start: start + batch_size]
-        if pad_to is not None:
-            n_pad = pad_to
-        else:
-            n_pad = select_bucket(int(num_nodes.max()), bucket_sizes, pad_to_multiple)
-            n_pad = min(n_pad, max(int(nodes_dist.max_n), int(num_nodes.max())))
+        n_pad = pad_to if pad_to is not None else batch_pad(num_nodes, nodes_dist, bucket_sizes, pad_to_multiple)
         node_mask = make_node_mask(num_nodes, n_pad)
         context = None
         if props_distr is not None:

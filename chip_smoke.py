@@ -633,8 +633,8 @@ def check_kernel(torch, evd):
 
 def kernel_occupancy(torch, evd):
     """Dynamic shared memory per block and blocks per SM of the forward kernel
-    (B1) and the chain kernel (B3) at full width, as their launches set them
-    up -> {name: {dtype: (bytes, blocks)}}."""
+    (B1, at the dataset's largest molecule) and the chain kernel (B3) at full
+    width, as their launches set them up -> {name: {dtype: (bytes, blocks)}}."""
     import ctypes
 
     from bio_diffusion_torch.ops import build
@@ -644,10 +644,11 @@ def kernel_occupancy(torch, evd):
     s_dim, v_dim, se = mc.h_hidden_dim, mc.chi_hidden_dim, mc.e_hidden_dim
     h1, hc = g1["wu_bd"].shape[0] // 3, (chain[0].shape[2] - 27) // 3
     ml_lib, chain_lib = build.load_libraries("message_layer", "gcp2_chain")
-    for fn, nargs in ((ml_lib.message_layer_smem_bytes, 6), (chain_lib.gcp2_chain_smem_bytes, 3),
+    for fn, nargs in ((ml_lib.message_layer_smem_bytes, 7), (chain_lib.gcp2_chain_smem_bytes, 3),
                       (ml_lib.message_layer_blocks_per_sm, 2), (chain_lib.gcp2_chain_blocks_per_sm, 2)):
         fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
-    smem = {"message_layer": ml_lib.message_layer_smem_bytes(s_dim, v_dim, se, ve, h1, hc),
+    n_max = 29  # QM9's largest molecule
+    smem = {"message_layer": ml_lib.message_layer_smem_bytes(s_dim, v_dim, se, ve, h1, hc, n_max),
             "gcp2_chain": chain_lib.gcp2_chain_smem_bytes(s_dim, v_dim, hc)}
     per_sm = {"message_layer": ml_lib.message_layer_blocks_per_sm,
               "gcp2_chain": chain_lib.gcp2_chain_blocks_per_sm}

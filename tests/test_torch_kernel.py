@@ -33,6 +33,14 @@ Ve=8: H1=18, wsx's K=43, 81 GCP1 columns) runs the forward at N=53 (a ragged
 second tile) and N=181 (six tiles, the last of 21 rows) and the backward at
 N=53; the backward's chunks of molecules are held against its whole batch,
 and the wrapper's chunk plan against the kernel's row width.
+
+The forward computes only the edge rows its mask keeps: with NaN in every
+padded row its real nodes' outputs are those of the zero-padded run bit for
+bit and its padded nodes' exactly 0 (QM9 width, sizes 0 to 29 at N=29; GEOM
+width, sizes 20 to 96 at N=96, whole 32-row tiles skipped); a mask with
+holes (no prefix of the targets kept, weights of 0.5) is held against the
+plain version at the forward's tolerances; and its shared memory, with the
+list of kept targets, still fits two blocks on an SM.
 """
 
 import pytest
@@ -104,6 +112,106 @@ def test_kernel_matches_plain_on_card(dtype, dims, b, n):
         assert k.dtype == dtype and torch.isfinite(k).all()
         err = (k.float() - p.float()).abs().max().item()
         assert err <= TOL[dtype] * p.float().abs().max().item(), err
+
+
+def masked_layer(dims, dtype, sizes, n, fill, seed=0):
+    """``make_layer``'s weights and seeded inputs for molecules of ``sizes``
+    atoms padded at the end to ``n``, on the card: the real nodes' and real
+    edge rows' values drawn, every padded edge row's non-mask columns and
+    the padded nodes' ``s`` and ``v`` set to ``fill``, the mask column the
+    outer product of the node mask."""
+    b = len(sizes)
+    (s, v, epack), g1, chain, ve = make_layer(dims, dtype, "cuda", b, n, seed)
+    gen = torch.Generator().manual_seed(seed + 2)
+    s, v = torch.randn(s.shape, generator=gen), torch.randn(v.shape, generator=gen)
+    epack = torch.randn(epack.shape, generator=gen)
+    mask = (torch.arange(n)[None, :] < torch.tensor(sizes)[:, None]).float()
+    em = (mask[:, :, None] * mask[:, None, :]).reshape(b, n * n, 1)
+    epack = torch.cat([torch.where(em > 0, epack[..., :-1], torch.full_like(epack[..., :-1], fill)), em], dim=-1)
+    s, v = (torch.where(mask[..., None] > 0, t, torch.full_like(t, fill)) for t in (s, v))
+    return [t.to("cuda", dtype) for t in (s, v, epack)], mask.bool().cuda(), g1, chain, ve
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,n,sizes", [(QM9, 29, [0, 1, 7, 13, 19, 24, 28, 29]),
+                                          (GEOM, 96, [20, 33, 64, 96])])
+def test_kernel_skips_padded_rows_bit_for_bit_on_card(dtype, dims, n, sizes):
+    """The forward computes only the edge rows its mask keeps: with NaN in
+    every padded edge row and padded node, the real nodes' outputs equal the
+    run with those values zeroed bit for bit, no NaN appears, and the padded
+    nodes' outputs are exactly 0.  QM9's sizes span one tile of targets from
+    a molecule of no atom to none padded; GEOM's skip whole 32-row tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (s, v, epack), mask, g1, chain, ve = masked_layer(dims, dtype, sizes, n, float("nan"))
+    (s0, v0, epack0), _, _, _, _ = masked_layer(dims, dtype, sizes, n, 0.0)
+    nan_out = ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=ve)
+    zero_out = ml.fused_message_layer(s0, v0, epack0, g1, chain, ve_dim=ve)
+    plain = ml.message_layer_plain(s0, v0, epack0, g1, chain, ve_dim=ve)
+    torch.cuda.synchronize()
+    for got, zeroed, p in zip(nan_out, zero_out, plain):
+        assert not torch.isnan(got).any()
+        assert torch.equal(got[mask], zeroed[mask])
+        assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
+        assert torch.equal(zeroed[~mask], torch.zeros_like(zeroed[~mask]))
+        err = (zeroed.float() - p.float()).abs().max().item()
+        assert err <= TOL[dtype] * p.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,b,n", [(QM9, 3, 29), (GEOM, 2, 53)])
+def test_kernel_matches_plain_with_holes_in_the_mask_on_card(dtype, dims, b, n):
+    """A mask with holes: a real atom masked out mid-molecule, and edges
+    dropped (or weighted 0.5) so that the edge mask is no outer product; the
+    kept rows are then no prefix of 0..N-1.  The masked rows keep their
+    values, which the plain version multiplies by 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (s, v, epack), g1, chain, ve = make_layer(dims, dtype, "cuda", b, n, seed=5)
+    gen = torch.Generator().manual_seed(7)
+    s, v = (torch.randn(t.shape, generator=gen).to("cuda", dtype) for t in (s, v))
+    node = torch.ones(b, n)
+    node[0, n // 2] = 0  # a hole mid-molecule
+    node[-1, n - 4:] = 0  # trailing padding
+    em = node[:, :, None] * node[:, None, :]
+    drop = torch.rand(b, n, n, generator=gen)
+    em = torch.where(drop < 0.3, torch.zeros_like(em), torch.where(drop > 0.9, 0.5 * em, em))
+    epack = torch.cat([torch.randn(b, n * n, epack.shape[-1] - 1, generator=gen), em.reshape(b, n * n, 1)], dim=-1)
+    epack = epack.to("cuda", dtype)
+    sk, vk = ml.fused_message_layer(s, v, epack, g1, chain, ve_dim=ve)
+    sp, vp = ml.message_layer_plain(s, v, epack, g1, chain, ve_dim=ve)
+    torch.cuda.synchronize()
+    for k, p in ((sk, sp), (vk, vp)):
+        assert k.dtype == dtype and torch.isfinite(k).all()
+        err = (k.float() - p.float()).abs().max().item()
+        assert err <= TOL[dtype] * p.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [0, 1])
+@pytest.mark.parametrize("dims,h1,n", [(QM9, 20, 29), (GEOM, 18, 192)])
+def test_kernel_holds_two_blocks_per_sm_on_card(bf16, dims, h1, n):
+    """The forward's shared memory (its tile and the list of kept targets, N
+    ints) leaves room for two blocks on an SM at QM9's and GEOM's widths and
+    largest padded sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the occupancy query")
+    import ctypes
+
+    from bio_diffusion_torch.ops.build import load_library
+
+    lib = load_library("message_layer")
+    lib.message_layer_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.message_layer_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.message_layer_smem_bytes.restype = lib.message_layer_blocks_per_sm.restype = ctypes.c_int
+    s_dim, v_dim, se, ve = dims
+    smem = lib.message_layer_smem_bytes(s_dim, v_dim, se, ve, h1, 8, n)
+    assert smem == lib.message_layer_smem_bytes(s_dim, v_dim, se, ve, h1, 8, 0) + 4 * n
+    assert lib.message_layer_blocks_per_sm(bf16, smem) == 2
 
 
 # backward kernel vs plain version, relative to max|plain| of each output:

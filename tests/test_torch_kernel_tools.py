@@ -29,13 +29,20 @@ def test_instrumented_source_marks_every_named_phase():
     assert stage.count("PHASE_MARK();") == stage.count("__syncthreads();") == 5
     assert kernel.count("PHASE_MARK();") == kernel.count("__syncthreads();") + 1
     assert kernel.count("PHASE_START();") == 1
+    # one count of computed and covered rows a block, in the slots past the marks
+    assert kernel.count("PHASE_ROWS(") == 1
     for num_gcps in (1, 3):
         names = kernel_phases.phase_names(num_gcps)
         assert len(names) == len(set(names)) == kernel.count("PHASE_MARK();") + num_gcps * stage.count("PHASE_MARK();")
-        assert len(names) <= kernel_phases.SLOTS
-    # without PHASE_PROBE the marks are empty statements
+        assert len(names) <= kernel_phases.ROW_SLOTS[0]
+    # without PHASE_PROBE the marks and the row counts are empty statements
     assert "#define PHASE_MARK() do {} while (0)" in common
+    assert "#define PHASE_ROWS(computed, covered) do {} while (0)" in common
     assert f"constexpr int PHASE_SLOTS = {kernel_phases.SLOTS};" in common
+    assert "constexpr int PHASE_MARKS = PHASE_SLOTS - 2;" in common
+    assert kernel_phases.ROW_SLOTS == (kernel_phases.SLOTS - 2, kernel_phases.SLOTS - 1)
+    assert f"constexpr int ROWS = {kernel_phases.ROWS};" in source
+    assert f"constexpr int RPT = {kernel_phases.RPT};" in source
     assert "phases_read" in source[source.index("#ifdef PHASE_PROBE"):]
 
 
@@ -61,9 +68,52 @@ def test_bwd_row_kernel_marks_every_named_phase():
     for num_gcps in (1, 3, 4):
         names = kernel_phases.phase_names(num_gcps, "bwd")
         assert len(names) == len(set(names)) == kernel.count("PHASE_MARK();") + (num_gcps - 1) * per_stage
-        assert len(names) <= kernel_phases.SLOTS
+        assert len(names) <= kernel_phases.ROW_SLOTS[0]
     probe = source[source.index("#ifdef PHASE_PROBE"):]
     assert "phases_read" in probe and "phases_reset" in probe
+
+
+@pytest.mark.parametrize("sizes,pad,computed", [
+    # a block of a real node of n atoms computes n rows rounded up to 8 (RPT),
+    # in tiles of 32: 1 -> 8, 8 -> 8, 9 -> 16, 29 -> 32
+    ([1, 8, 9, 29], 29, 1 * 8 + 8 * 8 + 9 * 16 + 29 * 32),
+    # past one tile only the last is rounded: 33 -> 32 + 8, 64 -> 64, 70 -> 64 + 8
+    ([33, 64, 70], 96, 33 * 40 + 64 * 64 + 70 * 72),
+    # a molecule of no atom computes nothing; all padding covers its rows
+    ([0, 5, 6], 6, 5 * 8 + 6 * 8),
+    ([32, 32], 32, 2 * 32 * 32),
+])
+def test_expected_rows_match_a_hand_count(sizes, pad, computed):
+    assert kernel_phases.expected_rows(sizes, pad) == (computed, len(sizes) * pad * pad)
+
+
+def test_qm9_sizes_pad_as_the_sampler_pads():
+    """``--qm9-sizes``: the sizes and padded size ``sample_molecules`` gives
+    one batch of B molecules drawn from the QM9 histogram with the same
+    seed (a sampler that records the node masks it is handed); at B=250
+    about half the covered rows are computed."""
+    import numpy as np
+
+    from bio_diffusion_torch.data.dataset_info import QM9_WITH_H
+    from bio_diffusion_torch.models.distributions import NumNodesDistribution
+    from bio_diffusion_torch.train.sampling import sample_molecules
+
+    class Recorder:
+        masks = []
+
+        def run(self, node_mask, generator, **kwargs):
+            self.masks.append(node_mask)
+            return np.zeros(node_mask.shape + (3,), np.float32)
+
+    dist = NumNodesDistribution(QM9_WITH_H["n_nodes"])
+    for seed in range(4):
+        sizes, pad = kernel_phases.qm9_batch(250, seed)
+        sample_molecules(Recorder(), None, 250, dist, np.random.default_rng(seed), batch_size=250)
+        mask = Recorder.masks[-1]
+        assert (pad, sorted(sizes.tolist())) == (mask.shape[1], sorted(mask.sum(1).astype(int).tolist()))
+        assert kernel_phases.qm9_batch(250, seed)[0].tolist() == sizes.tolist()
+        computed, covered = kernel_phases.expected_rows(sizes, pad)
+        assert 0.45 < computed / covered < 0.6
 
 
 def test_kernel_phases_refuses_without_a_card():
@@ -79,6 +129,10 @@ def test_kernel_phases_refuses_without_a_card():
         kernel_phases.main(["--kernel", "bwd", "--n", "40", "--precision", "fp32"])
     with pytest.raises(SystemExit, match="fwd or bwd"):
         kernel_phases.main(["--kernel", "chain"])
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        kernel_phases.main(["--qm9-sizes", "3", "--precision", "fp32"])
+    with pytest.raises(SystemExit, match="give no --n"):
+        kernel_phases.main(["--qm9-sizes", "3", "--n", "29"])
 
 
 class _Library:
